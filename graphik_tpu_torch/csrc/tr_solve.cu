@@ -1,13 +1,16 @@
 // Batched Riemannian trust-region solve of the EDM-completion problem, one
 // warp per instance, for NVIDIA Hopper (sm_90a).
 //
-// Replaces graphik_tpu/ops/tr_pallas.py::_tr_kernel (its anchor-free
-// branch), the fused Pallas TPU kernel that runs the whole outer TR loop
-// plus Steihaug-Toint truncated CG for a tile of instances. It computes the
-// same thing statement for statement (stop rules, rho regularization,
-// radius updates, the reduced 3x3 Lyapunov-Cholesky horizontal projection,
-// per-lane counters); graphik_tpu_torch/ops/tr_solve.py holds the plain
-// torch transcription the kernel is checked against.
+// Replaces graphik_tpu/ops/tr_pallas.py::_tr_kernel, the fused Pallas TPU
+// kernel that runs the whole outer TR loop plus Steihaug-Toint truncated CG
+// for a tile of instances: its anchor-free branch as tr_kernel<D, EPL,
+// false> and its has_anchors branch (the obstacle reduction: hinge terms of
+// robot nodes against constant anchor points) as tr_kernel<D, EPL, true>.
+// It computes the same thing statement for statement (stop rules, rho
+// regularization, radius updates, the reduced 3x3 Lyapunov-Cholesky
+// horizontal projection, per-lane counters); graphik_tpu_torch/ops/
+// tr_solve.py holds the plain torch transcription the kernel is checked
+// against, in the kernel's summation order.
 //
 // What bounds it on the card. One UR10 instance is N = 16 nodes x d = 3
 // coordinates and E = 64 edges: every tCG step is a Hessian-vector product
@@ -16,48 +19,51 @@
 // is a long chain of tiny dependent steps per instance: latency of the
 // reductions and of the scatter's shared-memory round trip bounds it, not
 // bytes (inputs and outputs are ~1 KB per instance, read and written once)
-// and not flops.
+// and not flops. The table scene adds A = 624 anchor rows (600 live) on 6
+// nodes, evaluated twice per outer iteration.
 //
 // Design, and why.
 // * The TPU kernel puts instances on the 128-wide lane axis and drives a
 //   tile with one loop whose trip count is set by its slowest lane. Here a
 //   warp owns one instance and runs its own loops: every lane of the warp
 //   takes the same branches (all branch conditions come from butterfly
-//   reductions, which leave a bitwise-identical value in every lane), a
-//   finished instance frees its warp at once, and no lane masks are needed.
-//   Per-instance loops reproduce the tile loop exactly because lanes of the
-//   tile never interact and a live lane's iteration count equals the tile's
-//   global counter (so the plateau check on (k+1) % plateau_every holds).
-// * Lane i < N holds node i's d coordinates of every state vector (Y, grad,
-//   eta, Heta, r, delta, the HVP output, the candidate point and its
-//   gradient): ~30 registers, no shared or global memory in the loops.
-// * Edge differences C.Y: lane l owns edges e = l, l + 32, ... (EPL of
-//   them) and gathers the endpoint coordinates with __shfl_sync. This
-//   replaces the MXU incidence matmul of the TPU kernel.
-// * Scatter C^T w: each lane writes its per-edge values into the warp's
-//   slice of shared memory; node lane i then sums its own incidence list
-//   (CSR with signs, ascending edge order). No float atomics, so a run is
-//   bitwise repeatable.
-// * Row sums (the TPU kernel's _rowsum) are __shfl_xor_sync butterflies; the
-//   3x3 Cholesky of the reduced Lyapunov system is scalar code run by every
-//   lane.
-// * The edge table and incidence CSR are loaded into shared memory once per
-//   block. Templates on D (2 or 3) and EPL = ceil(E / 32) <= 4; N <= 32.
-//   The wrapper refuses other shapes.
-// * f32 throughout; there is no matmul, so no TF32. The build passes
-//   -fmad=false so every product and sum rounds as in the plain version.
+//   reductions), a finished instance frees its warp at once, and no lane
+//   masks are needed. Per-instance loops reproduce the tile loop exactly
+//   because lanes of the tile never interact and a live lane's iteration
+//   count equals the tile's global counter (so the plateau check on
+//   (k+1) % plateau_every holds).
+// * The edge machinery (csrc/edge_warp.cuh): lane i < N holds node i's
+//   coordinates; lanes gather edge endpoints with shuffles and scatter
+//   C^T w through a per-warp shared buffer. The edge tables and incidence
+//   CSR are loaded into shared memory once per block. Templates on D
+//   (2 or 3) and EPL = ceil(E / 32) <= 4; N <= 32.
+// * Anchors (HAS_A). The anchor rows come grouped by node (group g: a_R
+//   rows of node u_g), and a group's 100 live rows all fall on one node.
+//   They are staged in dynamic shared memory once per block (centers, 4
+//   parameters, group nodes; ~17.5 KB for the table scene). Each group's
+//   rows are spread over the 32 lanes (row l + 32 t on lane l), and the
+//   group's sum is one butterfly taken by the node lane - the TPU kernel's
+//   a_reduce block row-sums. Cost, gradient and residual are row-wise, once
+//   per outer step. The Hessian-vector product needs no per-row work in
+//   tCG: the centers are constant, so every row of group g has adZ = Z_u
+//   and its term is exactly 2 (K_g Z_u - sigma_g Z_u) with
+//   K_g = sum_r 2 ma_r adY_r adY_r^T (symmetric d x d) and
+//   sigma_g = sum_r sa_r, formed once per outer iteration in hvp_setup and
+//   held by the node lane. That reassociates the TPU kernel's row sum; the
+//   plain version does the same.
+// * HAS_A = false compiles none of the anchor code, so the UR10 instance
+//   is the kernel it was before anchors existed.
 //
 // The entry point allocates nothing, launches on the caller's stream and
 // returns cudaGetLastError().
 
-#include <cuda_runtime.h>
+#include "edge_warp.cuh"
 
 namespace {
 
-constexpr int kMaxN = 32;
-constexpr int kMaxE = 128;
-constexpr int kWarpsPerBlock = 4;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace graphik;
+
+constexpr int kMaxA = 1024;  // anchor rows the build takes (the table scene: 624)
 
 // tCG stop reasons (graphik_tpu/ops/tr_pallas.py:41-44)
 constexpr int kNegativeCurvature = 0;
@@ -73,145 +79,91 @@ struct Params {
   float Delta_bar, Delta0, plateau_rtol, plateau_atol, res_tol;
 };
 
-// jnp.maximum / jnp.minimum: NaN in either operand propagates.
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (a != a || a > b) ? a : b;
-}
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (a != a || a < b) ? a : b;
+// Entries of a symmetric D x D matrix kept as its upper triangle.
+__host__ __device__ constexpr int sym_count(int D) { return D * (D + 1) / 2; }
+__host__ __device__ constexpr int sym_idx(int D, int i, int j) {
+  return i <= j ? i * D - i * (i - 1) / 2 + (j - i) : j * D - j * (j - 1) / 2 + (i - j);
 }
 
-__device__ __forceinline__ bool finite(float x) { return fabsf(x) <= 3.402823466e+38f; }
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(kFull, x, m);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x = jmax(x, __shfl_xor_sync(kFull, x, m));
-  return x;
-}
-
+// The block's anchor tables in shared memory, plus this lane's group.
 template <int D>
-__device__ __forceinline__ float dot(const float (&a)[D], const float (&b)[D]) {
-  float s = a[0] * b[0];
-#pragma unroll
-  for (int k = 1; k < D; ++k) s = s + a[k] * b[k];
-  return s;
-}
+struct Anchors {
+  const float* cen;   // [D][A]
+  const float* par;   // [4][A]: apsi_L, apsi_U, aL_mask, aU_mask
+  const int* node;    // [nsel]: the node of each group
+  int A, nsel, R;
+  bool mine;          // this lane's node has a group
 
-// Per-warp view of the block's shared tables plus this lane's edges.
-template <int D, int EPL>
-struct Warp {
-  int lane;
-  bool has_node;
-  const float* par;     // [5][kMaxE]: omega, psi_L, psi_U, L_mask, U_mask
-  const int* rowptr;    // [N + 1]
-  const int* inc;       // [2E]: edge * 2 + (1 if the node is the edge's ej)
-  float* w;             // this warp's [D][kMaxE] scatter buffer
-  int edge[EPL];        // edge index, or -1 past E
-  int src_i[EPL], src_j[EPL];
-  float dg[EPL];
+  __device__ float p(int which, int r) const { return par[which * A + r]; }
 
-  __device__ float p(int which, int e) const { return par[which * kMaxE + e]; }
-
-  // Y[ei] - Y[ej] for this lane's j-th edge (every lane must call it).
-  __device__ void edge_diff(const float (&Y)[D], int j, float (&out)[D]) const {
+  // Hinge terms of anchor row r at node position Yu.
+  __device__ void terms(const float (&Yu)[D], int r, float (&adY)[D], float& a1,
+                        float& a2) const {
 #pragma unroll
-    for (int k = 0; k < D; ++k)
-      out[k] = __shfl_sync(kFull, Y[k], src_i[j]) - __shfl_sync(kFull, Y[k], src_j[j]);
-  }
-
-  // out = scale * C^T w, w written by the lanes since the last __syncwarp.
-  __device__ void scatter(float scale, float (&out)[D]) const {
-    __syncwarp();
-    float acc[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) acc[k] = 0.f;
-    if (has_node) {
-      for (int q = rowptr[lane]; q < rowptr[lane + 1]; ++q) {
-        const int code = inc[q];
-        const int e = code >> 1;
-        if (code & 1) {
-#pragma unroll
-          for (int k = 0; k < D; ++k) acc[k] = acc[k] - w[k * kMaxE + e];
-        } else {
-#pragma unroll
-          for (int k = 0; k < D; ++k) acc[k] = acc[k] + w[k * kMaxE + e];
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < D; ++k) out[k] = scale * acc[k];
-    __syncwarp();
-  }
-
-  // Cost f, Euclidean gradient g = -2 C^T (s dY) and (when res_tol > 0) the
-  // max relative residual, as tr_pallas.py cost_and_grad.
-  __device__ void cost_grad(const float (&Y)[D], float res_tol, float r_floor,
-                            float& f, float (&g)[D], float& rmax) const {
-    float fpart = 0.f, rpart = 0.f;
-#pragma unroll
-    for (int j = 0; j < EPL; ++j) {
-      float dY[D];
-      edge_diff(Y, j, dY);
-      const int e = edge[j];
-      if (e >= 0) {
-        const float dist = dot(dY, dY);
-        const float om = p(0, e), psiL = p(1, e), psiU = p(2, e);
-        const float s0 = om * (dg[j] - dist);
-        const float e1 = p(3, e) * jmax(psiL - dist, 0.f);
-        const float e2 = p(4, e) * jmax(dist - psiU, 0.f);
-        fpart = fpart + (s0 * s0 + e1 * e1 + e2 * e2);
-        const float s = s0 + e1 - e2;
-#pragma unroll
-        for (int k = 0; k < D; ++k) w[k * kMaxE + e] = s * dY[k];
-        if (res_tol > 0.f) {
-          float r = fabsf(s0) / jmax(dg[j], r_floor);
-          r = jmax(r, e1 / jmax(psiL, r_floor));
-          r = jmax(r, e2 / jmax(psiU, r_floor));
-          rpart = jmax(rpart, r);
-        }
-      }
-    }
-    f = warp_sum(fpart);
-    rmax = res_tol > 0.f ? warp_max(rpart) : 0.f;
-    scatter(-2.f, g);
+    for (int k = 0; k < D; ++k) adY[k] = Yu[k] - cen[k * A + r];
+    const float adist = dot(adY, adY);
+    a1 = p(2, r) * jmax(p(0, r) - adist, 0.f);
+    a2 = p(3, r) * jmax(adist - p(1, r), 0.f);
   }
 };
+
+// Cost f, Euclidean gradient g and (when res_tol > 0) the max relative
+// residual, edge and anchor terms (tr_pallas.py cost_and_grad).
+template <int D, int EPL, bool HAS_A>
+__device__ void cost_grad(const Warp<D, EPL>& c, const Anchors<D>& a, const float (&Y)[D],
+                          float res_tol, float r_floor, float& f, float (&g)[D], float& rmax) {
+  float rpart;
+  c.cost_grad_edges(Y, res_tol, r_floor, f, g, rpart);
+  if constexpr (!HAS_A) {
+    rmax = res_tol > 0.f ? warp_max(rpart) : 0.f;
+    c.scatter(-2.f, g);
+  } else {
+    c.scatter(-2.f, g);
+    float fa = 0.f;
+    for (int gi = 0; gi < a.nsel; ++gi) {
+      const int u = a.node[gi];
+      float Yu[D], wp[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        Yu[k] = __shfl_sync(kFull, Y[k], u);
+        wp[k] = 0.f;
+      }
+      for (int rr = c.lane; rr < a.R; rr += 32) {
+        const int r = gi * a.R + rr;
+        float adY[D], a1, a2;
+        a.terms(Yu, r, adY, a1, a2);
+        fa = fa + (a1 * a1 + a2 * a2);
+        const float sa = a1 - a2;
+#pragma unroll
+        for (int k = 0; k < D; ++k) wp[k] = wp[k] + sa * adY[k];
+        if (res_tol > 0.f)
+          rpart = jmax(rpart, jmax(a1 / jmax(a.p(0, r), r_floor), a2 / jmax(a.p(1, r), r_floor)));
+      }
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const float G = warp_sum(wp[k]);
+        if (c.lane == u) g[k] = g[k] - 2.f * G;
+      }
+    }
+    f = f + warp_sum(fa);
+    rmax = res_tol > 0.f ? warp_max(rpart) : 0.f;
+  }
+}
 
 // Terms of the Riemannian Hessian-vector product that depend only on Y
-// (tr_pallas.py make_hvp): edge differences, s, m and the Cholesky factor of
-// the reduced Lyapunov system.
-template <int D, int EPL>
+// (tr_pallas.py make_hvp): the edge terms, the Cholesky factor of the
+// reduced Lyapunov system and, with anchors, this lane's K_g and sigma_g.
+template <int D, int EPL, bool HAS_A>
 struct Hvp {
-  float dY[EPL][D];
-  float s[EPL], m[EPL];
+  EdgeHvp<D, EPL> e;
   float l11, l21, l31, l22, l32, l33;  // d == 3; d == 2 keeps only l11
+  float aK[HAS_A ? sym_count(D) : 1], asig;
 };
 
-template <int D, int EPL>
-__device__ void hvp_setup(const Warp<D, EPL>& c, const float (&Y)[D], Hvp<D, EPL>& h) {
-#pragma unroll
-  for (int j = 0; j < EPL; ++j) {
-    c.edge_diff(Y, j, h.dY[j]);
-    const int e = c.edge[j];
-    if (e >= 0) {
-      const float dist = dot(h.dY[j], h.dY[j]);
-      const float s0 = c.p(0, e) * (c.dg[j] - dist);
-      const float e1 = c.p(3, e) * jmax(c.p(1, e) - dist, 0.f);
-      const float e2 = c.p(4, e) * jmax(dist - c.p(2, e), 0.f);
-      h.s[j] = s0 + e1 - e2;
-      h.m[j] = c.p(0, e) + c.p(3, e) * (e1 > 0.f ? 1.f : 0.f)
-               + c.p(4, e) * (e2 > 0.f ? 1.f : 0.f);
-    } else {
-      h.s[j] = 0.f;
-      h.m[j] = 0.f;
-    }
-  }
+template <int D, int EPL, bool HAS_A>
+__device__ void hvp_setup(const Warp<D, EPL>& c, const Anchors<D>& a, const float (&Y)[D],
+                          Hvp<D, EPL, HAS_A>& h) {
+  edge_hvp_setup(c, Y, h.e);
   if constexpr (D == 2) {
     const float x11 = warp_sum(Y[0] * Y[0]);
     const float x22 = warp_sum(Y[1] * Y[1]);
@@ -235,11 +187,44 @@ __device__ void hvp_setup(const Warp<D, EPL>& c, const float (&Y)[D], Hvp<D, EPL
     h.l32 = (m23 - h.l31 * h.l21) / h.l22;
     h.l33 = sqrtf(jmax(m33 - h.l31 * h.l31 - h.l32 * h.l32, 1e-30f));
   }
+  if constexpr (HAS_A) {
+#pragma unroll
+    for (int q = 0; q < sym_count(D); ++q) h.aK[q] = 0.f;
+    h.asig = 0.f;
+    for (int gi = 0; gi < a.nsel; ++gi) {
+      const int u = a.node[gi];
+      float Yu[D], kp[sym_count(D)], sp = 0.f;
+#pragma unroll
+      for (int k = 0; k < D; ++k) Yu[k] = __shfl_sync(kFull, Y[k], u);
+#pragma unroll
+      for (int q = 0; q < sym_count(D); ++q) kp[q] = 0.f;
+      for (int rr = c.lane; rr < a.R; rr += 32) {
+        const int r = gi * a.R + rr;
+        float adY[D], a1, a2;
+        a.terms(Yu, r, adY, a1, a2);
+        const float ma = a.p(2, r) * (a1 > 0.f ? 1.f : 0.f) + a.p(3, r) * (a2 > 0.f ? 1.f : 0.f);
+        const float v = 2.f * ma;
+#pragma unroll
+        for (int i = 0; i < D; ++i)
+#pragma unroll
+          for (int j = i; j < D; ++j)
+            kp[sym_idx(D, i, j)] = kp[sym_idx(D, i, j)] + (v * adY[i]) * adY[j];
+        sp = sp + (a1 - a2);
+      }
+#pragma unroll
+      for (int q = 0; q < sym_count(D); ++q) {
+        const float s = warp_sum(kp[q]);
+        if (c.lane == u) h.aK[q] = s;
+      }
+      const float s = warp_sum(sp);
+      if (c.lane == u) h.asig = s;
+    }
+  }
 }
 
 // Horizontal projection H <- H - Y Om, Om antisymmetric (tr_pallas.py proj).
-template <int D, int EPL>
-__device__ void project(const Hvp<D, EPL>& h, const float (&Y)[D], float (&H)[D]) {
+template <int D, int EPL, bool HAS_A>
+__device__ void project(const Hvp<D, EPL, HAS_A>& h, const float (&Y)[D], float (&H)[D]) {
   if constexpr (D == 2) {
     const float c12 = warp_sum(Y[0] * H[1] - H[0] * Y[1]);
     const float a = c12 / h.l11;
@@ -267,29 +252,32 @@ __device__ void project(const Hvp<D, EPL>& h, const float (&Y)[D], float (&H)[D]
   }
 }
 
-// Riemannian Hessian-vector product: proj(2 C^T (m dD dY - s dZ)).
-template <int D, int EPL>
-__device__ void hvp(const Warp<D, EPL>& c, const Hvp<D, EPL>& h, const float (&Y)[D],
-                    const float (&Z)[D], float (&H)[D]) {
+// Riemannian Hessian-vector product: proj(2 C^T (m dD dY - s dZ)
+// + 2 (K_u Z_u - sigma_u Z_u) on each anchored node u).
+template <int D, int EPL, bool HAS_A>
+__device__ void hvp(const Warp<D, EPL>& c, const Anchors<D>& a, const Hvp<D, EPL, HAS_A>& h,
+                    const float (&Y)[D], const float (&Z)[D], float (&H)[D]) {
+  edge_hvp(c, h.e, Z, H);
+  if constexpr (HAS_A) {
+    if (a.mine) {
+      float KZ[D];
 #pragma unroll
-  for (int j = 0; j < EPL; ++j) {
-    float dZ[D];
-    c.edge_diff(Z, j, dZ);
-    const int e = c.edge[j];
-    if (e >= 0) {
-      const float mdD = h.m[j] * (2.f * dot(h.dY[j], dZ));
+      for (int i = 0; i < D; ++i) {
+        KZ[i] = h.aK[sym_idx(D, i, 0)] * Z[0];
 #pragma unroll
-      for (int k = 0; k < D; ++k) c.w[k * kMaxE + e] = mdD * h.dY[j][k] - h.s[j] * dZ[k];
+        for (int j = 1; j < D; ++j) KZ[i] = KZ[i] + h.aK[sym_idx(D, i, j)] * Z[j];
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i) H[i] = H[i] + 2.f * (KZ[i] - h.asig * Z[i]);
     }
   }
-  c.scatter(2.f, H);
   project(h, Y, H);
 }
 
 // Steihaug-Toint truncated CG (tr_pallas.py tcg), for one live instance.
-template <int D, int EPL>
-__device__ void tcg(const Warp<D, EPL>& c, const Hvp<D, EPL>& h, const float (&Y)[D],
-                    const float (&grad)[D], float Delta, const Params& P,
+template <int D, int EPL, bool HAS_A>
+__device__ void tcg(const Warp<D, EPL>& c, const Anchors<D>& a, const Hvp<D, EPL, HAS_A>& h,
+                    const float (&Y)[D], const float (&grad)[D], float Delta, const Params& P,
                     float (&eta)[D], float (&Heta)[D], int& stop, int& nsteps) {
   float r[D], delta[D], Hd[D], rn[D];
 #pragma unroll
@@ -307,7 +295,7 @@ __device__ void tcg(const Warp<D, EPL>& c, const Hvp<D, EPL>& h, const float (&Y
   stop = kMaxInnerIter;
   nsteps = 0;
   for (int j = 0; j < P.maxinner; ++j) {
-    hvp(c, h, Y, delta, Hd);
+    hvp(c, a, h, Y, delta, Hd);
     const float d_Hd = warp_sum(dot(delta, Hd));
     const float alpha = z_r / d_Hd;
     const float e_Pe_new = e_Pe + 2.f * alpha * e_Pd + alpha * alpha * d_Pd;
@@ -349,49 +337,48 @@ __device__ void tcg(const Warp<D, EPL>& c, const Hvp<D, EPL>& h, const float (&Y
   }
 }
 
-template <int D, int EPL>
+template <int D, int EPL, bool HAS_A>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 tr_kernel(const float* __restrict__ Y0, const float* __restrict__ dgoal, int dg_stride,
           const int* __restrict__ ei, const int* __restrict__ ej,
           const float* __restrict__ epar, const int* __restrict__ rowptr,
-          const int* __restrict__ inc, float* __restrict__ Yout,
-          float* __restrict__ cost_out, float* __restrict__ gradnorm_out,
-          int* __restrict__ iters_out, int* __restrict__ ninner_out,
-          int B, int N, int E, Params P) {
-  __shared__ int s_ei[kMaxE], s_ej[kMaxE], s_inc[2 * kMaxE], s_rowptr[kMaxN + 1];
-  __shared__ float s_par[5 * kMaxE];
+          const int* __restrict__ inc, const float* __restrict__ acen,
+          const float* __restrict__ apar, const int* __restrict__ anode,
+          float* __restrict__ Yout, float* __restrict__ cost_out,
+          float* __restrict__ gradnorm_out, int* __restrict__ iters_out,
+          int* __restrict__ ninner_out, int B, int N, int E, int A, int a_nsel, int a_R,
+          Params P) {
+  __shared__ EdgeTables s_t;
   __shared__ float s_w[kWarpsPerBlock][D * kMaxE];
+  // anchor tables: centers [D][A], parameters [4][A], group nodes [a_nsel]
+  extern __shared__ float s_anchor[];
 
-  for (int t = threadIdx.x; t < E; t += blockDim.x) {
-    s_ei[t] = ei[t];
-    s_ej[t] = ej[t];
-#pragma unroll
-    for (int q = 0; q < 5; ++q) s_par[q * kMaxE + t] = epar[t * 5 + q];
+  load_edge_tables(s_t, ei, ej, epar, rowptr, inc, N, E);
+  Anchors<D> a{};
+  if constexpr (HAS_A) {
+    for (int t = threadIdx.x; t < (D + 4) * A; t += blockDim.x)
+      s_anchor[t] = t < D * A ? acen[t] : apar[t - D * A];
+    int* s_anode = reinterpret_cast<int*>(s_anchor + (D + 4) * A);
+    for (int t = threadIdx.x; t < a_nsel; t += blockDim.x) s_anode[t] = anode[t];
+    a.cen = s_anchor;
+    a.par = s_anchor + D * A;
+    a.node = s_anode;
+    a.A = A;
+    a.nsel = a_nsel;
+    a.R = a_R;
   }
-  for (int t = threadIdx.x; t < 2 * E; t += blockDim.x) s_inc[t] = inc[t];
-  for (int t = threadIdx.x; t <= N; t += blockDim.x) s_rowptr[t] = rowptr[t];
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarpsPerBlock + warp;
   if (b >= B) return;
 
   Warp<D, EPL> c;
-  c.lane = lane;
-  c.has_node = lane < N;
-  c.par = s_par;
-  c.rowptr = s_rowptr;
-  c.inc = s_inc;
-  c.w = s_w[warp];
-#pragma unroll
-  for (int j = 0; j < EPL; ++j) {
-    const int e = lane + 32 * j;
-    const bool valid = e < E;
-    c.edge[j] = valid ? e : -1;
-    c.src_i[j] = valid ? s_ei[e] : 0;
-    c.src_j[j] = valid ? s_ej[e] : 0;
-    c.dg[j] = valid ? dgoal[(size_t)b * dg_stride + e] : 0.f;
+  c.init(s_t, s_w[warp], dgoal, dg_stride, b, N, E);
+  const int lane = c.lane;
+  if constexpr (HAS_A) {
+    a.mine = false;
+    for (int gi = 0; gi < a.nsel; ++gi) a.mine = a.mine || a.node[gi] == lane;
   }
 
   float Y[D];
@@ -413,7 +400,7 @@ tr_kernel(const float* __restrict__ Y0, const float* __restrict__ dgoal, int dg_
 
   // ---------------- outer TR loop (tr_pallas.py:410-513) ----------------
   float f, rmax, g[D];
-  c.cost_grad(Y, P.res_tol, r_floor, f, g, rmax);
+  cost_grad<D, EPL, HAS_A>(c, a, Y, P.res_tol, r_floor, f, g, rmax);
   float norm_g = sqrtf(warp_sum(dot(g, g)));
   bool done = norm_g < P.mingradnorm || (P.res_tol > 0.f && rmax < P.res_tol);
   float Delta = P.Delta0;
@@ -421,16 +408,16 @@ tr_kernel(const float* __restrict__ Y0, const float* __restrict__ dgoal, int dg_
   int iters = 0, ninner = 0;
 
   for (int k = 0; k < P.maxiter && !done; ++k) {
-    Hvp<D, EPL> h;
-    hvp_setup(c, Y, h);
+    Hvp<D, EPL, HAS_A> h;
+    hvp_setup(c, a, Y, h);
     float eta[D], Heta[D];
     int stop, nsteps;
-    tcg(c, h, Y, g, Delta, P, eta, Heta, stop, nsteps);
+    tcg(c, a, h, Y, g, Delta, P, eta, Heta, stop, nsteps);
 
     float Yp[D], gp[D], fp, rmaxp;
 #pragma unroll
     for (int q = 0; q < D; ++q) Yp[q] = Y[q] + eta[q];
-    c.cost_grad(Yp, P.res_tol, r_floor, fp, gp, rmaxp);
+    cost_grad<D, EPL, HAS_A>(c, a, Yp, P.res_tol, r_floor, fp, gp, rmaxp);
 
     const float rho_reg = jmax(1.f, fabsf(f)) * kEps * P.rho_regularization;
     const float rhonum = f - fp + rho_reg;
@@ -476,39 +463,52 @@ tr_kernel(const float* __restrict__ Y0, const float* __restrict__ dgoal, int dg_
   }
 }
 
-template <int D, int EPL>
-int launch(const float* Y0, const float* dgoal, int dg_stride, const int* ei,
-           const int* ej, const float* epar, const int* rowptr, const int* inc,
-           float* Yout, float* cost, float* gradnorm, int* iters, int* ninner,
-           int B, int N, int E, const Params& P, cudaStream_t stream) {
+template <int D, int EPL, bool HAS_A>
+int launch(const float* Y0, const float* dgoal, int dg_stride, const int* ei, const int* ej,
+           const float* epar, const int* rowptr, const int* inc, const float* acen,
+           const float* apar, const int* anode, float* Yout, float* cost, float* gradnorm,
+           int* iters, int* ninner, int B, int N, int E, int A, int a_nsel, int a_R,
+           const Params& P, cudaStream_t stream) {
   const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  tr_kernel<D, EPL><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      Y0, dgoal, dg_stride, ei, ej, epar, rowptr, inc, Yout, cost, gradnorm,
-      iters, ninner, B, N, E, P);
+  const size_t smem = HAS_A ? ((size_t)(D + 4) * A + a_nsel) * 4 : 0;
+  tr_kernel<D, EPL, HAS_A><<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
+      Y0, dgoal, dg_stride, ei, ej, epar, rowptr, inc, acen, apar, anode, Yout, cost,
+      gradnorm, iters, ninner, B, N, E, A, a_nsel, a_R, P);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// A == 0 runs the anchor-free kernel; A > 0 takes the anchor tables: acen
+// (D, A) and apar (4, A) row-major f32, anode (a_nsel,) int32, with
+// A == a_nsel * a_R (group g is rows g * a_R .. (g + 1) * a_R - 1).
 extern "C" int graphik_tr_solve(
     const float* Y0, const float* dgoal, int dg_stride, const int* ei, const int* ej,
-    const float* epar, const int* rowptr, const int* inc, float* Yout, float* cost,
-    float* gradnorm, int* iters, int* ninner, int B, int N, int D, int E,
+    const float* epar, const int* rowptr, const int* inc, const float* acen,
+    const float* apar, const int* anode, float* Yout, float* cost, float* gradnorm,
+    int* iters, int* ninner, int B, int N, int D, int E, int A, int a_nsel, int a_R,
     int maxiter, int maxinner, int mininner, int plateau_every, float mingradnorm,
     float kappa, float theta, float rho_prime, float rho_regularization,
     float Delta_bar, float Delta0, float plateau_rtol, float plateau_atol,
     float res_tol, void* stream) {
   if (B < 1 || N < 1 || N > kMaxN || E < 1 || E > kMaxE || dg_stride < E)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (A < 0 || A > kMaxA ||
+      (A > 0 && (a_nsel < 1 || a_nsel > N || a_R < 1 || a_nsel * a_R != A)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params P{maxiter, maxinner, mininner, plateau_every, mingradnorm, kappa,
                  theta, rho_prime, rho_regularization, Delta_bar, Delta0,
                  plateau_rtol, plateau_atol, res_tol};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int epl = (E + 31) / 32;
-#define GRAPHIK_TR_CASE(DD, EE)                                                   \
-  if (D == DD && epl == EE)                                                       \
-    return launch<DD, EE>(Y0, dgoal, dg_stride, ei, ej, epar, rowptr, inc, Yout, \
-                          cost, gradnorm, iters, ninner, B, N, E, P, s);
+#define GRAPHIK_TR_CASE(DD, EE)                                                            \
+  if (D == DD && epl == EE)                                                                \
+    return A > 0 ? launch<DD, EE, true>(Y0, dgoal, dg_stride, ei, ej, epar, rowptr, inc,   \
+                                        acen, apar, anode, Yout, cost, gradnorm, iters,    \
+                                        ninner, B, N, E, A, a_nsel, a_R, P, s)             \
+                 : launch<DD, EE, false>(Y0, dgoal, dg_stride, ei, ej, epar, rowptr, inc,  \
+                                         acen, apar, anode, Yout, cost, gradnorm, iters,   \
+                                         ninner, B, N, E, A, a_nsel, a_R, P, s);
   GRAPHIK_TR_CASE(3, 1) GRAPHIK_TR_CASE(3, 2) GRAPHIK_TR_CASE(3, 3) GRAPHIK_TR_CASE(3, 4)
   GRAPHIK_TR_CASE(2, 1) GRAPHIK_TR_CASE(2, 2) GRAPHIK_TR_CASE(2, 3) GRAPHIK_TR_CASE(2, 4)
 #undef GRAPHIK_TR_CASE

@@ -1,19 +1,20 @@
 """Problem-graph compiler: robot template -> static distance-geometry arrays.
 
-Port of graphik_tpu/graphs/problem.py for 3D revolute robots without
-obstacles. The graph is compiled once, host-side, into a `ProblemStructure`
-of dense numpy matrices (the numpy builder is a copy of the JAX package's,
-so both packages compile identical structures); per-goal instance data is
-then assembled as tensors on the goals' device, batched over goals.
+Port of graphik_tpu/graphs/problem.py for 3D revolute robots, with
+spherical obstacles. The graph is compiled once, host-side, into a
+`ProblemStructure` of dense numpy matrices (the numpy builder is a copy of
+the JAX package's, so both packages compile identical structures); per-goal
+instance data is then assembled as tensors on the goals' device, batched
+over goals.
 
 Node indexing (3D revolute, n joints):
     0..n        -> p0..pn           (main joint points)
     n+1..2n+1   -> q0..qn           (auxiliary rotation-axis points)
     2n+2, 2n+3  -> x, y             (base frame points)
+    2n+4..      -> o0, o1, ...      (obstacle centers)
 
-Obstacles (the anchored reduction) and planar chains are later slices:
-the entry points that would need them raise NotImplementedError instead of
-silently dropping them.
+Planar chains are a later slice: `from_template` raises
+NotImplementedError for them instead of compiling a wrong graph.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ from graphik_tpu_torch.utils import dgp, lie
 UNBOUNDED = 0
 BELOW = 1
 ABOVE = 2
+
+# Upper "distance" placed on obstacle avoidance edges (graph_base.py:211).
+OBSTACLE_UPPER = 100.0
 
 
 def _max_min_distance_revolute(r, P, C, N):
@@ -106,6 +110,9 @@ class ProblemStructure:
     def idx_q(self, i: int) -> int:
         return self.template.n + 1 + i
 
+    def idx_obs(self, k: int) -> int:
+        return 2 * self.n + 4 + k
+
     # ------------------------------------------------------------------
     # construction
     # ------------------------------------------------------------------
@@ -124,14 +131,118 @@ class ProblemStructure:
         return ps
 
     def add_spherical_obstacle(self, center: np.ndarray, radius: float) -> "ProblemStructure":
-        raise NotImplementedError("obstacles: slice 2")
+        """Append an obstacle node (graph_base.py:201-211, intended
+        semantics): exact edges to every statically positioned node and
+        bounded-below edges (radius) to the main points p1..pn."""
+        N_old = self.N
+        N = N_old + 1
+        dim = self.dim
+
+        def grow(M):
+            out = np.zeros((N, N), dtype=M.dtype)
+            out[:N_old, :N_old] = M
+            return out
+
+        omega = grow(self.omega_struct)
+        D = grow(self.D_struct)
+        psi_L = grow(self.psi_L)
+        psi_U = grow(self.psi_U)
+        edge_mask = grow(self.edge_mask)
+        L = grow(self.L_edges)
+        U = grow(self.U_edges)
+        bounded = grow(self.bounded_mask)
+        cL = grow(self.check_L)
+        cU = grow(self.check_U)
+
+        pos_mask = np.concatenate([self.pos_mask, [True]])
+        pos_fixed = np.vstack([self.pos_fixed, center[None, :dim]])
+        anchor_mask = np.concatenate([self.anchor_mask, [True]])
+        o = N_old
+
+        # Anchor edges: exact distance to every statically positioned node
+        # (add_anchor_node, graph_base.py:182-199).
+        for j in range(N_old):
+            if pos_mask[j]:
+                d = float(np.linalg.norm(pos_fixed[j] - center[:dim]))
+                _sym_set(omega, o, j, True)
+                _sym_set(D, o, j, d**2)
+                _sym_set(edge_mask, o, j, True)
+                _sym_set(L, o, j, d)
+                _sym_set(U, o, j, d)
+
+        # Bounded-below edges to the main robot points p1..pn (p0 is fixed).
+        for i in range(1, self.n + 1):
+            p = self.idx_p(i)
+            _sym_set(bounded, o, p, True)
+            _sym_set(cL, o, p, radius)
+            _sym_set(cU, o, p, OBSTACLE_UPPER)
+            _sym_set(psi_L, o, p, radius**2)
+            _sym_set(edge_mask, o, p, True)
+            _sym_set(L, o, p, radius)
+            _sym_set(U, o, p, OBSTACLE_UPPER)
+
+        return dataclasses.replace(
+            self,
+            names=self.names + [f"o{self.n_obstacles}"],
+            omega_struct=omega,
+            D_struct=D,
+            psi_L=psi_L,
+            psi_U=psi_U,
+            edge_mask=edge_mask,
+            L_edges=L,
+            U_edges=U,
+            bounded_mask=bounded,
+            check_L=cL,
+            check_U=cU,
+            pos_mask=pos_mask,
+            pos_fixed=pos_fixed,
+            anchor_mask=anchor_mask,
+            n_obstacles=self.n_obstacles + 1,
+            obstacles=self.obstacles + [(center, radius)],
+        )
+
+    def clear_obstacles(self) -> "ProblemStructure":
+        """Rebuild without obstacle nodes."""
+        return ProblemStructure.from_template(self.template, self.axis_length)
 
     def reduced_spec(self) -> Optional[dict]:
-        """None without obstacles; the anchored-obstacle reduction is not
-        ported yet, so a structure with obstacles raises."""
+        """The anchored-obstacle reduction of the solver's variable set.
+
+        Obstacle positions are constants, so each obstacle bound edge
+        becomes a hinge term of a robot node against a constant point, and
+        the variables shrink to the Nr = N - n_obstacles robot nodes
+        (validation still runs on the full graph).
+
+        Returns None without obstacles, else a dict of host numpy arrays:
+          Nr       variable node count (robot + base + aux)
+          idx      (A,) int32 robot-node row per anchored term
+          centers  (A, dim) constant anchor points
+          psi_L, psi_U, L_mask, U_mask  (A,) squared hinge bounds/masks
+        """
         if self.n_obstacles == 0:
             return None
-        raise NotImplementedError("obstacles: slice 2")
+        Nr = self.N - self.n_obstacles
+        rows, cols = [], []
+        for k in range(self.n_obstacles):
+            o = Nr + k
+            for i in range(Nr):
+                if self.bounded_mask[i, o]:
+                    rows.append(i)
+                    cols.append(o)
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        psi_L = self.psi_L[rows, cols]
+        psi_U = self.psi_U[rows, cols]
+        diff = psi_L != psi_U
+        return {
+            "Nr": Nr,
+            "idx": rows.astype(np.int32),
+            "centers": np.asarray(self.pos_fixed[cols], np.float64),
+            "psi_L": np.asarray(psi_L, np.float64),
+            "psi_U": np.asarray(psi_U, np.float64),
+            "L_mask": (diff & (psi_L > 0)).astype(np.float64),
+            "U_mask": (diff & (psi_U > 0)).astype(np.float64),
+        }
 
     def masks(self):
         """Static solver masks: (omega, psi_L, psi_U) as numpy arrays.
@@ -167,33 +278,59 @@ class ProblemStructure:
             pos[..., self.idx_q(int(ee)), :] = t + self.axis_length * Te[..., :3, 2]
         return pos
 
-    def instance(self, T_goal, dtype=None, smooth=True, smooth_iters=None):
+    def instance(self, T_goal, dtype=None, smooth=True, n_nodes=None, smooth_iters=None):
         """Assemble per-goal solver inputs (batched).
 
         Returns dict with:
-          D_goal: (..., N, N) squared goal distance matrix
-          pos_anchor: (..., N, 3) anchor positions
-          lb, ub: (..., N, N) smoothed unsquared bounds (if smooth)
-        `omega`, `psi_L`, `psi_U` are static - see `masks()`.
+          D_goal: (..., M, M) squared goal distance matrix
+          pos_anchor: (..., M, 3) anchor positions
+          lb, ub: (..., M, M) smoothed unsquared bounds (if smooth)
+        where M = n_nodes or N. `omega`, `psi_L`, `psi_U` are static - see
+        `masks()`.
+
+        n_nodes: restrict assembly to the first n_nodes nodes, for the
+        anchored-obstacle reduction (reduced_spec). The obstacle bound
+        edges are folded into the reduced smoothing in closed form
+        (dgp.bound_smoothing_anchored), which gives the full-graph bounds
+        on the reduced block.
         """
         if dtype is not None:
             T_goal = T_goal.to(dtype)
-        pos = self.goal_positions(T_goal)
-        N = self.N
-        anchor = torch.as_tensor(self.anchor_mask, device=pos.device)
-        eye = torch.eye(N, dtype=torch.bool, device=pos.device)
+        M = self.N if n_nodes is None else int(n_nodes)
+        pos = self.goal_positions(T_goal)[..., :M, :]
+        anchor = torch.as_tensor(self.anchor_mask[:M], device=pos.device)
+        eye = torch.eye(M, dtype=torch.bool, device=pos.device)
         pair = anchor[:, None] & anchor[None, :] & ~eye
 
         D_anchor = dgp.distance_matrix_from_pos(pos)
-        D_goal = torch.where(pair, D_anchor, _const(self.D_struct, pos))
+        D_goal = torch.where(pair, D_anchor, _const(self.D_struct[:M, :M], pos))
 
         out = {"D_goal": D_goal, "pos_anchor": pos}
         if smooth:
             d_anchor = torch.sqrt(torch.clamp(D_anchor, min=0.0))
-            L = torch.where(pair, d_anchor, _const(self.L_edges, pos))
-            U = torch.where(pair, d_anchor, _const(self.U_edges, pos))
-            mask = torch.as_tensor(self.edge_mask, device=pos.device) | pair
-            out["lb"], out["ub"] = dgp.bound_smoothing(L, U, mask, n_iter=smooth_iters)
+            L = torch.where(pair, d_anchor, _const(self.L_edges[:M, :M], pos))
+            U = torch.where(pair, d_anchor, _const(self.U_edges[:M, :M], pos))
+            mask = torch.as_tensor(self.edge_mask[:M, :M], device=pos.device) | pair
+            if M < self.N:
+                # The excluded nodes sit at known positions: their bound
+                # edges enter the reduced smoothing as side-node terms.
+                obs_pos = np.asarray(self.pos_fixed[M:], np.float64)
+                d_ro = torch.sqrt(torch.clamp(
+                    ((pos[..., :, None, :] - _const(obs_pos, pos)) ** 2).sum(dim=-1), min=0.0))
+                anch = anchor[:, None]
+                ro_mask = torch.as_tensor(self.edge_mask[:M, M:], device=pos.device)
+                big = torch.full_like(d_ro, dgp.BIG)
+                zero = torch.zeros_like(d_ro)
+                U_ro = torch.minimum(torch.where(anch, d_ro, big),
+                                     torch.where(ro_mask, _const(self.U_edges[:M, M:], pos), big))
+                L_ro = torch.maximum(torch.where(anch, d_ro, zero),
+                                     torch.where(ro_mask, _const(self.L_edges[:M, M:], pos), zero))
+                D_oo = np.sqrt(np.maximum(
+                    ((obs_pos[:, None, :] - obs_pos[None, :, :]) ** 2).sum(axis=-1), 0.0))
+                out["lb"], out["ub"] = dgp.bound_smoothing_anchored(
+                    L, U, mask, U_ro, L_ro, _const(D_oo, pos), n_iter=smooth_iters)
+            else:
+                out["lb"], out["ub"] = dgp.bound_smoothing(L, U, mask, n_iter=smooth_iters)
         return out
 
     # ------------------------------------------------------------------

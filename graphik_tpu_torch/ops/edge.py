@@ -10,8 +10,11 @@ over that form. They are the reference math for the TR kernel
     dist  = ||diff||^2     (E,)     squared edge lengths
     grad  = -2 C^T (s * diff)       scatter-add as a matmul
 
-The JAX package's per-op Pallas kernels (cost+grad, Hessian-vector) are
-not on the main path and are not ported yet.
+`cost_and_egrad_cuda` and `ehess_cuda` wrap the hand-written CUDA kernels
+csrc/edge.cu, the counterparts of the JAX package's per-op Pallas kernels
+(cost_and_egrad_pallas, ehess_pallas); their plain versions are
+`cost_and_egrad` and `ehess`. No solve path calls them: the TR kernel
+fuses the same math.
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ import torch
 from graphik_tpu_torch.solvers.costs import make_masks
 
 _SUBLANE = 8  # edge and anchor-block counts pad to a multiple of this
+
+# Shapes the CUDA build covers (csrc/edge_warp.cuh kMaxN / kMaxE).
+MAX_N = 32
+MAX_E = 128
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -254,3 +261,117 @@ def ehess(ep: EdgeProblem, Y, Z, dgoal_e):
         h_a = (ma * adD)[..., None] * adiff - sa[..., None] * adiffZ
         H = H + 2.0 * torch.einsum("an,...ad->...nd", P, h_a)
     return H
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels over the edge form (csrc/edge.cu)
+# ---------------------------------------------------------------------------
+
+def incidence(ep: EdgeProblem):
+    """Per node, its incident edges in ascending order, each coded as
+    2 * edge + (1 if the node is the edge's ej, i.e. the -1 of C)."""
+    inc = [[] for _ in range(ep.N)]
+    for e in range(ep.E):
+        inc[int(ep.ei[e])].append(2 * e)
+        inc[int(ep.ej[e])].append(2 * e + 1)
+    return inc
+
+
+def kernel_edge_tables(ep: EdgeProblem, device):
+    """Edge list, packed parameters and the signed node->edge incidence CSR
+    as device tensors for the kernels."""
+    epar = np.stack([ep.omega, ep.psi_L, ep.psi_U, ep.L_mask, ep.U_mask], axis=1)[:ep.E]
+    inc = incidence(ep)
+    rowptr = np.cumsum([0] + [len(x) for x in inc])
+    flat = np.concatenate([np.asarray(x, np.int64) for x in inc])
+    as_i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
+    return (as_i32(ep.ei), as_i32(ep.ej),
+            torch.as_tensor(epar, dtype=torch.float32, device=device),
+            as_i32(rowptr), as_i32(flat))
+
+
+def check_kernel_inputs(what: str, ep: EdgeProblem, Ys, dgoal_e):
+    """Raise unless every (B, N, d) tensor of Ys and dgoal_e ((B, E) or
+    (B, Ep)) is a contiguous float32 CUDA tensor on one device, within the
+    build's bounds."""
+    ts = (*Ys, dgoal_e)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"{what} takes float32, got {[t.dtype for t in ts]}")
+    if any(t.device.type != "cuda" or t.device != ts[0].device for t in ts):
+        raise ValueError(f"{what} takes CUDA tensors on one device, got {[str(t.device) for t in ts]}")
+    B, N, d = Ys[0].shape
+    if (N != ep.N or d != ep.dim or d not in (2, 3) or N > MAX_N or not 0 < ep.E <= MAX_E
+            or any(Y.shape != Ys[0].shape for Y in Ys)):
+        raise ValueError(f"unsupported shape: {[tuple(Y.shape) for Y in Ys]}, N={ep.N}, "
+                         f"dim={ep.dim}, E={ep.E}")
+    if dgoal_e.shape not in ((B, ep.E), (B, ep.Ep)):
+        raise ValueError(f"dgoal_e must be ({B}, {ep.E}) or ({B}, {ep.Ep}), got {tuple(dgoal_e.shape)}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what} takes contiguous tensors")
+
+
+def _no_anchors(ep: EdgeProblem):
+    # The Pallas wrappers read only C and the edge parameters, so they
+    # silently drop anchor terms; these refuse them instead.
+    if ep.A:
+        raise ValueError("the edge kernels take no anchor terms (A > 0): use "
+                         "cost_and_egrad / ehess")
+
+
+def cost_and_egrad_cuda(ep: EdgeProblem, Y, dgoal_e):
+    """Launch csrc/edge.cu's cost+gradient kernel: Y (B, N, d), dgoal_e
+    (B, E) or (B, Ep), contiguous float32 CUDA tensors -> (f (B,),
+    g (B, N, d)). Edge terms only: an EdgeProblem with anchors (A > 0)
+    raises, where JAX's cost_and_egrad_pallas drops them silently. Counts
+    its launches in `cost_and_egrad_cuda.launches`."""
+    _no_anchors(ep)
+    check_kernel_inputs("the edge cost+grad kernel", ep, (Y,), dgoal_e)
+    B, N, d = Y.shape
+    f = torch.empty(B, dtype=torch.float32, device=Y.device)
+    g = torch.empty_like(Y)
+    if B == 0:
+        return f, g
+    from graphik_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    ei, ej, epar, rowptr, inc = kernel_edge_tables(ep, Y.device)
+    rc = lib.graphik_edge_cost_grad(
+        Y.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1], ei.data_ptr(), ej.data_ptr(),
+        epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(), f.data_ptr(), g.data_ptr(),
+        B, N, d, ep.E, torch.cuda.current_stream(Y.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"edge cost+grad kernel launch failed: cudaError {rc}")
+    cost_and_egrad_cuda.launches += 1
+    return f, g
+
+
+cost_and_egrad_cuda.launches = 0
+
+
+def ehess_cuda(ep: EdgeProblem, Y, Z, dgoal_e):
+    """Launch csrc/edge.cu's Hessian-vector kernel: the Euclidean
+    2 C^T (m dD dY - s dZ), no projection, for Y, Z (B, N, d) and dgoal_e
+    (B, E) or (B, Ep), contiguous float32 CUDA tensors. Edge terms only:
+    anchors (A > 0) raise, as in `cost_and_egrad_cuda`. Counts its launches
+    in `ehess_cuda.launches`."""
+    _no_anchors(ep)
+    check_kernel_inputs("the edge Hessian kernel", ep, (Y, Z), dgoal_e)
+    B, N, d = Y.shape
+    H = torch.empty_like(Y)
+    if B == 0:
+        return H
+    from graphik_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    ei, ej, epar, rowptr, inc = kernel_edge_tables(ep, Y.device)
+    rc = lib.graphik_edge_hess(
+        Y.data_ptr(), Z.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1], ei.data_ptr(),
+        ej.data_ptr(), epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(), H.data_ptr(),
+        B, N, d, ep.E, torch.cuda.current_stream(Y.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"edge Hessian kernel launch failed: cudaError {rc}")
+    ehess_cuda.launches += 1
+    return H
+
+
+ehess_cuda.launches = 0

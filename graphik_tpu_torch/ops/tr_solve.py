@@ -1,11 +1,12 @@
 """The batched Riemannian trust-region solve over the compiled edge form.
 
-Port of graphik_tpu/ops/tr_pallas.py (the anchor-free branch of
-`_tr_kernel`, driven by `solve_tr_pallas`). Three functions:
+Port of graphik_tpu/ops/tr_pallas.py (`_tr_kernel`, both its anchor-free
+and its has_anchors branch, driven by `solve_tr_pallas`). Three functions:
 
 * `solve_tr_cuda` - wrapper of the hand-written CUDA kernel
   csrc/tr_solve.cu: f32 CUDA tensors only, counts its launches in
-  `solve_tr_cuda.launches`.
+  `solve_tr_cuda.launches` and, of those, the anchored ones (the
+  obstacle reduction) in `solve_tr_cuda.anchored_launches`.
 * `solve_tr_reference` - the plain torch version: a batched transcription
   of `_tr_kernel` with (B,) per-lane masks and `torch.where` freezing, in
   the kernel's statement order; any dtype, any device.
@@ -14,8 +15,10 @@ Port of graphik_tpu/ops/tr_pallas.py (the anchor-free branch of
 
 Outer loop: rho-regularized trust region, radius /4 or x2 up to Delta_bar,
 stops on gradnorm, maxiter, the cost plateau and res_tol. Inner loop:
-Steihaug-Toint truncated CG. HVP: the edge-form Hessian plus the horizontal
-projection as a reduced 3x3 Lyapunov Cholesky (scalar for d = 2).
+Steihaug-Toint truncated CG. HVP: the edge-form Hessian, the anchored
+terms as 2 (K_u Z_u - sigma_u Z_u) per anchored node u (see csrc/
+tr_solve.cu), plus the horizontal projection as a reduced 3x3 Lyapunov
+Cholesky (scalar for d = 2).
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphik_tpu_torch.ops.edge import EdgeProblem
+from graphik_tpu_torch.ops.edge import (
+    EdgeProblem, check_kernel_inputs, incidence, kernel_edge_tables)
 
 # tCG stop reasons (graphik_tpu/ops/tr_pallas.py:41-44)
 _NEGATIVE_CURVATURE = 0
@@ -31,10 +35,9 @@ _EXCEEDED_TR = 1
 _REACHED_TARGET = 2
 _MAX_INNER_ITER = 4
 
-# Shapes the kernel build covers (csrc/tr_solve.cu kMaxN / kMaxE), and the
+# Anchor rows the kernel build covers (csrc/tr_solve.cu kMaxA), and the
 # warp width its reductions run over.
-_MAX_N = 32
-_MAX_E = 128
+_MAX_A = 1024
 _WARP = 32
 
 
@@ -50,10 +53,9 @@ def _defaults(N, d, maxinner, mingradnorm, Delta_bar, Delta0, dtype):
     return maxinner, mingradnorm, Delta_bar, Delta0
 
 
-def _no_anchors(ep: EdgeProblem):
-    if ep.A:
-        raise NotImplementedError(
-            "anchored hinge terms (obstacles: slice 2) are not ported")
+def _anchor_nodes(ep: EdgeProblem):
+    """The node of each anchor group (rows g * a_R .. (g + 1) * a_R - 1)."""
+    return np.argmax(np.asarray(ep.aPsel)[:ep.a_nsel], axis=1)
 
 
 def solve_tr_reference(
@@ -81,7 +83,6 @@ def solve_tr_reference(
     Returns dict(Y (B, N, d), cost, gradnorm, iterations, num_inner) in
     Y0's dtype (counters int32).
     """
-    _no_anchors(ep)
     B, N, d = Y0.shape
     dt, dev = Y0.dtype, Y0.device
     maxinner, mingradnorm, Delta_bar, Delta0 = _defaults(
@@ -99,7 +100,7 @@ def solve_tr_reference(
     ej = torch.as_tensor(ep.ej, dtype=torch.long, device=dev)
     # Node -> incident edges with signs, ascending edge order, padded with
     # edge E (a zero row): the kernel's CSR as a dense table.
-    inc = _incidence(ep)
+    inc = incidence(ep)
     width = max(len(x) for x in inc)
     nbr = torch.full((N, width), E, dtype=torch.long)
     sgn = torch.ones((N, width), dtype=dt)
@@ -147,6 +148,44 @@ def solve_tr_reference(
     def col(x):  # (B,) lane scalar -> broadcastable over (B, N, d)
         return x[:, None, None]
 
+    # Anchor rows, laid out as the kernel's lanes see them: group g's row
+    # l + 32 t sits at [g, t, l] (zero-padded past a_R, masked by `avalid`);
+    # per-lane partials run over g, then t, and one butterfly sums a group.
+    A = ep.A
+    if A:
+        G, R = ep.a_nsel, ep.a_R
+        T = -(-R // _WARP)
+        anode = torch.as_tensor(_anchor_nodes(ep), dtype=torch.long, device=dev)
+
+        def lanes(x):  # (Ap, ...) rows -> (G, T, 32, ...)
+            x = np.asarray(x, np.float64).reshape((G, R) + np.shape(x)[1:])
+            out = np.zeros((G, T * _WARP) + x.shape[2:])
+            out[:, :R] = x
+            return torch.as_tensor(out.reshape((G, T, _WARP) + x.shape[2:]), dtype=dt, device=dev)
+
+        acen = lanes(np.asarray(ep.acenters)[:, :d])
+        apsiL, apsiU, aLm, aUm = (lanes(x) for x in (ep.apsi_L, ep.apsi_U, ep.aL_mask, ep.aU_mask))
+        avalid = lanes(np.ones(A)) > 0
+        zero = torch.zeros((), dtype=dt, device=dev)
+
+        def anchor_terms(Y):  # -> adY (B, G, T, 32, d), a1, a2 (B, G, T, 32)
+            adY = Y[:, anode, None, None, :] - acen
+            adist = dot_d(adY, adY)
+            a1 = torch.where(avalid, aLm * torch.clamp(apsiL - adist, min=0.0), zero)
+            a2 = torch.where(avalid, aUm * torch.clamp(adist - apsiU, min=0.0), zero)
+            return adY, a1, a2
+
+        def lane_partials(x, groups):  # (B, G, T, 32) -> (B, 32), over g then t
+            x = torch.where(avalid, x, zero)
+            acc = torch.zeros((x.shape[0], _WARP), dtype=dt, device=dev)
+            for g in groups:
+                for t in range(T):
+                    acc = acc + x[:, g, t]
+            return acc
+
+        def group_sum(x):  # (B, G, T, 32) -> (B, G): one butterfly per group
+            return torch.stack([lane_sum(lane_partials(x, (g,))) for g in range(G)], dim=1)
+
     def edge_terms(Y):
         dY = Y[:, ei] - Y[:, ej]
         dist = dot_d(dY, dY)
@@ -172,6 +211,18 @@ def solve_tr_reference(
             rmax = torch.amax(r, dim=-1)
         else:
             rmax = torch.zeros_like(f)
+        if A:
+            adY, a1, a2 = anchor_terms(Y)
+            sa = a1 - a2
+            Ga = torch.stack([group_sum(sa * adY[..., k]) for k in range(d)], dim=-1)
+            g = g.clone()
+            g[:, anode] = g[:, anode] - 2.0 * Ga
+            f = f + lane_sum(lane_partials(a1 * a1 + a2 * a2, range(G)))
+            if res_tol > 0.0:
+                fl = r_floor[:, :, None, None]
+                ra = torch.maximum(a1 / torch.maximum(apsiL, fl), a2 / torch.maximum(apsiU, fl))
+                ra = torch.where(avalid, ra, zero)
+                rmax = torch.maximum(rmax, torch.amax(ra.flatten(1), dim=-1))
         return f, g, rmax
 
     def make_hvp(Y):
@@ -191,10 +242,29 @@ def solve_tr_reference(
             reg = 10.0 * eps * (x11 + x22 + x33 + 1e-30)
             fac = _chol3(x11 + x22 + reg, x23, -x13, x11 + x33 + reg, x12, x22 + x33 + reg)
 
+        if A:
+            # per anchored node u: K_u = sum_r 2 ma_r adY_r adY_r^T (upper
+            # triangle) and sigma_u = sum_r sa_r
+            adY, a1, a2 = anchor_terms(Y)
+            v = 2.0 * (aLm * (a1 > 0).to(dt) + aUm * (a2 > 0).to(dt))
+            K = {(i, j): group_sum((v * adY[..., i]) * adY[..., j])
+                 for i in range(d) for j in range(i, d)}
+            sig = group_sum(a1 - a2)
+
         def hvp(Z):
             dZ = Z[:, ei] - Z[:, ej]
             mdD = m * (2.0 * dot_d(dY, dZ))
             H = scatter(mdD[..., None] * dY - s[..., None] * dZ, 2.0)
+            if A:
+                Zu = Z[:, anode]
+                Kz = []
+                for i in range(d):
+                    acc = K[min(i, 0), max(i, 0)] * Zu[..., 0]
+                    for j in range(1, d):
+                        acc = acc + K[min(i, j), max(i, j)] * Zu[..., j]
+                    Kz.append(acc - sig * Zu[..., i])
+                H = H.clone()
+                H[:, anode] = H[:, anode] + 2.0 * torch.stack(Kz, dim=-1)
             return _proj(Y, H, fac, lane_sum)
 
         return hvp
@@ -352,27 +422,18 @@ def _proj(Y, H, fac, node_sum):
         [H0 + a * Y1 + b * Y2, H1 - a * Y0 + c * Y2, H2 - b * Y0 - c * Y1], dim=-1)
 
 
-def _incidence(ep: EdgeProblem):
-    """Per node, its incident edges in ascending order, each coded as
-    2 * edge + (1 if the node is the edge's ej, i.e. the -1 of C)."""
-    inc = [[] for _ in range(ep.N)]
-    for e in range(ep.E):
-        inc[int(ep.ei[e])].append(2 * e)
-        inc[int(ep.ej[e])].append(2 * e + 1)
-    return inc
-
-
-def _edge_tables(ep: EdgeProblem, device):
-    """Edge list, packed parameters and the signed node->edge incidence CSR
-    as device tensors for the kernel."""
-    epar = np.stack([ep.omega, ep.psi_L, ep.psi_U, ep.L_mask, ep.U_mask], axis=1)[:ep.E]
-    inc = _incidence(ep)
-    rowptr = np.cumsum([0] + [len(x) for x in inc])
-    flat = np.concatenate([np.asarray(x, np.int64) for x in inc])
-    as_i32 = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)
-    return (as_i32(ep.ei), as_i32(ep.ej),
-            torch.as_tensor(epar, dtype=torch.float32, device=device),
-            as_i32(rowptr), as_i32(flat))
+def _anchor_tables(ep: EdgeProblem, device):
+    """Anchor centers (d, A), parameters (4, A) and group nodes (a_nsel,)
+    as device tensors for the kernel (one-element dummies when A == 0)."""
+    if not ep.A:
+        return (torch.zeros(1, dtype=torch.float32, device=device),
+                torch.zeros(1, dtype=torch.float32, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device))
+    cen = np.ascontiguousarray(np.asarray(ep.acenters)[:, :ep.dim].T)
+    par = np.stack([ep.apsi_L, ep.apsi_U, ep.aL_mask, ep.aU_mask])
+    return (torch.as_tensor(cen, dtype=torch.float32, device=device),
+            torch.as_tensor(par, dtype=torch.float32, device=device),
+            torch.as_tensor(_anchor_nodes(ep).astype(np.int32), device=device))
 
 
 def solve_tr_cuda(
@@ -397,19 +458,12 @@ def solve_tr_cuda(
 ):
     """Launch csrc/tr_solve.cu on f32 CUDA tensors; same contract as
     `solve_tr_reference`. Raises on anything the kernel does not take."""
-    _no_anchors(ep)
-    if Y0.dtype != torch.float32 or dgoal_e.dtype != torch.float32:
-        raise TypeError(f"the TR kernel takes float32, got {Y0.dtype}/{dgoal_e.dtype}")
-    if Y0.device.type != "cuda" or dgoal_e.device != Y0.device:
-        raise ValueError(f"the TR kernel takes CUDA tensors, got {Y0.device}/{dgoal_e.device}")
+    if ep.A > _MAX_A or (ep.A and ep.a_nsel * ep.a_R != ep.A):
+        raise ValueError(f"unsupported anchor layout: A={ep.A} (at most {_MAX_A}), "
+                         f"a_nsel={ep.a_nsel}, a_R={ep.a_R}")
+    check_kernel_inputs("the TR kernel", ep, (Y0,), dgoal_e)
     B, N, d = Y0.shape
     E = ep.E
-    if N != ep.N or d != ep.dim or d not in (2, 3) or N > _MAX_N or not 0 < E <= _MAX_E:
-        raise ValueError(f"unsupported shape: Y0 {tuple(Y0.shape)}, N={ep.N}, dim={ep.dim}, E={E}")
-    if dgoal_e.shape not in ((B, E), (B, ep.Ep)):
-        raise ValueError(f"dgoal_e must be ({B}, {E}) or ({B}, {ep.Ep}), got {tuple(dgoal_e.shape)}")
-    if not (Y0.is_contiguous() and dgoal_e.is_contiguous()):
-        raise ValueError("the TR kernel takes contiguous tensors")
     maxinner, mingradnorm, Delta_bar, Delta0 = _defaults(
         N, d, maxinner, mingradnorm, Delta_bar, Delta0, torch.float32)
 
@@ -426,14 +480,16 @@ def solve_tr_cuda(
     from graphik_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    ei, ej, epar, rowptr, inc = _edge_tables(ep, dev)
+    ei, ej, epar, rowptr, inc = kernel_edge_tables(ep, dev)
+    acen, apar, anode = _anchor_tables(ep, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.graphik_tr_solve(
         Y0.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1],
         ei.data_ptr(), ej.data_ptr(), epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(),
+        acen.data_ptr(), apar.data_ptr(), anode.data_ptr(),
         out["Y"].data_ptr(), out["cost"].data_ptr(), out["gradnorm"].data_ptr(),
         out["iterations"].data_ptr(), out["num_inner"].data_ptr(),
-        B, N, d, E,
+        B, N, d, E, ep.A, ep.a_nsel, ep.a_R,
         int(maxiter), int(maxinner), int(mininner), int(plateau_every),
         float(mingradnorm), float(kappa), float(theta), float(rho_prime),
         float(rho_regularization), float(Delta_bar), float(Delta0),
@@ -443,6 +499,8 @@ def solve_tr_cuda(
     if rc != 0:
         raise RuntimeError(f"TR kernel launch failed: cudaError {rc}")
     solve_tr_cuda.launches += 1
+    if ep.A:
+        solve_tr_cuda.anchored_launches += 1
     # The tables are freed on return while the kernel may still read them:
     # safe, because the caching allocator hands their memory only to later
     # work on this same stream, which runs after the kernel.
@@ -450,6 +508,7 @@ def solve_tr_cuda(
 
 
 solve_tr_cuda.launches = 0
+solve_tr_cuda.anchored_launches = 0
 
 
 def solve_tr(ep: EdgeProblem, Y0, dgoal_e, **kwargs):

@@ -94,6 +94,40 @@ def jacobian(template: RobotTemplate, q, node: int, A: Optional[torch.Tensor] = 
     return cols.transpose(-1, -2)
 
 
+def linear_jacobians(template: RobotTemplate, q, T=None):
+    """World-frame position Jacobians of every node in one pass.
+
+    (..., n) -> (..., n+1, 3, n): entry [j, :, i-1] is the velocity of node
+    j per unit rate of joint i, z_{parent(i)} x (p_j - p_{parent(i)}), zero
+    when joint i does not move node j. Pass the poses `T` (all_poses) when
+    the caller already has them.
+    """
+    tpl = template
+    if T is None:
+        T = all_poses(tpl, q)
+    parents = torch.as_tensor(tpl.parents[1:], device=q.device)
+    p = T[..., :3, 3]                              # (..., n+1, 3)
+    Tp = T[..., parents, :, :]
+    rel = p[..., :, None, :] - Tp[..., None, :, :3, 3]  # (..., n+1, n, 3)
+    z = Tp[..., :3, 2].unsqueeze(-3).expand_as(rel)
+    vel = torch.linalg.cross(z, rel, dim=-1)
+    anc = torch.as_tensor(_ancestor_matrix(tpl), device=q.device)
+    vel = torch.where(anc[:, :, None], vel, torch.zeros_like(vel))
+    return vel.transpose(-1, -2)
+
+
+def _ancestor_matrix(template: RobotTemplate):
+    """(n+1, n) bool: [j, i-1] = joint i is on the path root -> node j."""
+    n = template.n
+    anc = np.zeros((n + 1, n), dtype=bool)
+    for j in range(1, n + 1):
+        i = j
+        while i > 0:
+            anc[j, i - 1] = True
+            i = int(template.parents[i])
+    return anc
+
+
 def random_configuration(template: RobotTemplate, batch_shape=(),
                          generator: Optional[torch.Generator] = None,
                          dtype=torch.float64, device=None):

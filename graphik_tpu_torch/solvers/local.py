@@ -1,16 +1,19 @@
 """Joint-space local solver: batched Levenberg-Marquardt on the pose residual.
 
-Port of graphik_tpu/solvers/local.py (the obstacle-free branch). The cost
-is the body-frame pose log residual e = log(T(q)^-1 T_goal) with the
-analytic Jacobian J_e = inv_left_jacobian(e) Ad(T^-1) J; each step solves
-the damped 6x6 system with a batched Cholesky and clips to the joint limits.
-Lanes run in lockstep; a lane that has converged is frozen by masks.
+Port of graphik_tpu/solvers/local.py. The cost is the body-frame pose log
+residual e = log(T(q)^-1 T_goal) with the analytic Jacobian
+J_e = inv_left_jacobian(e) Ad(T^-1) J; each step solves the damped n x n
+system with a batched Cholesky and clips to the joint limits. Spherical
+obstacles add hinge residuals r - ||c - p_i(q)|| on the main points
+p1..pn, enforced by an augmented-Lagrangian loop around the LM. Lanes run
+in lockstep; a lane that has converged is frozen by masks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from graphik_tpu_torch.graphs.problem import ProblemStructure
@@ -26,15 +29,22 @@ class LocalParams:
     lm_down: float = 0.5
     tol_grad: float = 1e-9
     clip_limits: bool = True
+    # Obstacle constraints: al_iters augmented-Lagrangian rounds around the
+    # LM; the penalty rho starts at al_rho0 and grows by al_growth a round.
+    al_iters: int = 4
+    al_rho0: float = 100.0
+    al_growth: float = 10.0
 
 
-def _pose_residuals(tpl, T_goal, q, with_jacobian=True):
+def _pose_residuals(tpl, T_goal, q, with_jacobian=True, A=None):
     """Stacked body-frame pose residuals over every end effector.
 
     T_goal: (..., n_ee, 4, 4); q: (..., n). Returns (e (..., 6 n_ee),
     de/dq (..., 6 n_ee, n)) - the Jacobian is None when not asked for.
+    Pass the prefix products `A` when the caller already has them.
     """
-    A = kinematics.prefix_products(tpl, q)
+    if A is None:
+        A = kinematics.prefix_products(tpl, q)
     T_all = A @ torch.as_tensor(tpl.T0, dtype=q.dtype, device=q.device)
     es, Js = [], []
     for e_idx, ee in enumerate(tpl.ee):
@@ -48,6 +58,37 @@ def _pose_residuals(tpl, T_goal, q, with_jacobian=True):
     return torch.cat(es, dim=-1), torch.cat(Js, dim=-2) if with_jacobian else None
 
 
+def _obstacle_pairs(ps: ProblemStructure):
+    """Static (centers (n_obs, 3), radii (n_obs,)) numpy arrays. The
+    constraints are every obstacle against every main point p1..pn,
+    obstacle-major: constraint o * n + (i - 1) is obstacle o vs p_i."""
+    cen = np.asarray([np.asarray(c)[:ps.dim] for c, _ in ps.obstacles], np.float64)
+    rad = np.asarray([r for _, r in ps.obstacles], np.float64)
+    return cen, rad
+
+
+def _obstacle_g_and_jac(tpl, q, centers, radii, A=None, with_jacobian=True):
+    """Violations g = r - ||c - p_i(q)|| (..., n_obs * n) and, when asked
+    for, their analytic Jacobian (..., n_obs * n, n) from the one-pass
+    world-frame position Jacobians (kinematics.linear_jacobians)."""
+    if A is None:
+        A = kinematics.prefix_products(tpl, q)
+    T = A @ torch.as_tensor(tpl.T0, dtype=q.dtype, device=q.device)
+    p = T[..., 1:, :3, 3]                                  # (..., n, 3)
+    c = torch.as_tensor(centers, dtype=q.dtype, device=q.device)[:, None, :]
+    r = torch.as_tensor(radii, dtype=q.dtype, device=q.device)[:, None]
+    diff = c - p[..., None, :, :]                          # (..., n_obs, n, 3)
+    dist = torch.sqrt((diff * diff).sum(dim=-1) + 1e-30)
+    g = (r - dist).flatten(-2)
+    if not with_jacobian:
+        return g, None
+    # d(-dist)/dq = (c - p)^T / dist . dp/dq
+    u = diff / dist[..., None]
+    J = kinematics.linear_jacobians(tpl, q, T)[..., 1:, :, :]  # (..., n, 3, n)
+    Jg = torch.einsum("...oid,...idk->...oik", u, J)
+    return g, Jg.flatten(-3, -2)
+
+
 def solve_local(
     ps: ProblemStructure,
     T_goal,
@@ -56,11 +97,13 @@ def solve_local(
 ):
     """Batched joint-space solve over all end effectors.
 
+    Damped Gauss-Newton (LM) on the pose log residual; spherical-obstacle
+    inequality constraints through an augmented-Lagrangian outer loop
+    (al_iters rounds, each a full LM solve from the previous round's q).
+
     T_goal: (..., 4, 4) or (..., n_ee, 4, 4); q0: (..., n).
     Returns dict(q, cost, iterations, max_violation).
     """
-    if ps.n_obstacles:
-        raise NotImplementedError("obstacles: slice 2")
     tpl = ps.template
     dt, dev = q0.dtype, q0.device
     lb = torch.as_tensor(tpl.lb[1:], dtype=dt, device=dev)
@@ -69,41 +112,78 @@ def solve_local(
     if T_goal.ndim == q0.ndim + 1:  # (..., 4, 4): add the ee axis
         T_goal = T_goal[..., None, :, :]
     eye = torch.eye(tpl.n, dtype=dt, device=dev)
-
     batch = q0.shape[:-1]
-    q = q0
-    lam = torch.full(batch, params.lm_init, dtype=dt, device=dev)
-    iters = torch.zeros(batch, dtype=torch.int32, device=dev)
-    done = torch.zeros(batch, dtype=torch.bool, device=dev)
-    for _ in range(params.maxiter):
-        live = ~done
-        r, J = _pose_residuals(tpl, T_goal, q)
-        Jt = J.transpose(-1, -2)
-        g = (Jt @ r[..., None])[..., 0]
-        H = Jt @ J + lam[..., None, None] * eye
-        # A lane whose f32 system is not numerically SPD (info != 0) takes no
-        # step and raises its damping - the same outcome as the JAX
-        # package's clamped-pivot solve, whose step then fails the
-        # improvement test.
-        Lc, info = torch.linalg.cholesky_ex(H)
-        step = -torch.cholesky_solve(g[..., None], Lc)[..., 0]
-        step = torch.where((info == 0)[..., None], step, torch.zeros_like(step))
-        q_new = q + step
-        if params.clip_limits:
-            q_new = torch.clamp(q_new, lb, ub)
-        r_new, _ = _pose_residuals(tpl, T_goal, q_new, with_jacobian=False)
-        improved = (info == 0) & ((r_new * r_new).sum(-1) < (r * r).sum(-1))
-        q_out = torch.where(improved[..., None], q_new, q)
-        lam_new = torch.clamp(
-            torch.where(improved, lam * params.lm_down, lam * params.lm_up), 1e-12, 1e8)
-        q = torch.where(live[..., None], q_out, q)
-        lam = torch.where(live, lam_new, lam)
-        iters = iters + live.to(torch.int32)
-        done = done | (live & (torch.linalg.norm(g, dim=-1) < params.tol_grad))
+    if ps.n_obstacles:
+        centers, radii = _obstacle_pairs(ps)
+
+    def residuals(q, mult, rho, with_jacobian=True):
+        A = kinematics.prefix_products(tpl, q)
+        e, J = _pose_residuals(tpl, T_goal, q, with_jacobian, A=A)
+        if not ps.n_obstacles:
+            return e, J
+        g, Jg = _obstacle_g_and_jac(tpl, q, centers, radii, A=A, with_jacobian=with_jacobian)
+        # AL term (rho/2) max(0, g + mult/rho)^2 as the least-squares
+        # residual sqrt(rho/2) max(0, g + mult/rho).
+        ghat = g + mult / rho
+        act = ghat > 0
+        w = torch.sqrt(rho / 2.0)
+        e = torch.cat([e, w * torch.where(act, ghat, torch.zeros_like(ghat))], dim=-1)
+        if with_jacobian:
+            J = torch.cat([J, w * torch.where(act[..., None], Jg, torch.zeros_like(Jg))], dim=-2)
+        return e, J
+
+    def lm_solve(q, mult, rho):
+        lam = torch.full(batch, params.lm_init, dtype=dt, device=dev)
+        iters = torch.zeros(batch, dtype=torch.int32, device=dev)
+        done = torch.zeros(batch, dtype=torch.bool, device=dev)
+        for _ in range(params.maxiter):
+            live = ~done
+            r, J = residuals(q, mult, rho)
+            Jt = J.transpose(-1, -2)
+            g = (Jt @ r[..., None])[..., 0]
+            H = Jt @ J + lam[..., None, None] * eye
+            # A lane whose f32 system is not numerically SPD (info != 0)
+            # takes no step and raises its damping - the same outcome as the
+            # JAX package's clamped-pivot solve, whose step then fails the
+            # improvement test.
+            Lc, info = torch.linalg.cholesky_ex(H)
+            step = -torch.cholesky_solve(g[..., None], Lc)[..., 0]
+            step = torch.where((info == 0)[..., None], step, torch.zeros_like(step))
+            q_new = q + step
+            if params.clip_limits:
+                q_new = torch.clamp(q_new, lb, ub)
+            r_new, _ = residuals(q_new, mult, rho, with_jacobian=False)
+            improved = (info == 0) & ((r_new * r_new).sum(-1) < (r * r).sum(-1))
+            q_out = torch.where(improved[..., None], q_new, q)
+            lam_new = torch.clamp(
+                torch.where(improved, lam * params.lm_down, lam * params.lm_up), 1e-12, 1e8)
+            q = torch.where(live[..., None], q_out, q)
+            lam = torch.where(live, lam_new, lam)
+            iters = iters + live.to(torch.int32)
+            done = done | (live & (torch.linalg.norm(g, dim=-1) < params.tol_grad))
+        return q, iters
+
+    if ps.n_obstacles:
+        mult = torch.zeros(batch + (len(radii) * tpl.n,), dtype=dt, device=dev)
+        rho = torch.tensor(params.al_rho0, dtype=dt, device=dev)
+        q = q0
+        iters = torch.zeros(batch, dtype=torch.int32, device=dev)
+        for _ in range(params.al_iters):
+            q, k = lm_solve(q, mult, rho)
+            g, _ = _obstacle_g_and_jac(tpl, q, centers, radii, with_jacobian=False)
+            # standard inequality multiplier update
+            mult = torch.clamp(mult + rho * g, min=0.0)
+            rho = rho * params.al_growth
+            iters = iters + k
+        g, _ = _obstacle_g_and_jac(tpl, q, centers, radii, with_jacobian=False)
+        max_viol = torch.clamp(g, min=0.0).amax(dim=-1)
+    else:
+        q, iters = lm_solve(q0, None, None)
+        max_viol = torch.zeros(batch, dtype=dt, device=dev)
     e, _ = _pose_residuals(tpl, T_goal, q, with_jacobian=False)
     return {
         "q": q,
         "cost": (e * e).sum(-1),
         "iterations": iters,
-        "max_violation": torch.zeros(batch, dtype=dt, device=dev),
+        "max_violation": max_viol,
     }

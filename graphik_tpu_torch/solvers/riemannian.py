@@ -107,14 +107,16 @@ def solve(
     psi_L=None,
     psi_U=None,
     params: TRParams = TRParams(),
+    anchors=None,
 ):
     """Batched Riemannian TR solve of the EDM completion problem.
 
     Y0 : (..., N, d) initial points; D_goal : (..., N, N) squared goal
     distances; omega, psi_L, psi_U : static (N, N) host masks (psi None =
-    no limits). Returns dict of per-instance results (Y, cost, gradnorm,
-    iterations, num_inner). The anchored-obstacle hinges are not ported
-    (obstacles: slice 2).
+    no limits); anchors : optional anchored-hinge spec (the host numpy dict
+    of ProblemStructure.reduced_spec()) - hinge terms between rows of Y and
+    constant points, the obstacle reduction. Returns dict of per-instance
+    results (Y, cost, gradnorm, iterations, num_inner).
     """
     N, d = Y0.shape[-2], Y0.shape[-1]
     omega_host = np.asarray(omega, np.float64)
@@ -123,7 +125,8 @@ def solve(
     else:
         psi_L_host = np.asarray(psi_L, np.float64)
         psi_U_host = np.asarray(psi_U, np.float64)
-    ep = edge_ops.build_edge_problem(omega_host, psi_L_host, psi_U_host, dim=d)
+    ep = edge_ops.build_edge_problem(omega_host, psi_L_host, psi_U_host, dim=d,
+                                     anchors=anchors)
 
     batch = Y0.shape[:-2]
     Yf = Y0.reshape((-1, N, d)).contiguous()

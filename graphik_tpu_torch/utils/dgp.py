@@ -1,6 +1,6 @@
 """Distance-geometry core: Gram <-> EDM <-> positions, MDS, bound smoothing.
 
-Port of graphik_tpu/utils/dgp.py (the parts the main path runs). All
+Port of graphik_tpu/utils/dgp.py (the parts the main paths run). All
 functions broadcast over leading batch dims. Eigendecompositions use
 `torch.linalg.eigh`; the JAX package's fixed-sweep Jacobi and subspace
 iterations are TPU workarounds and are not ported.
@@ -93,10 +93,30 @@ def sample_distance_matrix(lb, ub, frac=0.9):
 # Bound smoothing (triangle-inequality propagation)
 # ---------------------------------------------------------------------------
 
+# Most elements a min-plus product's broadcast sum may hold at once (2^27:
+# 0.5 GB in float32). Larger products are taken in slices of the leading
+# batch dim: on the table scene at B = 8192 one unsliced product would hold
+# (B, 16, 100, 100) floats, 5.2 GB.
+MINPLUS_ELEMS = 1 << 27
+
+
 def _minplus(A, B):
     """Min-plus (tropical) product C_ij = min_k A_ik + B_kj, as a broadcast
-    min over a (..., N, N, N) sum."""
-    return torch.amin(A[..., :, :, None] + B[..., None, :, :], dim=-2)
+    min over a (..., N, K, P) sum, sliced over the leading batch dim so
+    that no sum holds more than MINPLUS_ELEMS elements."""
+    M, K = A.shape[-2:]
+    P = B.shape[-1]
+    batch = torch.broadcast_shapes(A.shape[:-2], B.shape[:-2])
+    per = math.prod(batch[1:]) * M * K * P
+    if not batch or batch[0] * per <= MINPLUS_ELEMS:
+        return torch.amin(A[..., :, :, None] + B[..., None, :, :], dim=-2)
+    A = A.expand(batch + (M, K))
+    B = B.expand(batch + (K, P))
+    step = max(1, MINPLUS_ELEMS // per)
+    return torch.cat([
+        torch.amin(A[i:i + step, ..., :, :, None] + B[i:i + step, ..., None, :, :], dim=-2)
+        for i in range(0, batch[0], step)
+    ])
 
 
 def _minplus_closure(A, n_iter):
@@ -132,4 +152,50 @@ def bound_smoothing(L, U, edge_mask, n_iter=None):
 
     lb = torch.where(eye, zero, torch.clamp(-cross, min=0.0))
     ub = torch.where(eye, zero, Astar)
+    return lb, ub
+
+
+def bound_smoothing_anchored(L, U, edge_mask, U_ro, L_ro, D_oo, n_iter=None):
+    """Bound smoothing with fixed-position side nodes folded in closed form.
+
+    Equal to `bound_smoothing` on the (M + no)-node graph of the M reduced
+    nodes plus `no` side nodes at known positions (obstacles), restricted
+    to the reduced block, without its (M + no)^3 cost:
+    * upper bounds: a detour through a side node never beats the direct
+      reduced path (triangle inequality through the anchors), so ub is the
+      reduced closure;
+    * lower bounds: the -L crossing lies inside the reduced block, between
+      a reduced and a side node (T1 and its transpose), or between two
+      side nodes (T3) - three extra min-plus products over the (M, no)
+      blocks.
+
+    U_ro, L_ro : (..., M, no) reduced->side upper / lower bounds (BIG / 0
+    where there is no edge); D_oo : (no, no) exact side-side distances.
+    Returns (lb, ub) over the M reduced nodes.
+    """
+    n = L.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=L.device)
+    big = torch.full_like(L, BIG)
+    zero = torch.zeros_like(L)
+
+    A = torch.where(eye, zero, torch.where(edge_mask, U, big))
+    B = torch.where(eye, zero, torch.where(edge_mask, -L, big))
+
+    if n_iter is None:
+        n_iter = max(1, math.ceil(math.log2(n)) + 1)
+    Astar = _minplus_closure(A, n_iter)
+    cross = _minplus(_minplus(Astar, B), Astar)
+
+    U_ro = U_ro.to(L.dtype)
+    Astar_ro = _minplus(Astar, U_ro)  # (..., M, no) reduced->side uppers
+    Aor = Astar_ro.transpose(-1, -2)
+    B_ro = torch.where(L_ro > 0, -L_ro, torch.full_like(L_ro, BIG))
+    B_oo = -D_oo.to(L.dtype)
+    T1 = _minplus(_minplus(Astar, B_ro), Aor)
+    T3 = _minplus(_minplus(Astar_ro, B_oo), Aor)
+    cross = torch.minimum(cross, torch.minimum(T1, T1.transpose(-1, -2)))
+    cross = torch.minimum(cross, T3)
+
+    ub = torch.where(eye, zero, Astar)
+    lb = torch.where(eye, zero, torch.clamp(-cross, min=0.0))
     return lb, ub

@@ -129,3 +129,22 @@ def test_random_goals_reproducible():
     T2, q2 = tapi.random_goals(tps, (5,), torch.Generator().manual_seed(3))
     assert T1.shape == (5, 1, 4, 4) and q1.shape == (5, 6)
     assert torch.equal(T1, T2) and torch.equal(q1, q2)
+
+
+def test_summarize_matches_jax():
+    """api.summarize returns the JAX package's keys and values
+    (parallel/mesh.py::summarize) on the same arrays, an even batch with
+    ties so the median interpolates."""
+    rs = np.random.RandomState(31)
+    B = 64
+    out = {
+        "e_pos": 10.0 ** rs.uniform(-8, -1, size=B),
+        "e_rot": 10.0 ** rs.uniform(-8, -1, size=B),
+        "success": rs.rand(B) < 0.8,
+        "iterations": rs.randint(10, 250, size=B).astype(np.int32),
+    }
+    ref = {k: float(v) for k, v in jsummarize({k: jnp.asarray(v) for k, v in out.items()}).items()}
+    got = tapi.summarize({k: torch.from_numpy(v) for k, v in out.items()})
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-6, atol=0, err_msg=k)

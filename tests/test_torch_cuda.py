@@ -1,4 +1,6 @@
-"""The CUDA TR kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card: the
+TR kernel (anchor-free and anchored) and the edge cost+grad / Hessian
+kernels.
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and
 skips itself elsewhere. The file imports no JAX, so it also runs on a
@@ -12,11 +14,13 @@ import pytest
 import torch
 
 from graphik_tpu_torch import api
+from graphik_tpu_torch.graphs.problem import ProblemStructure
 from graphik_tpu_torch.ops import edge as edge_ops
 from graphik_tpu_torch.ops import tr_solve
 from graphik_tpu_torch.robots.library import load_ur10
 from graphik_tpu_torch.solvers.local import LocalParams
 from graphik_tpu_torch.solvers.riemannian import TRParams
+from graphik_tpu_torch.utils.environments import table_environment
 
 PROD = dict(maxinner=24, plateau_every=16, plateau_rtol=1e-4)
 
@@ -113,3 +117,75 @@ def test_wrapper_refuses_float64_on_card(ur10_inputs):
     ep, Y0, dg = ur10_inputs
     with pytest.raises(TypeError, match="float32"):
         tr_solve.solve_tr(ep, Y0.double(), dg.double(), maxiter=1)
+
+
+@pytest.fixture(scope="module")
+def table_inputs(cuda):
+    """The table scene's reduced problem (16 nodes, 624 anchor rows) on
+    1000 goals prepared on the card, and world-frame starts near random
+    configurations, where the hinges meet the robot."""
+    tpl, _ = load_ur10()
+    ps = ProblemStructure.from_template(tpl, obstacles=table_environment())
+    spec = ps.reduced_spec()
+    Nr = spec["Nr"]
+    omega, psi_L, psi_U = ps.masks()
+    ep = edge_ops.build_edge_problem(omega[:Nr, :Nr], psi_L[:Nr, :Nr], psi_U[:Nr, :Nr],
+                                     dim=3, anchors=spec)
+    gen = torch.Generator().manual_seed(4)
+    T_goal, _ = api.random_goals(ps, (1000,), gen, dtype=torch.float32, device=cuda)
+    D_goal, Y0 = api.make_solver(ps, smooth_iters=2).prepare(T_goal)
+    _, q = api.random_goals(ps, (1000,), gen, dtype=torch.float32, device=cuda)
+    Yw = ps.realization(q)[:, :Nr].contiguous()
+    return ep, Y0.contiguous(), Yw, ep.edge_values(D_goal).contiguous()
+
+
+def _bitwise(ep, Y0, dg, **kw):
+    k = tr_solve.solve_tr_cuda(ep, Y0, dg, **kw)
+    p = tr_solve.solve_tr_reference(ep, Y0, dg, **kw)
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+
+
+@pytest.mark.parametrize("res_tol", [0.0, 0.05])
+def test_anchored_one_step_bitwise(table_inputs, res_tol):
+    ep, Y0, Yw, dg = table_inputs
+    before = tr_solve.solve_tr_cuda.anchored_launches
+    _bitwise(ep, Y0, dg, maxiter=1, maxinner=32, res_tol=res_tol)
+    _bitwise(ep, Yw, dg, maxiter=1, maxinner=32, res_tol=res_tol)
+    assert tr_solve.solve_tr_cuda.anchored_launches == before + 2
+
+
+def test_anchored_production_params_bitwise(table_inputs):
+    ep, Y0, _, dg = table_inputs
+    _bitwise(ep, Y0, dg, maxiter=30, maxinner=32, plateau_every=16, plateau_rtol=1e-4)
+
+
+def test_table_main_path_runs_the_anchored_kernel(cuda):
+    tpl, _ = load_ur10()
+    ps = ProblemStructure.from_template(tpl, obstacles=table_environment())
+    T_goal, _ = api.random_goals(ps, (256,), torch.Generator().manual_seed(5),
+                                 dtype=torch.float32, device=cuda)
+    solver = api.make_solver(ps, TRParams.production(maxiter=250, maxinner=32),
+                             polish_params=LocalParams(maxiter=10, tol_grad=1e-8),
+                             smooth_iters=2)
+    before = tr_solve.solve_tr_cuda.anchored_launches
+    out = solver(T_goal)
+    assert tr_solve.solve_tr_cuda.anchored_launches == before + 1
+    assert out["Y"].shape == (256, ps.N, 3)
+    assert api.summarize(out)["success_rate"] >= 0.7
+
+
+def test_edge_kernels_match_plain(ur10_inputs):
+    """K1 / K2 against ops/edge.py's cost_and_egrad / ehess (torch's own
+    summation order, so a tolerance and not bitwise)."""
+    ep, Y0, dg = ur10_inputs
+    Z = torch.randn(Y0.shape, generator=torch.Generator(device=Y0.device).manual_seed(6),
+                    device=Y0.device)
+    f, g = edge_ops.cost_and_egrad_cuda(ep, Y0, dg)
+    H = edge_ops.ehess_cuda(ep, Y0, Z, dg)
+    dgp = torch.nn.functional.pad(dg, (0, ep.Ep - dg.shape[1]))
+    fp, gp = edge_ops.cost_and_egrad(ep, Y0, dgp)
+    Hp = edge_ops.ehess(ep, Y0, Z, dgp)
+    torch.testing.assert_close(f, fp, rtol=1e-5, atol=0)
+    assert float((g - gp).abs().max()) <= 1e-4 * float(gp.abs().max())
+    assert float((H - Hp).abs().max()) <= 1e-4 * float(Hp.abs().max())

@@ -85,22 +85,73 @@ def test_kernel_wrapper_refuses_float64(ur10_edge):
 
 
 def test_wrappers_refuse_anchors(ur10_edge):
+    """With anchors, the TR kernel's wrapper still refuses CPU tensors, and
+    the plain version and the dispatcher take them on the CPU."""
     masks, _, Y0, D = ur10_edge
     anchors = {"idx": np.array([3]), "centers": np.zeros((1, 3)), "psi_L": np.array([0.1]),
                "psi_U": np.array([0.0]), "L_mask": np.array([1.0]), "U_mask": np.array([0.0])}
     ep = tedge.build_edge_problem(*masks, dim=3, anchors=anchors)
     assert ep.A > 0
     dg = ep.edge_values(D)
-    for fn in (tr_solve.solve_tr_cuda, tr_solve.solve_tr_reference, tr_solve.solve_tr):
-        with pytest.raises(NotImplementedError, match="slice 2"):
-            fn(ep, Y0, dg, maxiter=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tr_solve.solve_tr_cuda(ep, Y0, dg, maxiter=1)
+    before = tr_solve.solve_tr_cuda.launches
+    ref = tr_solve.solve_tr_reference(ep, Y0, dg, maxiter=1)
+    out = tr_solve.solve_tr(ep, Y0, dg, maxiter=1)
+    assert tr_solve.solve_tr_cuda.launches == before
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
+
+
+def test_kernel_wrapper_refuses_anchor_rows_over_the_build(ur10_edge):
+    """More anchor rows than the build's kMaxA (1024) raise before any
+    launch: 1100 rows on one node."""
+    masks, _, Y0, D = ur10_edge
+    n = 1100
+    anchors = {"idx": np.full(n, 3), "centers": np.zeros((n, 3)), "psi_L": np.full(n, 0.1),
+               "psi_U": np.zeros(n), "L_mask": np.ones(n), "U_mask": np.zeros(n)}
+    ep = tedge.build_edge_problem(*masks, dim=3, anchors=anchors)
+    assert ep.A > 1024
+    with pytest.raises(ValueError, match="anchor layout"):
+        tr_solve.solve_tr_cuda(ep, Y0, ep.edge_values(D), maxiter=1)
+
+
+def test_edge_kernel_wrappers_refuse_anchors(ur10_edge):
+    """The K1/K2 wrappers take edge terms only: an EdgeProblem with anchors
+    raises (JAX's Pallas wrappers drop them silently)."""
+    masks, _, Y0, D = ur10_edge
+    anchors = {"idx": np.array([3]), "centers": np.zeros((1, 3)), "psi_L": np.array([0.1]),
+               "psi_U": np.array([0.0]), "L_mask": np.array([1.0]), "U_mask": np.array([0.0])}
+    ep = tedge.build_edge_problem(*masks, dim=3, anchors=anchors)
+    dg = ep.edge_values(D)
+    with pytest.raises(ValueError, match="anchor"):
+        tedge.cost_and_egrad_cuda(ep, Y0, dg)
+    with pytest.raises(ValueError, match="anchor"):
+        tedge.ehess_cuda(ep, Y0, Y0, dg)
+
+
+def test_edge_kernel_wrappers_refuse_cpu_and_float64(ur10_edge):
+    _, ep, Y0, D = ur10_edge
+    dg = ep.edge_values(D)
+    with pytest.raises(ValueError, match="CUDA"):
+        tedge.cost_and_egrad_cuda(ep, Y0, dg)
+    with pytest.raises(ValueError, match="CUDA"):
+        tedge.ehess_cuda(ep, Y0, Y0, dg)
+    with pytest.raises(TypeError, match="float32"):
+        tedge.cost_and_egrad_cuda(ep, Y0.double(), dg.double())
+    with pytest.raises(TypeError, match="float32"):
+        tedge.ehess_cuda(ep, Y0, Y0.double(), dg)
+    assert tedge.cost_and_egrad_cuda.launches == tedge.ehess_cuda.launches == 0
 
 
 def test_obstacles_raise():
-    tpl, ps = tlib.load_ur10()
-    with pytest.raises(NotImplementedError, match="obstacles: slice 2"):
-        ps.add_spherical_obstacle(np.array([0.5, 0.0, 0.5]), 0.2)
+    """Obstacles compile now; planar robots are still a later slice and
+    raise instead of compiling a wrong graph."""
     from graphik_tpu_torch.graphs.problem import ProblemStructure
+    from graphik_tpu_torch.robots.templates import planar_from_links
 
-    with pytest.raises(NotImplementedError, match="obstacles: slice 2"):
-        ProblemStructure.from_template(tpl, obstacles=[(np.zeros(3), 0.1)])
+    _, ps = tlib.load_ur10()
+    assert ps.add_spherical_obstacle(np.array([0.5, 0.0, 0.5]), 0.2).n_obstacles == 1
+    planar = planar_from_links([1.0, 1.0, 1.0])
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        ProblemStructure.from_template(planar, obstacles=[(np.zeros(2), 0.1)])
