@@ -4,9 +4,12 @@ Port of graphik_tpu/api.py for 3D revolute robots, with or without
 spherical obstacles. The pipeline runs eagerly in three stages - prepare
 (goal anchors, bound smoothing, MDS init), solve (the TR kernel), finish
 (joint recovery, FK validation, pose error, LM polish, keep-the-better) -
-on the goals' device. With obstacles, prepare and solve run on the Nr
-robot nodes only (the anchored reduction, ProblemStructure.reduced_spec)
-and the obstacle positions are padded back into Y after the solve.
+on the goals' device: goals given as a torch tensor stay where the caller
+put them, and goals with no device (numpy arrays) go to the solver's
+`device`, the card unless the caller names another. With obstacles,
+prepare and solve run on the Nr robot nodes only (the anchored reduction,
+ProblemStructure.reduced_spec) and the obstacle positions are padded back
+into Y after the solve.
 Layouts match the JAX package: Y is (B, N, d), T_goal is (B, n_ee, 4, 4),
 and the output dicts carry the same keys.
 """
@@ -120,6 +123,7 @@ class Solver:
     polish: bool = True
     polish_params: Optional[LocalParams] = None
     smooth_iters: Optional[int] = None
+    device: Optional[torch.device] = None  # for goals with no device; None: the card
 
     def __post_init__(self):
         self.omega, self.psi_L, self.psi_U = self.structure.masks()
@@ -127,9 +131,17 @@ class Solver:
         # obstacle nodes are constants: prepare runs on the Nr robot nodes
         self.n_nodes = None if spec is None else spec["Nr"]
 
+    def goals(self, T_goal):
+        """T_goal as a tensor: a torch tensor as it is, anything else (a
+        numpy array) on the solver's device."""
+        if isinstance(T_goal, torch.Tensor):
+            return T_goal
+        return torch.as_tensor(T_goal, device=kinematics.entry_device(self.device))
+
     def prepare(self, T_goal):
         """Goal anchors, bound smoothing and the MDS init -> (D_goal, Y0),
         over the Nr robot nodes when the structure has obstacles."""
+        T_goal = self.goals(T_goal)
         inst = self.structure.instance(T_goal, dtype=self.dtype, smooth=True,
                                        n_nodes=self.n_nodes, smooth_iters=self.smooth_iters)
         M = self.structure.N if self.n_nodes is None else self.n_nodes
@@ -145,7 +157,7 @@ class Solver:
         """Joint recovery, FK validation, pose error and the polish."""
         ps = self.structure
         Y = sol["Y"]
-        T_goal = T_goal.to(Y.dtype)
+        T_goal = self.goals(T_goal).to(Y.device, Y.dtype)
         q = ps.joint_variables(Y, T_goal)
         max_viol, limits_ok = ps.check_distance_limits(ps.realization(q), tol=self.limit_tol)
         e_pos, e_rot = pose_error(ps, q, T_goal)
@@ -165,6 +177,7 @@ class Solver:
         }
 
     def __call__(self, T_goal):
+        T_goal = self.goals(T_goal)
         D_goal, Y0 = self.prepare(T_goal)
         return self.finish(self.solve(Y0, D_goal), T_goal)
 
@@ -172,25 +185,29 @@ class Solver:
 def make_solver(structure: ProblemStructure, params: TRParams = TRParams(),
                 use_limits: bool = True, dtype=None, limit_tol: float = 1e-6,
                 polish: bool = True, polish_params: Optional[LocalParams] = None,
-                smooth_iters: Optional[int] = None) -> Solver:
+                smooth_iters: Optional[int] = None, device=None) -> Solver:
     """A batched solver for `structure`: solver(T_goal) -> dict of
     per-instance q, Y, e_pos, e_rot, limit_violation, success, cost,
-    gradnorm, iterations, num_inner."""
+    gradnorm, iterations, num_inner. A tensor T_goal runs on its own
+    device; goals with no device run on `device` (None: the card, which
+    raises when there is none)."""
     return Solver(structure, params, use_limits, dtype, limit_tol, polish,
-                  polish_params, smooth_iters)
+                  polish_params, smooth_iters, device)
 
 
 def solve_ik(structure: ProblemStructure, T_goal, params: TRParams = TRParams(),
              use_limits: bool = True, Y_init=None, dtype=None, limit_tol: float = 1e-6,
              polish: bool = True, polish_params: Optional[LocalParams] = None,
-             smooth_iters: Optional[int] = None):
+             smooth_iters: Optional[int] = None, device=None):
     """One-shot batched IK solve.
 
     Y_init: optional (..., N, d) or (..., Nr, d) initialization, broadcast
-    over the batch; the default is the bound-smoothing MDS init.
+    over the batch; the default is the bound-smoothing MDS init. device: as
+    `make_solver`'s, for goals with no device.
     """
     solver = make_solver(structure, params, use_limits, dtype, limit_tol, polish,
-                         polish_params, smooth_iters)
+                         polish_params, smooth_iters, device)
+    T_goal = solver.goals(T_goal)
     if Y_init is None:
         return solver(T_goal)
     D_goal = structure.instance(T_goal, dtype=dtype, smooth=False)["D_goal"]
@@ -202,7 +219,8 @@ def solve_ik(structure: ProblemStructure, T_goal, params: TRParams = TRParams(),
 def random_goals(structure: ProblemStructure, batch_shape=(),
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.float64, device=None):
-    """Random reachable goal poses via FK at random configurations.
+    """Random reachable goal poses via FK at random configurations, on
+    `device` (None: the card, which raises when there is none).
 
     Returns (T_goal (..., n_ee, 4, 4), q_goal (..., n)).
     """

@@ -44,7 +44,7 @@ cost_grad_kernel(const float* __restrict__ Y, const float* __restrict__ dgoal, i
 #pragma unroll
   for (int k = 0; k < D; ++k) Yl[k] = c.has_node ? Y[((size_t)b * N + c.lane) * D + k] : 0.f;
   float f, g[D], rpart;
-  c.cost_grad_edges(Yl, 0.f, 0.f, f, g, rpart);
+  c.cost_grad_edges(Yl, 0.f, 0.f, f, rpart);
   c.scatter(-2.f, g);
   if (c.has_node) {
 #pragma unroll

@@ -1,19 +1,26 @@
-// One warp per instance of the EDM-completion problem over its compiled
-// edge form: the per-warp tables and the edge cost, gradient and
-// Hessian-vector terms shared by csrc/tr_solve.cu (the TR solve) and
-// csrc/edge.cu (the cost+gradient and Hessian-vector entry points).
+// One instance of the EDM-completion problem per warp segment of W lanes
+// (W = 32: a whole warp; W = 16: half a warp, two instances per warp) over
+// its compiled edge form: the per-segment tables and the edge cost,
+// gradient and Hessian-vector terms shared by csrc/tr_solve.cu (the TR
+// solve) and csrc/edge.cu (the cost+gradient and Hessian-vector entry
+// points, W = 32).
 //
-// * Lane i < N holds node i's d coordinates of a state vector.
-// * Edge differences C.Y: lane l owns edges e = l, l + 32, ... (EPL of
-//   them) and gathers the endpoint coordinates with __shfl_sync. This
-//   replaces the MXU incidence matmul of the TPU kernels.
-// * Scatter C^T w: each lane writes its per-edge values into the warp's
+// * Lane i < N of a segment holds node i's d coordinates of a state vector.
+// * Edge differences C.Y: segment lane l owns edges e = l, l + W, ... (EPL
+//   of them) and gathers the endpoint coordinates with __shfl_sync inside
+//   its segment. This replaces the MXU incidence matmul of the TPU kernels.
+// * Scatter C^T w: each lane writes its per-edge values into the segment's
 //   slice of shared memory; node lane i then sums its own incidence list
 //   (CSR with signs, ascending edge order). No float atomics, so a run is
 //   bitwise repeatable.
-// * Row sums are __shfl_xor_sync butterflies, which leave a
-//   bitwise-identical value in every lane, so branches on them never
-//   diverge.
+// * Sums over a segment are __shfl_xor_sync butterflies, which leave a
+//   bitwise-identical value in every lane of the segment, so branches on
+//   them never diverge inside a segment. Every sum keeps the addition tree
+//   of a 32-lane butterfly over the 32-lane layout (edges l, l + 32, ... on
+//   lane l): with W = 16, lane l holds the partials of that layout's lanes
+//   l (edges l, l + 32) and l + 16 (edges l + 16, l + 48) apart, adds them
+//   as the xor-16 round did, and runs the rounds 8 ... 1. Node values of a
+//   16-lane segment add the +0 of the 32-lane layout's empty lanes.
 // * f32 throughout; the build passes -fmad=false so every product and sum
 //   rounds as in the plain torch versions.
 
@@ -38,15 +45,27 @@ __device__ __forceinline__ float jmin(float a, float b) {
 
 __device__ __forceinline__ bool finite(float x) { return fabsf(x) <= 3.402823466e+38f; }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// Sum over a W-lane segment of per-lane partials; with W = 16, lo and hi
+// are the partials of the 32-lane layout's lanes l and l + 16 (hi is
+// ignored when W = 32).
+template <int W>
+__device__ __forceinline__ float seg_sum(float lo, float hi) {
+  float x = W == 16 ? lo + hi : lo;
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(kFull, x, m);
+  for (int m = W / 2; m > 0; m >>= 1) x += __shfl_xor_sync(kFull, x, m);
   return x;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// Sum of one value per node lane (the 32-lane layout's lanes N..31 add +0).
+template <int W>
+__device__ __forceinline__ float node_sum(float x) {
+  return seg_sum<W>(x, 0.f);
+}
+
+template <int W>
+__device__ __forceinline__ float seg_max(float x) {
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x = jmax(x, __shfl_xor_sync(kFull, x, m));
+  for (int m = W / 2; m > 0; m >>= 1) x = jmax(x, __shfl_xor_sync(kFull, x, m));
   return x;
 }
 
@@ -78,37 +97,57 @@ __device__ __forceinline__ void load_edge_tables(EdgeTables& t, const int* ei, c
   for (int q = threadIdx.x; q <= N; q += blockDim.x) t.rowptr[q] = rowptr[q];
 }
 
-// Per-warp view of the block's shared tables plus this lane's edges.
-template <int D, int EPL>
+// Per-segment view of the block's shared tables plus this lane's edges.
+template <int D, int EPL, int W = 32>
 struct Warp {
-  int lane;
+  static_assert(W == 16 || W == 32, "a segment is half a warp or a warp");
+  static constexpr int kWS = kMaxE * W / 32;  // scatter buffer stride per coordinate
+
+  int lane;             // lane within the segment
+  int base;             // the segment's first warp lane
   bool has_node;
   const float* par;     // [5][kMaxE]
   const int* rowptr;    // [N + 1]
   const int* inc;       // [2E]: edge * 2 + (1 if the node is the edge's ej)
-  float* w;             // this warp's [D][kMaxE] scatter buffer
+  float* w;             // this segment's [D][kWS] scatter buffer
   int edge[EPL];        // edge index, or -1 past E
-  int src_i[EPL], src_j[EPL];
+  int src_i[EPL], src_j[EPL];  // warp lanes of the endpoints
   float dg[EPL];
 
-  __device__ void init(const EdgeTables& t, float* wbuf, const float* dgoal, int dg_stride,
-                       int b, int N, int E) {
-    lane = threadIdx.x & 31;
+  // wbuf: the warp's [D * kMaxE] scatter buffer, split between segments.
+  __device__ void init_tables(const EdgeTables& t, float* wbuf, int N, int E) {
+    const int wl = threadIdx.x & 31;
+    lane = wl & (W - 1);
+    base = wl - lane;
     has_node = lane < N;
     par = t.par;
     rowptr = t.rowptr;
     inc = t.inc;
-    w = wbuf;
+    w = wbuf + (base / W) * D * kWS;
 #pragma unroll
     for (int j = 0; j < EPL; ++j) {
-      const int e = lane + 32 * j;
+      const int e = lane + W * j;
       const bool valid = e < E;
       edge[j] = valid ? e : -1;
-      src_i[j] = valid ? t.ei[e] : 0;
-      src_j[j] = valid ? t.ej[e] : 0;
-      dg[j] = valid ? dgoal[(size_t)b * dg_stride + e] : 0.f;
+      src_i[j] = base + (valid ? t.ei[e] : 0);
+      src_j[j] = base + (valid ? t.ej[e] : 0);
     }
   }
+
+  __device__ void load_goal(const float* dgoal, int dg_stride, int b) {
+#pragma unroll
+    for (int j = 0; j < EPL; ++j)
+      dg[j] = edge[j] >= 0 ? dgoal[(size_t)b * dg_stride + edge[j]] : 0.f;
+  }
+
+  __device__ void init(const EdgeTables& t, float* wbuf, const float* dgoal, int dg_stride,
+                       int b, int N, int E) {
+    init_tables(t, wbuf, N, E);
+    load_goal(dgoal, dg_stride, b);
+  }
+
+  // Whether slot j holds an edge of the 32-lane layout's lane l + 16.
+  __host__ __device__ static constexpr bool hi(int j) { return W == 16 && (j & 1); }
 
   __device__ float p(int which, int e) const { return par[which * kMaxE + e]; }
 
@@ -131,10 +170,10 @@ struct Warp {
         const int e = code >> 1;
         if (code & 1) {
 #pragma unroll
-          for (int k = 0; k < D; ++k) acc[k] = acc[k] - w[k * kMaxE + e];
+          for (int k = 0; k < D; ++k) acc[k] = acc[k] - w[k * kWS + e];
         } else {
 #pragma unroll
-          for (int k = 0; k < D; ++k) acc[k] = acc[k] + w[k * kMaxE + e];
+          for (int k = 0; k < D; ++k) acc[k] = acc[k] + w[k * kWS + e];
         }
       }
     }
@@ -143,12 +182,12 @@ struct Warp {
     __syncwarp();
   }
 
-  // Edge cost f, Euclidean gradient g = -2 C^T (s dY) and this lane's
-  // partial (unreduced) max relative residual when res_tol > 0, as
-  // tr_pallas.py cost_and_grad.
+  // Edge cost f, the per-edge gradient terms s dY into w (the caller
+  // scatters them) and this lane's partial (unreduced) max relative
+  // residual when res_tol > 0, as tr_pallas.py cost_and_grad.
   __device__ void cost_grad_edges(const float (&Y)[D], float res_tol, float r_floor, float& f,
-                                  float (&g)[D], float& rpart) const {
-    float fpart = 0.f;
+                                  float& rpart) const {
+    float fpart[2] = {0.f, 0.f};
     rpart = 0.f;
 #pragma unroll
     for (int j = 0; j < EPL; ++j) {
@@ -161,10 +200,10 @@ struct Warp {
         const float s0 = om * (dg[j] - dist);
         const float e1 = p(3, e) * jmax(psiL - dist, 0.f);
         const float e2 = p(4, e) * jmax(dist - psiU, 0.f);
-        fpart = fpart + (s0 * s0 + e1 * e1 + e2 * e2);
+        fpart[hi(j)] = fpart[hi(j)] + (s0 * s0 + e1 * e1 + e2 * e2);
         const float s = s0 + e1 - e2;
 #pragma unroll
-        for (int k = 0; k < D; ++k) w[k * kMaxE + e] = s * dY[k];
+        for (int k = 0; k < D; ++k) w[k * kWS + e] = s * dY[k];
         if (res_tol > 0.f) {
           float r = fabsf(s0) / jmax(dg[j], r_floor);
           r = jmax(r, e1 / jmax(psiL, r_floor));
@@ -173,7 +212,7 @@ struct Warp {
         }
       }
     }
-    f = warp_sum(fpart);
+    f = seg_sum<W>(fpart[0], fpart[1]);
   }
 };
 
@@ -185,8 +224,9 @@ struct EdgeHvp {
   float s[EPL], m[EPL];
 };
 
-template <int D, int EPL>
-__device__ void edge_hvp_setup(const Warp<D, EPL>& c, const float (&Y)[D], EdgeHvp<D, EPL>& h) {
+template <int D, int EPL, int W>
+__device__ void edge_hvp_setup(const Warp<D, EPL, W>& c, const float (&Y)[D],
+                               EdgeHvp<D, EPL>& h) {
 #pragma unroll
   for (int j = 0; j < EPL; ++j) {
     c.edge_diff(Y, j, h.dY[j]);
@@ -207,9 +247,9 @@ __device__ void edge_hvp_setup(const Warp<D, EPL>& c, const float (&Y)[D], EdgeH
 }
 
 // Euclidean edge Hessian-vector product H = 2 C^T (m dD dY - s dZ).
-template <int D, int EPL>
-__device__ void edge_hvp(const Warp<D, EPL>& c, const EdgeHvp<D, EPL>& h, const float (&Z)[D],
-                         float (&H)[D]) {
+template <int D, int EPL, int W>
+__device__ void edge_hvp(const Warp<D, EPL, W>& c, const EdgeHvp<D, EPL>& h,
+                         const float (&Z)[D], float (&H)[D]) {
 #pragma unroll
   for (int j = 0; j < EPL; ++j) {
     float dZ[D];
@@ -218,7 +258,7 @@ __device__ void edge_hvp(const Warp<D, EPL>& c, const EdgeHvp<D, EPL>& h, const 
     if (e >= 0) {
       const float mdD = h.m[j] * (2.f * dot(h.dY[j], dZ));
 #pragma unroll
-      for (int k = 0; k < D; ++k) c.w[k * kMaxE + e] = mdD * h.dY[j][k] - h.s[j] * dZ[k];
+      for (int k = 0; k < D; ++k) c.w[k * Warp<D, EPL, W>::kWS + e] = mdD * h.dY[j][k] - h.s[j] * dZ[k];
     }
   }
   c.scatter(2.f, H);

@@ -40,8 +40,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P,                                 # Yout, cost, gradnorm, iters, ninner
         _I, _I, _I, _I, _I, _I, _I,                         # B, N, D, E, A, a_nsel, a_R
         _I, _I, _I, _I,                                     # maxiter .. plateau_every
-        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,             # mingradnorm .. res_tol
+        _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,         # mingradnorm .. res_tol, a_near
         _P,                                                 # stream
+    ],
+    "graphik_tr_shape": [
+        _I, _I, _I, _I, _I, _I, _I,                         # B, N, D, E, A, a_nsel, a_R
+        _P,                                                 # info (4 int32)
     ],
     "graphik_edge_cost_grad": [
         _P, _P, _I,                                         # Y, dgoal, dg_stride

@@ -6,7 +6,9 @@ and its has_anchors branch, driven by `solve_tr_pallas`). Three functions:
 * `solve_tr_cuda` - wrapper of the hand-written CUDA kernel
   csrc/tr_solve.cu: f32 CUDA tensors only, counts its launches in
   `solve_tr_cuda.launches` and, of those, the anchored ones (the
-  obstacle reduction) in `solve_tr_cuda.anchored_launches`.
+  obstacle reduction) in `solve_tr_cuda.anchored_launches`. It hands the
+  kernel the reach of its anchor skip bound; `kernel_shape` says how the
+  kernel is launched.
 * `solve_tr_reference` - the plain torch version: a batched transcription
   of `_tr_kernel` with (B,) per-lane masks and `torch.where` freezing, in
   the kernel's statement order; any dtype, any device.
@@ -22,6 +24,8 @@ Cholesky (scalar for d = 2).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -422,6 +426,17 @@ def _proj(Y, H, fac, node_sum):
         [H0 + a * Y1 + b * Y2, H1 - a * Y0 + c * Y2, H2 - b * Y0 - c * Y1], dim=-1)
 
 
+def _anchor_near(ep: EdgeProblem) -> float:
+    """The reach of the kernel's anchor skip bound: the least hinge radius
+    sqrt(psi) over the rows that have a hinge (the table scene: its spheres'
+    0.1 m), or 0 (every row evaluated) when there is none."""
+    if not ep.A:
+        return 0.0
+    radii = np.concatenate([np.sqrt(np.asarray(psi, np.float64))[np.asarray(mask) != 0]
+                            for psi, mask in ((ep.apsi_L, ep.aL_mask), (ep.apsi_U, ep.aU_mask))])
+    return float(radii.min()) if radii.size else 0.0
+
+
 def _anchor_tables(ep: EdgeProblem, device):
     """Anchor centers (d, A), parameters (4, A) and group nodes (a_nsel,)
     as device tensors for the kernel (one-element dummies when A == 0)."""
@@ -493,7 +508,7 @@ def solve_tr_cuda(
         int(maxiter), int(maxinner), int(mininner), int(plateau_every),
         float(mingradnorm), float(kappa), float(theta), float(rho_prime),
         float(rho_regularization), float(Delta_bar), float(Delta0),
-        float(plateau_rtol), float(plateau_atol), float(res_tol),
+        float(plateau_rtol), float(plateau_atol), float(res_tol), _anchor_near(ep),
         stream,
     )
     if rc != 0:
@@ -509,6 +524,21 @@ def solve_tr_cuda(
 
 solve_tr_cuda.launches = 0
 solve_tr_cuda.anchored_launches = 0
+
+
+def kernel_shape(ep: EdgeProblem, B: int, d: int) -> dict:
+    """The launch shape `solve_tr_cuda` uses for B instances of `ep` on the
+    current card: blocks launched, blocks resident on the card at once,
+    instances per block (one per warp, or two when they share a warp) and
+    whether they share one. Needs the card (it builds the library)."""
+    from graphik_tpu_torch.ops._build import load_library
+
+    info = (ctypes.c_int * 4)()
+    rc = load_library().graphik_tr_shape(B, ep.N, d, ep.E, ep.A, ep.a_nsel, ep.a_R, info)
+    if rc != 0:
+        raise RuntimeError(f"TR kernel shape query failed: cudaError {rc}")
+    return {"blocks": info[0], "blocks_resident": info[1], "instances_per_block": info[2],
+            "two_per_warp": bool(info[3])}
 
 
 def solve_tr(ep: EdgeProblem, Y0, dgoal_e, **kwargs):

@@ -128,14 +128,25 @@ def _ancestor_matrix(template: RobotTemplate):
     return anc
 
 
+def entry_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device`, or the card when the
+    caller names none. Raises when that is a CUDA device and there is none:
+    the CPU runs only when asked for."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return dev
+
+
 def random_configuration(template: RobotTemplate, batch_shape=(),
                          generator: Optional[torch.Generator] = None,
                          dtype=torch.float64, device=None):
-    """Uniform joint angles within limits.
+    """Uniform joint angles within limits, on `device` (default: the card).
 
     The draw happens on `generator`'s own device (so one seed gives the
     same goals whatever `device` is) and the result moves to `device`.
     """
+    device = entry_device(device)
     lb = torch.as_tensor(template.lb[1:], dtype=dtype, device=device)
     ub = torch.as_tensor(template.ub[1:], dtype=dtype, device=device)
     gen_device = generator.device if generator is not None else device

@@ -125,10 +125,48 @@ def test_make_solver_end_to_end_f32():
 
 def test_random_goals_reproducible():
     _, tps = tlib.load_ur10()
-    T1, q1 = tapi.random_goals(tps, (5,), torch.Generator().manual_seed(3))
-    T2, q2 = tapi.random_goals(tps, (5,), torch.Generator().manual_seed(3))
+    T1, q1 = tapi.random_goals(tps, (5,), torch.Generator().manual_seed(3), device="cpu")
+    T2, q2 = tapi.random_goals(tps, (5,), torch.Generator().manual_seed(3), device="cpu")
     assert T1.shape == (5, 1, 4, 4) and q1.shape == (5, 6)
     assert torch.equal(T1, T2) and torch.equal(q1, q2)
+
+
+SHORT = dict(params=TTRParams.production(maxiter=5, maxinner=24),
+             polish_params=tlocal.LocalParams(maxiter=2, tol_grad=1e-8), smooth_iters=2)
+
+
+def test_entry_points_default_to_the_card():
+    """With no device, goals are made on the card and goals that carry no
+    device (numpy) are solved there; without a card both raise."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    _, tps = tlib.load_ur10()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.random_goals(tps, (2,))
+    T_goal = tapi.random_goals(tps, (2,), torch.Generator().manual_seed(4), device="cpu")[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.make_solver(tps, **SHORT)(T_goal.numpy())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.solve_ik(tps, T_goal.numpy(), **SHORT)
+
+
+def test_cpu_when_asked():
+    """device="cpu" gives the draw the generator makes, and numpy goals on
+    the CPU solve as CPU tensors do."""
+    _, tps = tlib.load_ur10()
+    T_goal, q = tapi.random_goals(tps, (3,), torch.Generator().manual_seed(5), device="cpu")
+    u = torch.rand((3, 6), generator=torch.Generator().manual_seed(5), dtype=torch.float64)
+    lb, ub = torch.from_numpy(tps.template.lb[1:]), torch.from_numpy(tps.template.ub[1:])
+    assert q.device.type == "cpu" and torch.equal(q, lb + u * (ub - lb))
+    T32 = T_goal.float()
+    ref = tapi.make_solver(tps, **SHORT)(T32)
+    for out in (tapi.make_solver(tps, device="cpu", **SHORT)(T32.numpy()),
+                tapi.solve_ik(tps, T32.numpy(), device="cpu", **SHORT),
+                tapi.solve_ik(tps, T32, **SHORT)):
+        assert set(out) == set(ref)
+        for k in ref:
+            assert out[k].device.type == "cpu"
+            assert torch.equal(out[k], ref[k]), k
 
 
 def test_summarize_matches_jax():

@@ -47,7 +47,7 @@ def ur10_inputs(cuda):
     return ep, Y0.contiguous(), ep.edge_values(D_goal).contiguous()
 
 
-def _synthetic(N, d, n_edges, seed, device):
+def _synthetic(N, d, n_edges, seed, device, B=300):
     """A random EDM-completion problem: exact edges, lower and upper hinges."""
     rs = np.random.RandomState(seed)
     P = rs.normal(size=(N, d))
@@ -60,7 +60,6 @@ def _synthetic(N, d, n_edges, seed, device):
         M, v = [(omega, 1.0), (psi_L, 0.8 * D[i, j]), (psi_U, 1.2 * D[i, j])][k]
         M[i, j] = M[j, i] = v
     ep = edge_ops.build_edge_problem(omega, psi_L, psi_U, dim=d)
-    B = 300
     Y0 = torch.tensor(P[None] + 0.3 * rs.normal(size=(B, N, d)), dtype=torch.float32,
                       device=device)
     Dg = torch.tensor(np.broadcast_to(D, (B, N, N)).copy(), dtype=torch.float32,
@@ -98,6 +97,39 @@ def test_production_params_match_plain(ur10_inputs):
 def test_other_shapes_match_plain(cuda, N, d, n_edges):
     """The planar (d = 2) build and 1, 3 and 4 edges per lane."""
     _one_step_matches(*_synthetic(N, d, n_edges, seed=N + n_edges, device=cuda))
+
+
+@pytest.mark.parametrize("B", [1, 33, 1001])
+@pytest.mark.parametrize("N,d,n_edges", [(16, 3, 64), (12, 3, 40), (10, 2, 20)])
+def test_two_per_warp_bitwise(cuda, N, d, n_edges, B):
+    """Shapes with N <= 16 and E <= 64 share a warp between two instances;
+    B = 1 and 33 leave a half warp idle, 1001 does not fill the last
+    block. One step and 100 steps are bitwise equal to the plain version."""
+    ep, Y0, dg = _synthetic(N, d, n_edges, seed=N + n_edges + B, device=cuda, B=B)
+    assert tr_solve.kernel_shape(ep, B, d)["two_per_warp"]
+    _bitwise(ep, Y0, dg, maxiter=1)
+    _bitwise(ep, Y0, dg, maxiter=100, maxinner=d * N, plateau_every=16, plateau_rtol=1e-4)
+
+
+def test_launch_shape(ur10_inputs):
+    """UR10 runs two instances per warp, one per half warp, a 24-node
+    problem one per warp."""
+    ep, Y0, _ = ur10_inputs
+    shape = tr_solve.kernel_shape(ep, 8192, 3)
+    assert shape["two_per_warp"] and shape["instances_per_block"] == 8
+    assert shape["blocks"] == 1024 and shape["blocks_resident"] >= 132
+    big = _synthetic(24, 2, 70, seed=1, device=ur10_inputs[1].device)[0]
+    shape = tr_solve.kernel_shape(big, 10, 2)
+    assert not shape["two_per_warp"] and shape["blocks"] == 3
+
+
+def test_repeat_calls_bitwise(ur10_inputs):
+    """Two calls in a row give the same outputs, bitwise."""
+    ep, Y0, dg = ur10_inputs
+    a = tr_solve.solve_tr_cuda(ep, Y0, dg, maxiter=30, **PROD)
+    b = tr_solve.solve_tr_cuda(ep, Y0, dg, maxiter=30, **PROD)
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
 
 
 def test_main_path_runs_the_kernel(cuda):
@@ -158,6 +190,14 @@ def test_anchored_one_step_bitwise(table_inputs, res_tol):
 def test_anchored_production_params_bitwise(table_inputs):
     ep, Y0, _, dg = table_inputs
     _bitwise(ep, Y0, dg, maxiter=30, maxinner=32, plateau_every=16, plateau_rtol=1e-4)
+
+
+def test_anchored_world_frame_bitwise(table_inputs):
+    """100 steps from world-frame starts, where hinges turn on and off as
+    the nodes move: the kernel's skipping of inactive anchor rows must
+    leave every output bitwise equal."""
+    ep, _, Yw, dg = table_inputs
+    _bitwise(ep, Yw, dg, maxiter=100, maxinner=32, plateau_every=16, plateau_rtol=1e-4)
 
 
 def test_table_main_path_runs_the_anchored_kernel(cuda):
