@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two paths once on one GPU and check its kernels.
+"""Drive the PyTorch/CUDA port's paths once on one GPU and check its kernels.
 
     python3 chip_smoke.py
 
@@ -38,7 +38,30 @@ Phases (any failure exits non-zero; no phase swallows an exception):
   7. the edge cost+grad and Hessian kernels vs ops/edge.py's plain
      versions at B = 8192, on the Y the UR10 path hands to the solve and
      a seeded Z: f rtol 1e-5, g and H max abs error <= 1e-4 x max |plain|;
-     times.
+     times;
+  8. the other robots of the bench - planar6 and planar10
+     (load_planar_chain(n, limits=pi/2)), KUKA iiwa and LWA4D - each with
+     the UR10 path's parameters: the TR kernel vs its plain version on the
+     robot's prepared inputs at B = 1000 (one step, then the production
+     params, every lane bitwise equal), its launch shape (two instances per
+     warp for the planar chains, one for the 18-node arms), make_solver at
+     B = 8192 (one warm call, 2 timed calls with per-stage walls, one
+     launch a call, success at or above the floor), the kernel's time;
+  9. the restart paths (parallel.make_restart_solver, R restarts of
+     B / R goals folded into one batch of 8192): ur10_restarts4,
+     ur10_table_restarts2 (production(250, 32)), planar6_restarts2 and
+     planar10_restarts2; one warm and 2 timed calls, one TR launch a call
+     (anchored on the table), success at or above the floor and at least
+     the single-init solver's on the same goals less 0.005;
+ 10. the two-end-effector tree (robots.library.load_tree5) with 3
+     restarts and production(maxiter=300) on 1000 goals: the TR kernel vs
+     its plain version on the path's prepared 3000 instances (one step,
+     then the path's parameters, every lane bitwise equal), then both end
+     effectors reached at or above the floor.
+
+A floor is the lower end of the JAX package's 95% Wilson interval on that
+configuration's 1000 goals (tools/torch_parity.py jax --config <name>), less
+0.02.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its flops over the f32 peak and its bytes over the memory
@@ -62,6 +85,22 @@ B_CHECK = 1000
 B_MAIN = 8192
 B_SMALL = 64
 TABLE_SUCCESS_MIN = 0.78  # JAX f32 pipeline: 0.809 [0.796, 0.820] (PARITY.md:27)
+# Success floors: the JAX package's success on 1000 goals, float32 on the CPU
+# (tools/torch_parity.py jax --config <name>; the planar chains on its "edge"
+# backend; the restart configurations over its 16 draws of restart keys,
+# 16000 trials), the lower end of its Wilson 95% interval, less 0.02.
+FLOORS = {
+    "planar6": 0.934,               # 967 / 1000 [0.9540, 0.9764]
+    "planar10": 0.918,              # 953 / 1000 [0.9381, 0.9645]
+    "kuka_iiwa": 0.894,             # 932 / 1000 [0.9147, 0.9460]
+    "lwa4d": 0.838,                 # 880 / 1000 [0.8584, 0.8987]
+    "ur10_restarts4": 0.959,        # 15710 / 16000 [0.9797, 0.9838]
+    "ur10_table_restarts2": 0.853,  # 14065 / 16000 [0.8739, 0.8840]
+    "planar6_restarts2": 0.969,     # 15856 / 16000 [0.9894, 0.9924]
+    "planar10_restarts2": 0.970,    # 15869 / 16000 [0.9903, 0.9931]
+    "tree_restarts3": 0.833,        # 13738 / 16000 [0.8531, 0.8639]
+}
+B_TREE = 1000
 # The H100 SXM's published peaks: f32 outside the tensor cores, and HBM3.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -125,7 +164,9 @@ def main() -> int:
     from graphik_tpu_torch.ops import tr_solve
     from graphik_tpu_torch.ops._build import library_path, load_library
     from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda, solve_tr_reference
-    from graphik_tpu_torch.robots.library import load_ur10
+    from graphik_tpu_torch.parallel.mesh import make_restart_solver
+    from graphik_tpu_torch.robots.library import (
+        load_kuka, load_planar_chain, load_schunk_lwa4d, load_tree5, load_ur10)
     from graphik_tpu_torch.solvers.local import LocalParams
     from graphik_tpu_torch.solvers.riemannian import TRParams
     from graphik_tpu_torch.utils.environments import table_environment
@@ -179,14 +220,15 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def staged(solver, T_goal):
+    def staged(solver, T_goal, *gen):
         """One call of the path, stage by stage: (prepare, solve, finish walls
-        in s, peak device memory of prepare in bytes, out)."""
+        in s, peak device memory of prepare in bytes, out). A restart
+        solver's prepare takes its generator."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        D_goal, Y0m = solver.prepare(T_goal)
+        D_goal, Y0m = solver.prepare(T_goal, *gen)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         peak = torch.cuda.max_memory_allocated() - base
@@ -433,6 +475,162 @@ def main() -> int:
     log(f"[7] cost+grad: kernel {ms_cg:.4f} ms, plain {ms_cg_p:.4f} ms; Hessian: kernel "
         f"{ms_h:.4f} ms, plain {ms_h_p:.4f} ms")
 
+    # ---- phase 8: the other robots of the bench ----
+    def edge_problem(ps_):
+        om_, pl_, pu_ = ps_.masks()
+        return edge_ops.build_edge_problem(om_, pl_, pu_, dim=ps_.dim)
+
+    def path_calls(tag, solver_, goal_sets_, *gen, anchored=False):
+        """The timed calls of one path, with the counts set to 0 just before
+        and read just after: [(prepare, solve, finish, summary, out)], and
+        the launches. Checks one launch a call, shapes, finite outputs and
+        the success floor."""
+        out_calls = []
+        solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = 0
+        for T_goal in goal_sets_:
+            tp, ts, tf, _, o = staged(solver_, T_goal, *gen)
+            out_calls.append((tp, ts, tf, api.summarize(o), o))
+        n_launch = solve_tr_cuda.anchored_launches if anchored else solve_tr_cuda.launches
+        log(f"[{tag}] TR launches during the {len(goal_sets_)} timed calls: "
+            f"{solve_tr_cuda.launches} (anchored {solve_tr_cuda.anchored_launches})")
+        check(n_launch == len(goal_sets_) and solve_tr_cuda.launches == len(goal_sets_),
+              f"{tag}: the TR kernel did not launch once per call")
+        for i, (tp, ts, tf, summ, o) in enumerate(out_calls):
+            B_ = o["e_pos"].shape[0]
+            wall = tp + ts + tf
+            log(f"[{tag}] call {i}: prepare {tp * 1e3:.1f} ms, solve {ts * 1e3:.1f} ms, finish "
+                f"{tf * 1e3:.1f} ms, total {wall * 1e3:.1f} ms, {B_ / wall:.1f} solves/s; success "
+                f"{summ['success_rate']:.4f} (floor {FLOORS[tag]}), pose only "
+                f"{summ['pose_only_rate']:.4f}, median e_pos {summ['median_pos_err']:.3e} m, "
+                f"mean iterations {summ['mean_iterations']:.2f}")
+            for k in ("q", "Y", "e_pos", "e_rot", "cost", "iterations"):
+                check(o[k].shape[0] == B_ and bool(torch.isfinite(o[k].double()).all()),
+                      f"{tag}: {k} has the wrong shape or is not finite")
+            check(summ["success_rate"] >= FLOORS[tag], f"{tag}: success below its floor")
+        return out_calls, n_launch
+
+    def bitwise_check(phase, tag, ep_, Y0_, D_, *kws):
+        """The TR kernel against its plain version on one path's prepared
+        inputs, at each set of parameters: every lane bitwise equal."""
+        Y0_, dg_ = Y0_.contiguous(), ep_.edge_values(D_).contiguous()
+        B_ = Y0_.shape[0]
+        for kw in kws:
+            kr = solve_tr_cuda(ep_, Y0_, dg_, **kw)
+            pr_ = solve_tr_reference(ep_, Y0_, dg_, **kw)
+            torch.cuda.synchronize()
+            same_r = lanes_equal(kr, pr_)
+            log(f"[{phase}] {tag} (N={ep_.N}, d={ep_.dim}, E={ep_.E}), {kw}, B={B_}: lanes "
+                f"bitwise equal {same_r}/{B_}; mean iterations "
+                f"{float(kr['iterations'].double().mean()):.2f}")
+            check(same_r == B_, f"{tag}: kernel/plain outputs not bitwise equal ({kw})")
+
+    def sub_record(tag, ep_, Y0_, dg_, kw_, launches_, B_, **extra):
+        """The TR kernel's time on one path's prepared inputs (CUDA events)
+        with its bound and launch shape."""
+        k_out = solve_tr_cuda(ep_, Y0_, dg_, **kw_)
+        ms = event_ms(lambda: solve_tr_cuda(ep_, Y0_, dg_, **kw_), 2)
+        b = bound(tr_flops(ep_.N, ep_.dim, ep_.E, k_out, anchored_nodes=ep_.a_nsel),
+                  tr_bytes(ep_.N, ep_.dim, ep_.E, B_))
+        shape = tr_solve.kernel_shape(ep_, B_, ep_.dim)
+        log(f"[{tag}] TR kernel at B={B_}: {ms:.3f} ms (bound {b[0]:.3f} ms, {b[1]}); "
+            f"N={ep_.N}, d={ep_.dim}, E={ep_.E}, A={ep_.A}; kernel_shape {shape}")
+        return {"path": tag, "launches": launches_, "ms": ms, "bound_ms": b[0],
+                "bound_by": b[1], "N": ep_.N, "d": ep_.dim, "E": ep_.E, "A": ep_.A, "B": B_,
+                "kernel_shape": shape, **extra}
+
+    b_ur10 = bound(tr_flops(ps.N, ps.dim, ep.E, k_main), tr_bytes(ps.N, ps.dim, ep.E, B_MAIN))
+    tr_paths = [{"path": "ur10", "launches": launches, "ms": ms_kernel, "bound_ms": b_ur10[0],
+                 "bound_by": b_ur10[1], "N": ps.N, "d": ps.dim, "E": ep.E, "B": B_MAIN,
+                 "kernel_shape": tr_solve.kernel_shape(ep, B_MAIN, ps.dim)}]
+    robots = {"planar6": lambda: load_planar_chain(6, limits=np.pi / 2),
+              "planar10": lambda: load_planar_chain(10, limits=np.pi / 2),
+              "kuka_iiwa": load_kuka, "lwa4d": load_schunk_lwa4d}
+    for tag, load in robots.items():
+        tpl_r, ps_r = load()
+        ep_r = edge_problem(ps_r)
+        solver_r = api.make_solver(ps_r, params=prod, polish_params=polish, smooth_iters=2)
+
+        def goals_r(B, ps_=ps_r):
+            return api.random_goals(ps_, (B,), gen, dtype=torch.float32, device=dev)[0]
+
+        D_r, Y0_r = solver_r.prepare(goals_r(B_CHECK))
+        bitwise_check("8", tag, ep_r, Y0_r, D_r, dict(maxiter=1, maxinner=24),
+                      dict(maxiter=100, **tr_kw))
+        two = tr_solve.kernel_shape(ep_r, B_MAIN, ps_r.dim)["two_per_warp"]
+        check(two == (ps_r.dim == 2), f"{tag}: two_per_warp is {two}")
+        solver_r(goals_r(B_MAIN))  # warm call
+        torch.cuda.synchronize()
+        calls_r, n_r = path_calls(tag, solver_r, [goals_r(B_MAIN) for _ in range(2)])
+        D_m, Y0_m = solver_r.prepare(goals_r(B_MAIN))
+        tr_paths.append(sub_record(tag, ep_r, Y0_m.contiguous(), ep_r.edge_values(D_m).contiguous(),
+                                   dict(maxiter=100, **tr_kw), n_r, B_MAIN, lanes_bitwise=B_CHECK,
+                                   success=[c[3]["success_rate"] for c in calls_r]))
+
+    # ---- phase 9: the restart paths ----
+    rgen = torch.Generator(device=dev).manual_seed(SEED)
+    anchored_paths = []
+    restart_cfgs = [("ur10_restarts4", ps, 4, prod),
+                    ("ur10_table_restarts2", ps_t, 2, table_params),
+                    ("planar6_restarts2", load_planar_chain(6, limits=np.pi / 2)[1], 2, prod),
+                    ("planar10_restarts2", load_planar_chain(10, limits=np.pi / 2)[1], 2, prod)]
+    for tag, ps_r, R, params_r in restart_cfgs:
+        B_r = B_MAIN // R
+        table = ps_r.n_obstacles > 0
+        rsolver = make_restart_solver(ps_r, n_restarts=R, params=params_r, polish_params=polish,
+                                      smooth_iters=2)
+        single = api.make_solver(ps_r, params=params_r, polish_params=polish, smooth_iters=2)
+
+        def goals_rr(B, ps_=ps_r):
+            return api.random_goals(ps_, (B,), gen, dtype=torch.float32, device=dev)[0]
+
+        rsolver(goals_rr(B_r), rgen)  # warm call
+        torch.cuda.synchronize()
+        sets = [goals_rr(B_r) for _ in range(2)]
+        calls_r, n_r = path_calls(tag, rsolver, sets, rgen, anchored=table)
+        for i, (T_goal, c) in enumerate(zip(sets, calls_r)):
+            s_single = api.summarize(single(T_goal))["success_rate"]
+            s_rest = c[3]["success_rate"]
+            used = torch.bincount(c[4]["restart_index"], minlength=R).tolist()
+            log(f"[9] {tag} call {i}: {B_r} goals x {R} restarts: success {s_rest:.4f}, single "
+                f"init on the same goals {s_single:.4f}; goals per chosen restart {used}")
+            check(s_rest >= s_single - 0.005, f"{tag}: restarts below the single init")
+        if table:
+            spec_r = ps_r.reduced_spec()
+            Nr_ = spec_r["Nr"]
+            om_r, pl_r, pu_r = ps_r.masks()
+            ep_r = edge_ops.build_edge_problem(om_r[:Nr_, :Nr_], pl_r[:Nr_, :Nr_], pu_r[:Nr_, :Nr_],
+                                               dim=ps_r.dim, anchors=spec_r)
+            kw = dict(maxiter=250, **t_kw)
+        else:
+            ep_r = edge_problem(ps_r)
+            kw = dict(maxiter=100, **tr_kw)
+        D_m, Y0_m = rsolver.prepare(sets[-1], rgen)
+        rec = sub_record(tag, ep_r, Y0_m.contiguous(), ep_r.edge_values(D_m).contiguous(), kw,
+                         n_r, B_MAIN, restarts=R, success=[c[3]["success_rate"] for c in calls_r])
+        (anchored_paths if table else tr_paths).append(rec)
+
+    # ---- phase 10: the two-end-effector tree with 3 restarts ----
+    ps_tree = load_tree5()[1]
+    ep_tree = edge_problem(ps_tree)
+    tree_params = TRParams.production(maxiter=300)
+    tree_kw = dict(maxiter=300, plateau_every=16, plateau_rtol=tree_params.plateau_rtol)
+    tsolver = make_restart_solver(ps_tree, n_restarts=3, params=tree_params)
+    T_tree = api.random_goals(ps_tree, (B_TREE,), gen, dtype=torch.float32, device=dev)[0]
+    check(T_tree.shape == (B_TREE, 2, 4, 4), "the tree has two end effectors")
+    # the path's own inputs: 3 restarts of B_TREE goals, 2 idle node lanes
+    # and 2 padded edge slots in each half warp
+    D_m, Y0_m = tsolver.prepare(T_tree, rgen)
+    bitwise_check("10", "tree_restarts3", ep_tree, Y0_m, D_m, dict(maxiter=1), tree_kw)
+    tsolver(T_tree, rgen)  # warm call
+    torch.cuda.synchronize()
+    calls_tree, n_tree = path_calls(
+        "tree_restarts3", tsolver,
+        [api.random_goals(ps_tree, (B_TREE,), gen, dtype=torch.float32, device=dev)[0]], rgen)
+    tr_paths.append(sub_record("tree_restarts3", ep_tree, Y0_m.contiguous(),
+                               ep_tree.edge_values(D_m).contiguous(), tree_kw,
+                               n_tree, 3 * B_TREE, restarts=3, lanes_bitwise=3 * B_TREE,
+                               success=[c[3]["success_rate"] for c in calls_tree]))
+
     # Bounds: counted from the shapes and, for the TR kernels, from the
     # iteration counts of the runs that were timed. No single PyTorch call
     # computes any of these functions, so there is no library time.
@@ -447,14 +645,14 @@ def main() -> int:
                    B_MAIN * (3 * N * d + E) * 4)
     shape_tr = tr_solve.kernel_shape(ep, B_MAIN, d)
     shape_ta = tr_solve.kernel_shape(ep_t, B_MAIN, 3)
-    log(f"[8] TR launch shapes at B={B_MAIN}: UR10 {shape_tr}; table {shape_ta}")
+    log(f"[11] TR launch shapes at B={B_MAIN}: UR10 {shape_tr}; table {shape_ta}")
     record = {"kernels": [
         {"name": "tr_solve", "route": "cuda", "source": "graphik_tpu_torch/csrc/tr_solve.cu",
          "replaces": "graphik_tpu/ops/tr_pallas.py:59", "launches": launches,
          "max_abs_err": err_y, "ms": ms_kernel, "plain_ms": ms_plain,
          "bound_ms": b_tr[0], "bound_by": b_tr[1], "library_ms": None,
          "blocks_resident": shape_tr["blocks_resident"],
-         "at": f"UR10, B={B_MAIN}, maxiter=100, maxinner=24"},
+         "at": f"UR10, B={B_MAIN}, maxiter=100, maxinner=24", "paths": tr_paths},
         {"name": "tr_solve_anchored", "route": "cuda",
          "source": "graphik_tpu_torch/csrc/tr_solve.cu",
          "replaces": "graphik_tpu/ops/tr_pallas.py:77", "launches": launches_a,
@@ -462,7 +660,11 @@ def main() -> int:
          "bound_ms": b_ta[0], "bound_by": b_ta[1], "library_ms": None,
          "blocks_resident": shape_ta["blocks_resident"],
          "at": f"table, B={B_CHECK}, maxiter=100, maxinner=32",
-         "ms_table_path": ms_a_main, "bound_ms_table_path": b_tab[0]},
+         "ms_table_path": ms_a_main, "bound_ms_table_path": b_tab[0],
+         "paths": [{"path": "ur10_table", "launches": launches_a, "ms": ms_a_main,
+                    "bound_ms": b_tab[0], "bound_by": b_tab[1], "N": ep_t.N, "d": 3,
+                    "E": ep_t.E, "A": ep_t.A, "B": B_MAIN, "kernel_shape": shape_ta}]
+         + anchored_paths},
         {"name": "edge_cost_grad", "route": "cuda", "source": "graphik_tpu_torch/csrc/edge.cu",
          "replaces": "graphik_tpu/ops/edge.py:302", "launches": launches_cg,
          "max_abs_err": err_g, "ms": ms_cg, "plain_ms": ms_cg_p,

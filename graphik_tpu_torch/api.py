@@ -1,17 +1,18 @@
 """High-level IK API: batched IK solves with the Riemannian solver.
 
 Port of graphik_tpu/api.py for 3D revolute robots, with or without
-spherical obstacles. The pipeline runs eagerly in three stages - prepare
-(goal anchors, bound smoothing, MDS init), solve (the TR kernel), finish
-(joint recovery, FK validation, pose error, LM polish, keep-the-better) -
-on the goals' device: goals given as a torch tensor stay where the caller
-put them, and goals with no device (numpy arrays) go to the solver's
+spherical obstacles, and for planar robots. The pipeline runs eagerly in
+three stages - prepare (goal anchors, bound smoothing, MDS init), solve
+(the TR kernel), finish (joint recovery, FK validation, pose error, LM
+polish, keep-the-better) - on the goals' device: goals given as a torch
+tensor stay where the caller put them, and goals with no device (numpy
+arrays) go to the solver's
 `device`, the card unless the caller names another. With obstacles,
 prepare and solve run on the Nr robot nodes only (the anchored reduction,
 ProblemStructure.reduced_spec) and the obstacle positions are padded back
 into Y after the solve.
-Layouts match the JAX package: Y is (B, N, d), T_goal is (B, n_ee, 4, 4),
-and the output dicts carry the same keys.
+Layouts match the JAX package: Y is (B, N, d), T_goal is (B, n_ee, hd, hd)
+with hd = d + 1, and the output dicts carry the same keys.
 """
 
 from __future__ import annotations
@@ -33,9 +34,11 @@ from graphik_tpu_torch.utils import lie
 
 def pose_error(structure: ProblemStructure, q, T_goal):
     """Per-instance position / rotation error of the end effector(s):
-    translation norm, and the norm of log(R_goal R_sol^T); max over
+    translation norm, and the rotation angle of R_goal R_sol^T (the norm of
+    its SO(3) log; |atan2| of the 2x2 rotation for a planar robot); max over
     end effectors."""
     tpl = structure.template
+    dim = tpl.dim
     T_goal = T_goal.to(q.dtype)
     n_ee = len(tpl.ee)
     if T_goal.shape[-3:-2] != (n_ee,) or T_goal.ndim < 3:
@@ -45,9 +48,12 @@ def pose_error(structure: ProblemStructure, q, T_goal):
     for e, ee in enumerate(tpl.ee):
         T_sol = T_all[..., int(ee), :, :]
         Tg = T_goal[..., e, :, :]
-        e_pos.append(torch.linalg.norm(Tg[..., :3, 3] - T_sol[..., :3, 3], dim=-1))
-        R_rel = Tg[..., :3, :3] @ T_sol[..., :3, :3].transpose(-1, -2)
-        e_rot.append(torch.linalg.norm(lie.so3_log(R_rel), dim=-1))
+        e_pos.append(torch.linalg.norm(Tg[..., :dim, dim] - T_sol[..., :dim, dim], dim=-1))
+        R_rel = Tg[..., :dim, :dim] @ T_sol[..., :dim, :dim].transpose(-1, -2)
+        if dim == 3:
+            e_rot.append(torch.linalg.norm(lie.so3_log(R_rel), dim=-1))
+        else:
+            e_rot.append(torch.atan2(R_rel[..., 1, 0], R_rel[..., 0, 0]).abs())
     return (torch.stack(e_pos, dim=-1).amax(dim=-1),
             torch.stack(e_rot, dim=-1).amax(dim=-1))
 
@@ -222,7 +228,7 @@ def random_goals(structure: ProblemStructure, batch_shape=(),
     """Random reachable goal poses via FK at random configurations, on
     `device` (None: the card, which raises when there is none).
 
-    Returns (T_goal (..., n_ee, 4, 4), q_goal (..., n)).
+    Returns (T_goal (..., n_ee, hd, hd), q_goal (..., n)).
     """
     tpl = structure.template
     q = kinematics.random_configuration(tpl, batch_shape, generator, dtype, device)

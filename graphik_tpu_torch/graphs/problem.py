@@ -1,20 +1,21 @@
 """Problem-graph compiler: robot template -> static distance-geometry arrays.
 
 Port of graphik_tpu/graphs/problem.py for 3D revolute robots, with
-spherical obstacles. The graph is compiled once, host-side, into a
-`ProblemStructure` of dense numpy matrices (the numpy builder is a copy of
-the JAX package's, so both packages compile identical structures); per-goal
-instance data is then assembled as tensors on the goals' device, batched
-over goals.
+spherical obstacles, and planar (d = 2) robots without them. The graph is
+compiled once, host-side, into a `ProblemStructure` of dense numpy
+matrices (the numpy builder is a copy of the JAX package's, so both
+packages compile identical structures); per-goal instance data is then
+assembled as tensors on the goals' device, batched over goals.
 
 Node indexing (3D revolute, n joints):
     0..n        -> p0..pn           (main joint points)
     n+1..2n+1   -> q0..qn           (auxiliary rotation-axis points)
     2n+2, 2n+3  -> x, y             (base frame points)
     2n+4..      -> o0, o1, ...      (obstacle centers)
+Planar (2D): 0..n -> p0..pn, n+1 -> x, n+2 -> y.
 
-Planar chains are a later slice: `from_template` raises
-NotImplementedError for them instead of compiling a wrong graph.
+Planar robots with obstacles (the anchored K4 at d = 2) are a later slice
+of the port: `add_spherical_obstacle` raises NotImplementedError for them.
 """
 
 from __future__ import annotations
@@ -108,10 +109,11 @@ class ProblemStructure:
         return i
 
     def idx_q(self, i: int) -> int:
+        assert self.dim == 3
         return self.template.n + 1 + i
 
     def idx_obs(self, k: int) -> int:
-        return 2 * self.n + 4 + k
+        return (2 * self.n + 4 if self.dim == 3 else self.n + 3) + k
 
     # ------------------------------------------------------------------
     # construction
@@ -123,9 +125,10 @@ class ProblemStructure:
         axis_length: float = 1.0,
         obstacles: Optional[Sequence[Tuple[np.ndarray, float]]] = None,
     ) -> "ProblemStructure":
-        if template.dim != 3:
-            raise NotImplementedError("planar robots: slice 3")
-        ps = _build_revolute(template, axis_length)
+        if template.dim == 3:
+            ps = _build_revolute(template, axis_length)
+        else:
+            ps = _build_planar(template)
         for center, radius in obstacles or []:
             ps = ps.add_spherical_obstacle(np.asarray(center, dtype=float), float(radius))
         return ps
@@ -134,6 +137,10 @@ class ProblemStructure:
         """Append an obstacle node (graph_base.py:201-211, intended
         semantics): exact edges to every statically positioned node and
         bounded-below edges (radius) to the main points p1..pn."""
+        if self.dim != 3:
+            raise NotImplementedError(
+                "planar robots with obstacles (the anchored TR kernel at d = 2) are a "
+                "later slice of the port")
         N_old = self.N
         N = N_old + 1
         dim = self.dim
@@ -261,21 +268,28 @@ class ProblemStructure:
     def goal_positions(self, T_goal):
         """Node positions implied by end-effector goal pose(s).
 
-        T_goal: (..., 4, 4) single-ee or (..., n_ee, 4, 4).
-        Returns (..., N, 3) positions (zeros at unpositioned nodes): fixed
-        nodes + goal anchors.
+        T_goal: (..., hd, hd) single-ee or (..., n_ee, hd, hd).
+        Returns (..., N, dim) positions (zeros at unpositioned nodes): fixed
+        nodes + goal anchors. A planar goal anchors the end effector and its
+        parent, one link length back along the goal's x axis.
         """
         tpl = self.template
+        dim = self.dim
         n_ee = len(tpl.ee)
         if T_goal.shape[-3:-2] != (n_ee,) or T_goal.ndim < 3:
             T_goal = T_goal[..., None, :, :]  # single-ee convenience
         batch = T_goal.shape[:-3]
-        pos = _const(self.pos_fixed, T_goal).expand(batch + (self.N, self.dim)).clone()
+        pos = _const(self.pos_fixed, T_goal).expand(batch + (self.N, dim)).clone()
         for e, ee in enumerate(tpl.ee):
+            ee = int(ee)
             Te = T_goal[..., e, :, :]
-            t = Te[..., :3, 3]
-            pos[..., self.idx_p(int(ee)), :] = t
-            pos[..., self.idx_q(int(ee)), :] = t + self.axis_length * Te[..., :3, 2]
+            t = Te[..., :dim, dim]
+            pos[..., self.idx_p(ee), :] = t
+            if dim == 3:
+                pos[..., self.idx_q(ee), :] = t + self.axis_length * Te[..., :3, 2]
+            else:
+                pred = int(tpl.parents[ee])
+                pos[..., self.idx_p(pred), :] = t - Te[..., :2, 0] * float(tpl.link_lengths[ee])
         return pos
 
     def instance(self, T_goal, dtype=None, smooth=True, n_nodes=None, smooth_iters=None):
@@ -337,12 +351,14 @@ class ProblemStructure:
     # realization / validation / joint extraction
     # ------------------------------------------------------------------
     def realization(self, q):
-        """(..., n) joint angles -> (..., N, 3) node positions (FK into the
-        point graph)."""
+        """(..., n) joint angles -> (..., N, dim) node positions (FK into
+        the point graph)."""
         tpl = self.template
         p_pos, q_pos = kinematics.joint_positions(tpl, q, self.axis_length)
         batch = q.shape[:-1]
         fixed = _const(self.pos_fixed, q).expand(batch + (self.N, self.dim))
+        if self.dim == 2:
+            return torch.cat([p_pos, fixed[..., tpl.n + 1:, :]], dim=-2)
         return torch.cat([p_pos, q_pos, fixed[..., 2 * tpl.n + 2:, :]], dim=-2)
 
     def check_distance_limits(self, pos, tol=1e-6):
@@ -361,12 +377,15 @@ class ProblemStructure:
         return max_viol, max_viol <= 0.0
 
     def joint_variables(self, pos, T_goal=None):
-        """Recover joint angles from solved node positions (..., N, 3).
+        """Recover joint angles from solved node positions (..., N, dim).
 
         `T_goal` optionally supplies end-effector poses for the final-joint
-        correction when the last relative translation is along z.
+        correction when the last relative translation is along z (3D only;
+        a planar robot's angles follow from the positions alone).
         """
-        return _joint_variables_revolute(self, pos, T_goal)
+        if self.dim == 3:
+            return _joint_variables_revolute(self, pos, T_goal)
+        return _joint_variables_planar(self, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -566,6 +585,110 @@ def _build_revolute(tpl: RobotTemplate, axis_length: float) -> ProblemStructure:
     )
 
 
+def _build_planar(tpl: RobotTemplate) -> ProblemStructure:
+    """Base + structure + limit edges for a planar robot (graph_planar.py)."""
+    n = tpl.n
+    N = n + 3
+    idx_x, idx_y = n + 1, n + 2
+    names = [f"p{i}" for i in range(n + 1)] + ["x", "y"]
+
+    omega = np.zeros((N, N), dtype=bool)
+    D = np.zeros((N, N))
+    psi_L = np.zeros((N, N))
+    psi_U = np.zeros((N, N))
+    edge_mask = np.zeros((N, N), dtype=bool)
+    L = np.zeros((N, N))
+    U = np.zeros((N, N))
+    bounded = np.zeros((N, N), dtype=bool)
+    cL = np.zeros((N, N))
+    cU = np.zeros((N, N))
+
+    p_pos = tpl.T0[:, :2, 2]
+
+    def add_exact(i, j, d):
+        _sym_set(omega, i, j, True)
+        _sym_set(D, i, j, d**2)
+        _sym_set(edge_mask, i, j, True)
+        _sym_set(L, i, j, d)
+        _sym_set(U, i, j, d)
+
+    # base: p0=(0,0), x=(-1,0), y=(0,1) (graph_planar.py:30-48)
+    base_pos = {0: np.zeros(2), idx_x: np.array([-1.0, 0.0]), idx_y: np.array([0.0, 1.0])}
+    for i, j in [(0, idx_x), (0, idx_y), (idx_x, idx_y)]:
+        add_exact(i, j, float(np.linalg.norm(base_pos[i] - base_pos[j])))
+
+    # structure: consecutive p edges (graph_planar.py:50-88)
+    for i in range(1, n + 1):
+        par = int(tpl.parents[i])
+        add_exact(par, i, float(np.linalg.norm(p_pos[i] - p_pos[par])))
+
+    def law_of_cos(l1, l2, lim):
+        return float(np.sqrt(max(l1**2 + l2**2 - 2 * l1 * l2 * np.cos(np.pi - lim), 0.0)))
+
+    def add_below(i, j, lo, hi):
+        _sym_set(edge_mask, i, j, True)
+        _sym_set(L, i, j, lo)
+        _sym_set(U, i, j, hi)
+        _sym_set(bounded, i, j, True)
+        _sym_set(cL, i, j, lo)
+        _sym_set(cU, i, j, hi)
+        _sym_set(psi_L, i, j, lo**2)
+
+    # set_limits: 2-apart pairs (graph_planar.py:110-134)
+    children = [[] for _ in range(n + 1)]
+    for i in range(1, n + 1):
+        children[int(tpl.parents[i])].append(i)
+    for u in range(n + 1):
+        for v1 in children[u]:
+            for v2 in children[v1]:
+                l1 = float(tpl.link_lengths[v1])
+                l2 = float(tpl.link_lengths[v2])
+                lim = max(abs(tpl.ub[v2]), abs(tpl.lb[v2]))
+                add_below(u, v2, law_of_cos(l1, l2, lim), l1 + l2)
+
+    # root_angle_limits: x vs children of p0 (graph_planar.py:90-108)
+    l1 = float(np.linalg.norm(base_pos[idx_x]))
+    for v in children[0]:
+        l2 = float(tpl.link_lengths[v])
+        lim = max(abs(tpl.ub[v]), abs(tpl.lb[v]))
+        add_below(idx_x, v, law_of_cos(l1, l2, lim), l1 + l2)
+
+    pos_mask = np.zeros(N, dtype=bool)
+    pos_fixed = np.zeros((N, 2))
+    for i, p in base_pos.items():
+        pos_mask[i] = True
+        pos_fixed[i] = p
+
+    anchor_mask = pos_mask.copy()
+    for ee in tpl.ee:
+        anchor_mask[int(ee)] = True
+        anchor_mask[int(tpl.parents[int(ee)])] = True
+
+    return ProblemStructure(
+        template=tpl,
+        axis_length=1.0,
+        names=names,
+        omega_struct=omega,
+        D_struct=D,
+        psi_L=psi_L,
+        psi_U=psi_U,
+        edge_mask=edge_mask,
+        L_edges=L,
+        U_edges=U,
+        bounded_mask=bounded,
+        check_L=cL,
+        check_U=cU,
+        pos_mask=pos_mask,
+        pos_fixed=pos_fixed,
+        anchor_mask=anchor_mask,
+        idx_x=idx_x,
+        idx_y=idx_y,
+        n_obstacles=0,
+        obstacles=[],
+        limited_joints=[],
+    )
+
+
 # ---------------------------------------------------------------------------
 # joint-variable extraction
 # ---------------------------------------------------------------------------
@@ -630,4 +753,27 @@ def _joint_variables_revolute(ps: ProblemStructure, pos, T_goal):
                 T_th = lie.se3_inv(T_all[ee]) @ Tg[..., e, :, :]
                 delta = torch.atan2(T_th[..., 1, 0], T_th[..., 0, 0])
                 theta[ee] = lie.wraptopi(theta[ee] + delta)
+    return torch.stack(theta[1:], dim=-1)
+
+
+def _joint_variables_planar(ps: ProblemStructure, pos):
+    """Batched planar joint recovery (graph_planar.py:147-176): the rigid
+    map of the base points (p0, x, y) onto their canonical places, then each
+    joint angle from its link direction relative to its parent's frame."""
+    tpl = ps.template
+    dt, dev = pos.dtype, pos.device
+    canon = torch.tensor([[0.0, 0.0], [-1.0, 0.0], [0.0, 1.0]], dtype=dt, device=dev)
+    src = torch.stack([pos[..., 0, :], pos[..., ps.idx_x, :], pos[..., ps.idx_y, :]], dim=-2)
+    R_, _ = dgp.best_fit_transform(src, canon)
+
+    theta = [torch.zeros(pos.shape[:-2], dtype=dt, device=dev)]
+    R_acc = [torch.eye(2, dtype=dt, device=dev).expand(pos.shape[:-2] + (2, 2))]
+    for k in range(1, tpl.n + 1):
+        u = int(tpl.parents[k])
+        diff = torch.einsum("...ij,...j->...i", R_, pos[..., k, :] - pos[..., u, :])
+        diff = diff / torch.linalg.norm(diff, dim=-1, keepdim=True)
+        sol = torch.einsum("...ji,...j->...i", R_acc[u], diff)
+        th = lie.wraptopi(torch.atan2(sol[..., 1], sol[..., 0]))
+        theta.append(th)
+        R_acc.append(R_acc[u] @ lie.rot2(th))
     return torch.stack(theta[1:], dim=-1)

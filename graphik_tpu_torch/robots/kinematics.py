@@ -1,9 +1,10 @@
 """Batched forward kinematics and Jacobians over robot templates.
 
-Port of graphik_tpu/robots/kinematics.py (3D revolute robots). The JAX
-version scans over the topologically ordered joint tree and vmaps over the
-instance batch; here the scan is a Python loop over the n joints, batched
-over the leading dims of ``q``.
+Port of graphik_tpu/robots/kinematics.py (3D revolute robots and planar,
+d = 2, robots). The JAX version scans over the topologically ordered joint
+tree and vmaps over the instance batch; here the scan is a Python loop over
+the n joints, batched over the leading dims of ``q``. Poses are
+(hd, hd) homogeneous matrices with hd = dim + 1.
 
 Functions take a `RobotTemplate` and a joint-angle tensor ``q`` of shape
 (..., n); constants follow ``q``'s dtype and device.
@@ -24,43 +25,54 @@ def _const(x, like):
     return torch.as_tensor(np.asarray(x), dtype=like.dtype, device=like.device)
 
 
+def _exp(template: RobotTemplate, xi):
+    return lie.se3_exp(xi) if template.dim == 3 else lie.se2_exp(xi)
+
+
+def _adjoint(template: RobotTemplate, T):
+    return lie.se3_adjoint(T) if template.dim == 3 else lie.se2_adjoint(T)
+
+
 def prefix_products(template: RobotTemplate, q):
     """Accumulated exponential products A_i for every node.
 
     A_0 = T0[0]; A_i = A_{parent(i)} @ exp(S[parent(i)] * q_i), so that
     pose(node i) = A_i @ T0[i].
 
-    q: (..., n) -> (..., n+1, 4, 4).
+    q: (..., n) -> (..., n+1, hd, hd).
     """
     tpl = template
-    if tpl.dim != 3:
-        raise NotImplementedError("planar robots: slice 3")
+    hd = tpl.dim + 1
     S = _const(tpl.S, q)
-    A = [_const(tpl.T0[0], q).expand(q.shape[:-1] + (4, 4))]
+    A = [_const(tpl.T0[0], q).expand(q.shape[:-1] + (hd, hd))]
     for i in range(1, tpl.n + 1):
         p = int(tpl.parents[i])
-        A.append(A[p] @ lie.se3_exp(S[p] * q[..., i - 1, None]))
+        A.append(A[p] @ _exp(tpl, S[p] * q[..., i - 1, None]))
     return torch.stack(A, dim=-3)
 
 
 def all_poses(template: RobotTemplate, q):
-    """Poses of every joint frame: (..., n) -> (..., n+1, 4, 4)."""
+    """Poses of every joint frame: (..., n) -> (..., n+1, hd, hd)."""
     return prefix_products(template, q) @ _const(template.T0, q)
 
 
 def pose(template: RobotTemplate, q, node: int):
-    """Pose of one node: (..., n) -> (..., 4, 4)."""
+    """Pose of one node: (..., n) -> (..., hd, hd)."""
     return all_poses(template, q)[..., node, :, :]
 
 
 def joint_positions(template: RobotTemplate, q, axis_length: float = 1.0):
     """Positions of the main (p) and auxiliary (q) points of every joint.
 
-    Returns (p_pos, q_pos), each (..., n+1, 3); the aux point is the frame
-    origin translated by axis_length along the frame z-axis.
+    Returns (p_pos, q_pos), each (..., n+1, dim). For dim == 3 the aux point
+    is the frame origin translated by axis_length along the frame z-axis;
+    for dim == 2 ``q_pos`` is None.
     """
     T = all_poses(template, q)
-    p_pos = T[..., :3, 3]
+    dim = template.dim
+    p_pos = T[..., :dim, dim]
+    if dim == 2:
+        return p_pos, None
     return p_pos, p_pos + axis_length * T[..., :3, 2]
 
 
@@ -80,15 +92,17 @@ def jacobian(template: RobotTemplate, q, node: int, A: Optional[torch.Tensor] = 
     S[parent(i)]; columns for joints off the path are zero. Pass the
     prefix products `A` when the caller already has them.
 
-    q: (..., n) -> (..., 6, n).
+    q: (..., n) -> (..., 6, n), or (..., 3, n) for a planar robot.
     """
     tpl = template
     if A is None:
         A = prefix_products(tpl, q)
     par = torch.as_tensor(tpl.parents[1:], device=q.device)
-    S = _const(tpl.S, q)[par]  # (n, 6)
-    Ad = lie.se3_adjoint(A[..., par, :, :])  # (..., n, 6, 6)
-    cols = torch.einsum("...nij,nj->...ni", Ad, S)
+    S = _const(tpl.S, q)[par]  # (n, tw)
+    Ad = _adjoint(tpl, A[..., par, :, :])  # (..., n, tw, tw)
+    # an elementwise product and sum, not an einsum: einsum folds the batch
+    # into a GEMM's rows, whose rounding then depends on the batch size
+    cols = (Ad * S[:, None, :]).sum(-1)
     on_path = torch.as_tensor(_path_membership(tpl, node)[1:], device=q.device)
     cols = torch.where(on_path[:, None], cols, torch.zeros_like(cols))
     return cols.transpose(-1, -2)
@@ -97,20 +111,25 @@ def jacobian(template: RobotTemplate, q, node: int, A: Optional[torch.Tensor] = 
 def linear_jacobians(template: RobotTemplate, q, T=None):
     """World-frame position Jacobians of every node in one pass.
 
-    (..., n) -> (..., n+1, 3, n): entry [j, :, i-1] is the velocity of node
-    j per unit rate of joint i, z_{parent(i)} x (p_j - p_{parent(i)}), zero
-    when joint i does not move node j. Pass the poses `T` (all_poses) when
-    the caller already has them.
+    (..., n) -> (..., n+1, dim, n): entry [j, :, i-1] is the velocity of
+    node j per unit rate of joint i - z_{parent(i)} x (p_j - p_{parent(i)})
+    in 3D, the in-plane perpendicular in 2D - zero when joint i does not
+    move node j. Pass the poses `T` (all_poses) when the caller already has
+    them.
     """
     tpl = template
+    dim = tpl.dim
     if T is None:
         T = all_poses(tpl, q)
     parents = torch.as_tensor(tpl.parents[1:], device=q.device)
-    p = T[..., :3, 3]                              # (..., n+1, 3)
+    p = T[..., :dim, dim]                          # (..., n+1, dim)
     Tp = T[..., parents, :, :]
-    rel = p[..., :, None, :] - Tp[..., None, :, :3, 3]  # (..., n+1, n, 3)
-    z = Tp[..., :3, 2].unsqueeze(-3).expand_as(rel)
-    vel = torch.linalg.cross(z, rel, dim=-1)
+    rel = p[..., :, None, :] - Tp[..., None, :, :dim, dim]  # (..., n+1, n, dim)
+    if dim == 3:
+        z = Tp[..., :3, 2].unsqueeze(-3).expand_as(rel)
+        vel = torch.linalg.cross(z, rel, dim=-1)
+    else:
+        vel = torch.stack([-rel[..., 1], rel[..., 0]], dim=-1)
     anc = torch.as_tensor(_ancestor_matrix(tpl), device=q.device)
     vel = torch.where(anc[:, :, None], vel, torch.zeros_like(vel))
     return vel.transpose(-1, -2)

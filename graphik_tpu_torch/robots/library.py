@@ -10,13 +10,14 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from graphik_tpu_torch.graphs.problem import ProblemStructure
 from graphik_tpu_torch.io.urdf import UrdfJoint, UrdfModel
-from graphik_tpu_torch.robots.templates import RobotTemplate, revolute_from_dh
+from graphik_tpu_torch.robots.templates import (
+    RobotTemplate, dh_to_se3, planar_from_links, revolute_from_dh, revolute_from_t_zero)
 
 SPEC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -95,6 +96,33 @@ ALL_MODELS = {
     "panda_truncated": load_panda_truncated,
     "jaco": load_jaco,
 }
+
+
+def load_planar_chain(n: int, limits: Optional[float] = None, link_length: float = 1.0):
+    """n-DoF planar chain of equal links, with optional symmetric joint
+    limits +-limits."""
+    lengths = np.full(n, float(link_length))
+    if limits is None:
+        tpl = planar_from_links(lengths)
+    else:
+        tpl = planar_from_links(lengths, lb=np.full(n, -float(limits)),
+                                ub=np.full(n, float(limits)))
+    return tpl, ProblemStructure.from_template(tpl)
+
+
+def load_tree5():
+    """The 5-joint, two-end-effector DH tree of the JAX package's tree tests
+    (tests/test_trees.py): joints 2 and 3 both hang off joint 1."""
+    parents = np.array([-1, 0, 1, 1, 2, 3])
+    a = {1: 0.0, 2: -0.612, 3: -0.612, 4: -0.5732, 5: -0.5732}
+    d = {1: 0.1237, 2: 0.0, 3: 0.0, 4: 0.0, 5: 0.0}
+    al = {1: np.pi / 2, 2: 0.0, 3: 0.0, 4: 0.0, 5: 0.0}
+    T0 = np.zeros((6, 4, 4))
+    T0[0] = np.eye(4)
+    for i in range(1, 6):
+        T0[i] = T0[parents[i]] @ dh_to_se3(a[i], al[i], d[i], 0.0)
+    tpl = revolute_from_t_zero(T0, parents)
+    return tpl, ProblemStructure.from_template(tpl)
 
 
 def load_truncated_ur10(n: int):

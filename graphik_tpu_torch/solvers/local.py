@@ -2,8 +2,10 @@
 
 Port of graphik_tpu/solvers/local.py. The cost is the body-frame pose log
 residual e = log(T(q)^-1 T_goal) with the analytic Jacobian
-J_e = inv_left_jacobian(e) Ad(T^-1) J; each step solves the damped n x n
-system with a batched Cholesky and clips to the joint limits. Spherical
+J_e = inv_left_jacobian(e) Ad(T^-1) J (for planar robots, SE(2)'s log and
+its analytic derivative, where the JAX package takes jax.jacfwd); each
+step solves the damped n x n system with a batched Cholesky and clips to
+the joint limits. Spherical
 obstacles add hinge residuals r - ||c - p_i(q)|| on the main points
 p1..pn, enforced by an augmented-Lagrangian loop around the LM. Lanes run
 in lockstep; a lane that has converged is frozen by masks.
@@ -36,25 +38,63 @@ class LocalParams:
     al_growth: float = 10.0
 
 
+def _se2_residual_jacobian(e, M, Jb):
+    """de/dq of the planar residual e = se2_log(M), M = T(q)^-1 T_goal,
+    from the body-frame twists Jb = Ad(T^-1) J (..., 3, n) of the joints.
+
+    A joint rate with body twist (v, w) moves M by dM = -[(v, w)]^ M: the
+    angle by -w and the translation t by -(w [-t_y, t_x] + v). se2_log's
+    translation part is Jinv(angle) t with Jinv = [[al, h], [-h, al]],
+    al = (angle/2) cot(angle/2) and h = angle/2, so (analytically, where
+    the JAX package takes jax.jacfwd)
+      d e_w = -w,
+      d e_v = -(dJinv/dangle t) w - Jinv (w [-t_y, t_x] + v).
+    """
+    ang = e[..., 2]
+    t = M[..., :2, 2]
+    a, b = lie._se2_v(ang)  # Jinv's entries as se2_log forms them
+    det = a * a + b * b
+    al, h = a / det, b / det
+    dal = lie.se2_log_dangle(ang)
+    w = Jb[..., 2, :]                                          # (..., n)
+    dt = -(w[..., None, :] * torch.stack([-t[..., 1], t[..., 0]], dim=-1)[..., :, None]
+           + Jb[..., :2, :])                                   # (..., 2, n)
+    dv0 = -(dal * t[..., 0] + 0.5 * t[..., 1])[..., None] * w \
+        + al[..., None] * dt[..., 0, :] + h[..., None] * dt[..., 1, :]
+    dv1 = -(-0.5 * t[..., 0] + dal * t[..., 1])[..., None] * w \
+        - h[..., None] * dt[..., 0, :] + al[..., None] * dt[..., 1, :]
+    return torch.stack([dv0, dv1, -w], dim=-2)
+
+
 def _pose_residuals(tpl, T_goal, q, with_jacobian=True, A=None):
     """Stacked body-frame pose residuals over every end effector.
 
-    T_goal: (..., n_ee, 4, 4); q: (..., n). Returns (e (..., 6 n_ee),
-    de/dq (..., 6 n_ee, n)) - the Jacobian is None when not asked for.
-    Pass the prefix products `A` when the caller already has them.
+    T_goal: (..., n_ee, hd, hd); q: (..., n). Returns (e (..., tw n_ee),
+    de/dq (..., tw n_ee, n)), tw = 6 (3D) or 3 (planar) - the Jacobian is
+    None when not asked for. Pass the prefix products `A` when the caller
+    already has them.
     """
     if A is None:
         A = kinematics.prefix_products(tpl, q)
     T_all = A @ torch.as_tensor(tpl.T0, dtype=q.dtype, device=q.device)
+    planar = tpl.dim == 2
     es, Js = [], []
     for e_idx, ee in enumerate(tpl.ee):
-        T_inv = lie.se3_inv(T_all[..., int(ee), :, :])
-        e = lie.se3_log(T_inv @ T_goal[..., e_idx, :, :])
+        if planar:
+            T_inv = lie.se2_inv(T_all[..., int(ee), :, :])
+            M = T_inv @ T_goal[..., e_idx, :, :]
+            e = lie.se2_log(M)
+        else:
+            T_inv = lie.se3_inv(T_all[..., int(ee), :, :])
+            e = lie.se3_log(T_inv @ T_goal[..., e_idx, :, :])
         es.append(e)
         if with_jacobian:
             J = kinematics.jacobian(tpl, q, int(ee), A=A)
-            # d(e)/dq = -J_e through T(q)
-            Js.append(-(lie.se3_inv_left_jacobian(e) @ lie.se3_adjoint(T_inv) @ J))
+            if planar:
+                Js.append(_se2_residual_jacobian(e, M, lie.se2_adjoint(T_inv) @ J))
+            else:
+                # d(e)/dq = -J_e through T(q)
+                Js.append(-(lie.se3_inv_left_jacobian(e) @ lie.se3_adjoint(T_inv) @ J))
     return torch.cat(es, dim=-1), torch.cat(Js, dim=-2) if with_jacobian else None
 
 
@@ -101,7 +141,7 @@ def solve_local(
     inequality constraints through an augmented-Lagrangian outer loop
     (al_iters rounds, each a full LM solve from the previous round's q).
 
-    T_goal: (..., 4, 4) or (..., n_ee, 4, 4); q0: (..., n).
+    T_goal: (..., hd, hd) or (..., n_ee, hd, hd); q0: (..., n).
     Returns dict(q, cost, iterations, max_violation).
     """
     tpl = ps.template
@@ -109,7 +149,7 @@ def solve_local(
     lb = torch.as_tensor(tpl.lb[1:], dtype=dt, device=dev)
     ub = torch.as_tensor(tpl.ub[1:], dtype=dt, device=dev)
     T_goal = T_goal.to(dt)
-    if T_goal.ndim == q0.ndim + 1:  # (..., 4, 4): add the ee axis
+    if T_goal.ndim == q0.ndim + 1:  # (..., hd, hd): add the ee axis
         T_goal = T_goal[..., None, :, :]
     eye = torch.eye(tpl.n, dtype=dt, device=dev)
     batch = q0.shape[:-1]

@@ -153,13 +153,22 @@ def solve(
     return {k: v.reshape(batch + v.shape[1:]) for k, v in out.items()}
 
 
-def generate_initialization(lb, ub, omega, dim):
-    """Deterministic MDS initialization from smoothed bounds:
-    D = (lb + 0.9 (ub - lb))^2 -> Gram -> MDS -> linear projection onto
-    R^dim along the dominant edge-scatter directions (the JAX package's
-    "eigh" method, which it runs off the TPU)."""
-    D_rand = dgp.sample_distance_matrix(lb, ub)
+def generate_initialization(lb, ub, omega, dim, generator=None, frac=None):
+    """MDS initialization from smoothed bounds (the JAX package's "eigh"
+    method, which it runs off the TPU): D = (lb + frac (ub - lb))^2 ->
+    Gram -> MDS -> linear projection onto R^dim along the dominant
+    edge-scatter directions. frac is 0.9, the deterministic init, unless a
+    `generator` draws it per entry or `frac` gives it
+    (dgp.sample_distance_matrix).
+
+    jnp.linalg.eigh factors (G + G^T) / 2, torch.linalg.eigh reads one
+    triangle only, so G is symmetrised first. A sampled D, and so its G, is
+    not symmetric; the deterministic G differs from G^T by the rounding of
+    its row and column means.
+    """
+    D_rand = dgp.sample_distance_matrix(lb, ub, generator=generator, frac=frac)
     G = dgp.gram_from_distance_matrix(D_rand)
+    G = (G + G.transpose(-1, -2)) / 2.0
     X = dgp.mds(G, eps=1e-8)
     omega = torch.as_tensor(np.asarray(omega), device=lb.device)
     return dgp.linear_projection(X, omega, dim)

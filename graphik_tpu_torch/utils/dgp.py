@@ -83,10 +83,34 @@ def linear_projection(P, F, dim):
     return P @ basis
 
 
-def sample_distance_matrix(lb, ub, frac=0.9):
-    """Squared EDM inside [lb, ub]: D = (lb + frac (ub - lb))^2 (the
-    deterministic initialization of the Riemannian solver)."""
+def sample_distance_matrix(lb, ub, generator=None, frac=None):
+    """Squared EDM inside [lb, ub]: D = (lb + frac (ub - lb))^2.
+
+    With no `generator` and no `frac` this is the deterministic
+    initialization of the Riemannian solver, frac = 0.9. With a
+    `torch.Generator`, frac is uniform in [0, 1), one draw per entry of
+    lb.shape (made on the generator's device, then moved to lb's): D is then
+    not symmetric. A given `frac` (float or tensor) is used as it is.
+    """
+    if generator is not None:
+        frac = torch.rand(lb.shape, generator=generator, dtype=lb.dtype,
+                          device=generator.device).to(lb.device)
+    elif frac is None:
+        frac = 0.9
     return (lb + frac * (ub - lb)) ** 2
+
+
+def best_fit_transform(A, B):
+    """Least-squares rigid transform (R, t) with B ~= R A + t, for (..., n,
+    dim) point sets. Like the JAX package's, it does not correct the det < 0
+    reflection case: the planar joint recovery depends on that."""
+    ca = A.mean(dim=-2, keepdim=True)
+    cb = B.mean(dim=-2, keepdim=True)
+    H = (A - ca).transpose(-1, -2) @ (B - cb)
+    U, _, Vt = torch.linalg.svd(H)
+    R = Vt.transpose(-1, -2) @ U.transpose(-1, -2)
+    t = cb[..., 0, :] - torch.einsum("...ij,...j->...i", R, ca[..., 0, :])
+    return R, t
 
 
 # ---------------------------------------------------------------------------

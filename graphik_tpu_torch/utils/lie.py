@@ -1,12 +1,12 @@
-"""Batched SO(3)/SE(3) operations in PyTorch.
+"""Batched SO(3)/SE(3) and SO(2)/SE(2) operations in PyTorch.
 
-Port of the SO(3)/SE(3) subset of graphik_tpu/utils/lie.py that the main
-path uses (FK, joint recovery, pose error, the joint-space polish).
+Port of the parts of graphik_tpu/utils/lie.py that the solve paths use (FK,
+joint recovery, pose error, the joint-space polish).
 
 Conventions
 -----------
-* Poses are homogeneous matrices: SE(3) -> (..., 4, 4).
-* Twists are ``[v, omega]`` (translation part first): (..., 6).
+* Poses are homogeneous matrices: SE(3) -> (..., 4, 4), SE(2) -> (..., 3, 3).
+* Twists are ``[v, omega]`` (translation part first): (..., 6) or (..., 3).
 * All functions broadcast over leading batch dimensions and keep the
   input's dtype and device.
 * Small-angle branches use Taylor expansions selected with `torch.where`.
@@ -298,6 +298,91 @@ def _se3_curlyQ(rho, w):
         + c3 * (W @ WV + VW @ W - 3.0 * WVW)
         + 0.5 * (c3 + 3.0 * c4) * (WVW @ W + W @ WVW)
     )
+
+
+# ---------------------------------------------------------------------------
+# SO(2) / SE(2)
+# ---------------------------------------------------------------------------
+
+def rot2(theta):
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+
+
+def se2_make(R, t):
+    """(..., 2, 2), (..., 2) -> (..., 3, 3)."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (2, 2))
+    t = t.expand(batch + (2,))
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    bottom = torch.zeros(batch + (1, 3), dtype=R.dtype, device=R.device)
+    bottom[..., 0, 2] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def se2_rot(T):
+    return T[..., :2, :2]
+
+
+def se2_trans(T):
+    return T[..., :2, 2]
+
+
+def se2_angle(T):
+    return torch.atan2(T[..., 1, 0], T[..., 0, 0])
+
+
+def se2_inv(T):
+    Rt = se2_rot(T).transpose(-1, -2)
+    return se2_make(Rt, -torch.einsum("...ij,...j->...i", Rt, se2_trans(T)))
+
+
+def _se2_v(w):
+    """The SE(2) left Jacobian's rotation block [[a, -b], [b, a]]:
+    a = sin(w)/w, b = (1 - cos w)/w."""
+    return _sinc(w), w * _cosc(w)
+
+
+def se2_exp(xi):
+    """(..., 3) twist [v1, v2, w] -> (..., 3, 3)."""
+    v = xi[..., :2]
+    w = xi[..., 2]
+    a, b = _se2_v(w)
+    J = torch.stack([torch.stack([a, -b], dim=-1), torch.stack([b, a], dim=-1)], dim=-2)
+    return se2_make(rot2(w), torch.einsum("...ij,...j->...i", J, v))
+
+
+def se2_log(T):
+    """(..., 3, 3) -> (..., 3) twist [v1, v2, w]."""
+    w = se2_angle(T)
+    a, b = _se2_v(w)
+    det = a * a + b * b
+    Jinv = torch.stack([torch.stack([a, b], dim=-1), torch.stack([-b, a], dim=-1)],
+                       dim=-2) / det[..., None, None]
+    v = torch.einsum("...ij,...j->...i", Jinv, se2_trans(T))
+    return torch.cat([v, w[..., None]], dim=-1)
+
+
+def se2_log_dangle(w):
+    """d/dw of the diagonal of se2_log's inverse Jacobian: its diagonal is
+    alpha(w) = (w/2) cot(w/2) and its off-diagonal +-w/2, so this is
+    alpha'(w) = (sin w - w) / (2 (1 - cos w)), limit -w/6 at 0."""
+    w2 = w * w
+    small = w.abs() < _taylor_threshold(w.dtype)
+    safe = torch.where(small, torch.ones_like(w), w)
+    series = -w * (1.0 / 6.0 + w2 / 180.0 + w2 * w2 / 5040.0 + w2 * w2 * w2 / 151200.0)
+    s = torch.sin(safe / 2.0)
+    return torch.where(small, series, (torch.sin(safe) - safe) / (4.0 * s * s))
+
+
+def se2_adjoint(T):
+    """(..., 3, 3) -> (..., 3, 3) adjoint for [v, w]-ordered SE(2) twists."""
+    t = se2_trans(T)
+    col = torch.stack([t[..., 1], -t[..., 0]], dim=-1)
+    top = torch.cat([se2_rot(T), col[..., :, None]], dim=-1)
+    bottom = torch.zeros(T.shape[:-2] + (1, 3), dtype=T.dtype, device=T.device)
+    bottom[..., 0, 2] = 1.0
+    return torch.cat([top, bottom], dim=-2)
 
 
 def wraptopi(theta):

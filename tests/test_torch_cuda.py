@@ -111,6 +111,39 @@ def test_two_per_warp_bitwise(cuda, N, d, n_edges, B):
     _bitwise(ep, Y0, dg, maxiter=100, maxinner=d * N, plateau_every=16, plateau_rtol=1e-4)
 
 
+def _bench_structure(robot):
+    from graphik_tpu_torch.robots.library import load_kuka, load_planar_chain, load_tree5
+
+    if robot == "kuka_iiwa":
+        return load_kuka()[1]
+    if robot == "tree":
+        return load_tree5()[1]
+    return load_planar_chain(int(robot[6:]), limits=np.pi / 2)[1]
+
+
+@pytest.mark.parametrize("B", [1, 33, 1001])
+@pytest.mark.parametrize("robot,shape", [("planar6", (9, 2, 21)), ("planar10", (13, 2, 29)),
+                                         ("kuka_iiwa", (18, 3, 76)), ("tree", (14, 3, 62))])
+def test_bench_robot_shapes_bitwise(cuda, robot, shape, B):
+    """The compiled (N, d, E) of the bench's planar chains, KUKA iiwa
+    (LWA4D has KUKA's) and the two-end-effector tree, on goals prepared on
+    the card: the planar chains and the tree (2 idle node lanes, 2 padded
+    edge slots) share a warp between two instances, the 18-node arm takes a
+    warp with 3 edges per lane. One step and 100 steps bitwise equal to the
+    plain version."""
+    ps = _bench_structure(robot)
+    omega, psi_L, psi_U = ps.masks()
+    ep = edge_ops.build_edge_problem(omega, psi_L, psi_U, dim=ps.dim)
+    assert (ep.N, ps.dim, ep.E) == shape
+    assert tr_solve.kernel_shape(ep, B, ps.dim)["two_per_warp"] == (ep.N <= 16)
+    T_goal, _ = api.random_goals(ps, (B,), torch.Generator().manual_seed(B + ep.E),
+                                 dtype=torch.float32, device=cuda)
+    D_goal, Y0 = api.make_solver(ps, smooth_iters=2).prepare(T_goal)
+    Y0, dg = Y0.contiguous(), ep.edge_values(D_goal).contiguous()
+    _bitwise(ep, Y0, dg, maxiter=1, maxinner=24)
+    _bitwise(ep, Y0, dg, maxiter=100, **PROD)
+
+
 def test_launch_shape(ur10_inputs):
     """UR10 runs two instances per warp, one per half warp, a 24-node
     problem one per warp."""

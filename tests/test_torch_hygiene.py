@@ -145,13 +145,15 @@ def test_edge_kernel_wrappers_refuse_cpu_and_float64(ur10_edge):
 
 
 def test_obstacles_raise():
-    """Obstacles compile now; planar robots are still a later slice and
-    raise instead of compiling a wrong graph."""
+    """Obstacles compile on 3D robots and planar robots compile without
+    them; planar robots with obstacles (the anchored kernel at d = 2) are a
+    later slice and raise instead of compiling a wrong graph."""
     from graphik_tpu_torch.graphs.problem import ProblemStructure
     from graphik_tpu_torch.robots.templates import planar_from_links
 
     _, ps = tlib.load_ur10()
     assert ps.add_spherical_obstacle(np.array([0.5, 0.0, 0.5]), 0.2).n_obstacles == 1
     planar = planar_from_links([1.0, 1.0, 1.0])
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    assert ProblemStructure.from_template(planar).N == 6
+    with pytest.raises(NotImplementedError, match="planar robots with obstacles.*later slice"):
         ProblemStructure.from_template(planar, obstacles=[(np.zeros(2), 0.1)])

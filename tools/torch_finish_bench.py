@@ -1,0 +1,156 @@
+#!/usr/bin/env python3
+"""Time the port's finish stage (joint recovery, FK validation, pose error,
+the LM polish and keep-the-better: api.Solver.finish) from one or more
+source trees on the same inputs, in turns, on one GPU.
+
+    python3 tools/torch_finish_bench.py --tree parent=build/dev/parent --tree change=.
+
+A tree is a directory that holds a `graphik_tpu_torch` package and the
+robot specs it reads (for example the parent commit's, unpacked with
+`git archive HEAD graphik_tpu_torch graphik_tpu/robots/specs | tar -x -C
+build/dev/parent`). Each tree runs in its own process, in the order
+A B B A A B ..., and each run makes the same inputs from a seed: B = 8192
+goals for the UR10 path (10-step polish) and for the table path (UR10 +
+100 spheres, the augmented-Lagrangian polish), and solved-looking node
+positions, the goals' FK positions plus 1 mm of noise, in place of the TR
+solve's Y (so no kernel is built). It then times `--reps` finish calls of
+each path with the host clock between two `torch.cuda.synchronize()`
+calls, after one warm call, and reports their median, the success rate and
+a hash of q (equal hashes mean bitwise-equal results); at the end, for each
+tree and path, the quartiles of its runs' medians. The last line is one
+JSON object. Without a CUDA device it exits 2.
+
+    python tools/torch_finish_bench.py --ops --tree parent=build/dev/parent --tree change=.
+
+counts instead, on the CPU with B = 64, the top-level aten operators one
+finish call of each path dispatches (torch.profiler): on the card each is
+at least one kernel launch, the cost the finish stage is bound by.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+B = 8192
+B_OPS = 64
+SEED = 0
+
+
+def count_ops(fn):
+    """Top-level aten operators dispatched by fn() (not those nested in
+    another aten operator)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    aten = [e for e in prof.events() if e.name.startswith("aten::")]
+    return sum(1 for e in aten
+               if e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))
+
+
+def run_one(reps, ops=False):
+    import numpy as np
+    import torch
+
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.graphs.problem import ProblemStructure
+    from graphik_tpu_torch.robots.library import load_ur10
+    from graphik_tpu_torch.solvers.local import LocalParams
+    from graphik_tpu_torch.utils.environments import table_environment
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tpl, ps = load_ur10()
+    ps_t = ProblemStructure.from_template(tpl, obstacles=table_environment())
+    gen = torch.Generator().manual_seed(SEED)
+    dev, B_ = ("cpu", B_OPS) if ops else ("cuda", B)
+    out = {}
+    for name, structure in (("ur10", ps), ("table", ps_t)):
+        solver = api.make_solver(structure, polish_params=LocalParams(maxiter=10, tol_grad=1e-8),
+                                 smooth_iters=2)
+        T_goal, q = api.random_goals(structure, (B_,), gen, dtype=torch.float32, device=dev)
+        noise = torch.randn((B_, structure.N, 3), generator=gen).to(dev)
+        zero = torch.zeros(B_, device=dev)
+        sol = {"Y": structure.realization(q) + 1e-3 * noise, "cost": zero, "gradnorm": zero,
+               "iterations": zero.int(), "num_inner": zero.int()}
+        res = solver.finish(sol, T_goal)  # warm call
+        if ops:
+            out[name] = {"aten_ops": count_ops(lambda: solver.finish(sol, T_goal))}
+            continue
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solver.finish(sol, T_goal)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"finish_ms_median": float(np.median(walls)), "finish_ms": walls,
+                     "success": api.summarize(res)["success_rate"],
+                     "q_sha256": hashlib.sha256(res["q"].cpu().numpy().tobytes()).hexdigest()[:16]}
+    return out
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--tree", action="append", default=[], help="label=path (default: this tree)")
+    p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--turns", type=int, default=4, help="runs in all, trees in turn A B B A ...")
+    p.add_argument("--ops", action="store_true",
+                   help="count each path's aten operators per finish call on the CPU")
+    p.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    args = p.parse_args()
+    if args.child:
+        print(json.dumps(run_one(args.reps, args.ops)))
+        return 0
+    import numpy as np
+    import torch
+
+    trees = [t.split("=", 1) for t in args.tree] or [["this", "."]]
+    if args.ops:
+        counts = {label: json.loads(subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child", label, "--ops"],
+            env=dict(os.environ, PYTHONPATH=os.path.abspath(path)), cwd=os.path.abspath(path),
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[-1])
+            for label, path in trees}
+        print(json.dumps({"B": B_OPS, "device": "cpu", "aten_ops": counts}))
+        return 0
+    if not torch.cuda.is_available():
+        print("torch_finish_bench: no CUDA device", file=sys.stderr)
+        return 2
+    order = []
+    for i in range(args.turns):
+        pair = trees if (i // 2) % 2 == 0 else trees[::-1]
+        order.append(pair[i % len(pair)] if len(trees) > 1 else trees[0])
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    runs = []
+    for label, path in order:
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(path))
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", label,
+                              "--reps", str(args.reps)], env=env, cwd=os.path.abspath(path),
+                             capture_output=True, text=True, check=True)
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        runs.append({"tree": label, **r})
+        print(f"{label}: " + ", ".join(f"{k} {v['finish_ms_median']:.1f} ms (success "
+                                       f"{v['success']:.4f}, q {v['q_sha256']})"
+                                       for k, v in r.items()), flush=True)
+    summary = {}  # tree -> path -> quartiles of the runs' medians
+    for label, _ in trees:
+        for path in ("ur10", "table"):
+            meds = [r[path]["finish_ms_median"] for r in runs if r["tree"] == label]
+            q = np.percentile(meds, [25, 50, 75]).tolist()
+            summary.setdefault(label, {})[path] = {"runs": len(meds), "q25_q50_q75_ms": q}
+            print(f"{label} {path}: median of {len(meds)} runs' medians {q[1]:.1f} ms "
+                  f"(quartiles {q[0]:.1f} / {q[2]:.1f})", flush=True)
+    print(json.dumps({"card": card, "B": B, "reps": args.reps, "summary": summary,
+                      "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
