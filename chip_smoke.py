@@ -57,12 +57,27 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      restarts and production(maxiter=300) on 1000 goals: the TR kernel vs
      its plain version on the path's prepared 3000 instances (one step,
      then the path's parameters, every lane bitwise equal), then both end
-     effectors reached at or above the floor.
+     effectors reached at or above the floor;
+ 11. dense CIDGIK on UR10 (ur10_cidgik): solvers/cidgik.solve_cidgik at
+     B = 1024 with CidgikParams.production(admm_iters=700,
+     admm_iters_rest=300), then the bench's finish (pose error, limits,
+     30-step LM polish); eager PyTorch, no hand-written kernel. One warm
+     call, 2 timed calls with the ADMM and finish walls, success at or above
+     the floor, the raw-ADMM rate at 1 cm, median |eig_sum| and feas, finite
+     outputs of the right shapes; the kernel launches and device-busy share
+     of each stage from one profiled call; a 16-goal batch on the card
+     against the same call on the CPU (ADMM (200, 2 x 100)): status equal,
+     eig_sum and feas within EIG_TOL and FEAS_TOL, points within 1e-3 on at
+     least 15 lanes;
+ 12. the same on UR10 + the table (ur10_table_cidgik), B = 512,
+     CidgikParams.production(), and every successful lane's p1..p6 at
+     least radius - 1e-3 from every center.
 
 A floor is the lower end of the JAX package's 95% Wilson interval on that
 configuration's 1000 goals (tools/torch_parity.py jax --config <name>), less
 0.02.
 
+The CIDGIK phases' records are logged as one JSON line before the total.
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its flops over the f32 peak and its bytes over the memory
 rate, counted from the shapes and this run's iteration counts), the
@@ -72,6 +87,7 @@ CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -99,8 +115,19 @@ FLOORS = {
     "planar6_restarts2": 0.969,     # 15856 / 16000 [0.9894, 0.9924]
     "planar10_restarts2": 0.970,    # 15869 / 16000 [0.9903, 0.9931]
     "tree_restarts3": 0.833,        # 13738 / 16000 [0.8531, 0.8639]
+    "ur10_cidgik": 0.839,           # 881 / 1000 [0.8595, 0.8996]
+    "ur10_table_cidgik": 0.736,     # 783 / 1000 [0.7564, 0.8074]
 }
 B_TREE = 1000
+# dense CIDGIK: the bench's batches and schedules (bench.py:391-393,526-539)
+B_CIDGIK, B_CIDGIK_TABLE = 1024, 512
+CIDGIK_UR10 = dict(admm_iters=700, admm_iters_rest=300)
+# the card against the CPU on 16 goals, float32: |d eig_sum| and |d feas|
+# over every lane. Both move with the lane's Z: the constraint rows have
+# unit norm, so |d feas| <= ||dZ||_F, and |d eig_sum| <= 10 ||dZ||_2 (Weyl,
+# 10 small eigenvalues); at the points' observed 2.5e-5 agreement that is
+# ~1e-4 and ~3e-4.
+EIG_TOL, FEAS_TOL = 5e-4, 1e-4
 # The H100 SXM's published peaks: f32 outside the tensor cores, and HBM3.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -148,6 +175,192 @@ def log(msg):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def cidgik_flops(op, s, B, steps):
+    """Flops of `steps` split-ADMM iterations at batch B: per iteration the
+    shared-weight products, 9 of (B, m_s) x (m_s, m_s) (two factor products
+    per G_ss solve, four solves with the refinement step, and the
+    refinement's G_ss product) and 2 of (B, s^2) x (s^2, m_s), and the 16
+    Newton-Schulz steps' 2 (s, s) products per instance."""
+    m_s = op.m_s
+    return steps * (18.0 * B * m_s * m_s + 4.0 * B * s * s * m_s + 64.0 * B * s ** 3)
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def cidgik_call(comp, ps_c, T_goal, params):
+    """One call of the bench's CIDGIK path (bench.py:379-453): solve_cidgik,
+    then the finish - the raw pose error, the limits of the realization and
+    polish_solution's 30-step LM. Returns (ADMM wall, finish wall, outputs)."""
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.solvers import cidgik
+
+    sync(T_goal.device)
+    t0 = time.perf_counter()
+    out = cidgik.solve_cidgik(comp, T_goal, params=params)
+    sync(T_goal.device)
+    t1 = time.perf_counter()
+    e_pos0, e_rot0 = api.pose_error(ps_c, out["q"], T_goal)
+    viol, ok = ps_c.check_distance_limits(ps_c.realization(out["q"]))
+    q, e_pos, e_rot, viol, ok = api.polish_solution(ps_c, out["q"], T_goal, e_pos0, e_rot0,
+                                                    viol, ok)
+    sync(T_goal.device)
+    t2 = time.perf_counter()
+    return t1 - t0, t2 - t1, dict(out, q_polished=q, e_pos0=e_pos0, e_rot0=e_rot0,
+                                  e_pos=e_pos, e_rot=e_rot, ok=ok)
+
+
+def profiled(fn, dev):
+    """Device activities of one run of fn (torch.profiler): (kernel
+    launches, other device activities - copies and sets -, device-busy ms).
+    The profiler's raw events are read directly: building its per-event
+    Python objects takes ~50 us an event, minutes for a CIDGIK call."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_ev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    copies = sum(1 for e in dev_ev if e.name().startswith(("Memcpy", "Memset")))
+    busy_ms = sum(e.duration_ns() for e in dev_ev) / 1e6
+    return len(dev_ev) - copies, copies, busy_ms
+
+
+def cidgik_phases(dev, gen, cfgs):
+    """The dense CIDGIK paths: for each (tag, phase, structure, B,
+    production overrides), one warm and 2 timed calls with the ADMM and
+    finish walls, success at or above the floor, finite outputs of the right
+    shapes (and, with obstacles, successful lanes clear of every sphere),
+    the launches and device-busy share of each stage from one profiled
+    call, and a 16-goal batch on `dev` against the same call on the CPU.
+    Returns one record per path."""
+    import torch
+
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.ops import edge as edge_ops
+    from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda
+    from graphik_tpu_torch.solvers import cidgik
+
+    records = []
+    for tag, phase, ps_c, B_c, overrides in cfgs:
+        t_phase = time.perf_counter()
+        comp = cidgik.compile_cidgik(ps_c)
+        op = cidgik._build_split_operator(comp)
+        params = cidgik.CidgikParams.production(**overrides)
+        log(f"[{phase}] {tag}: N = {ps_c.N}, s = {comp.s}, m_eq = {comp.m_eq}, m_in = {comp.m_in}, "
+            f"static rows m_s = {op.m_s}, goal rows m_d = {op.m_d}; B = {B_c}; {params}")
+
+        def goals_c(B, device=dev, ps_=ps_c):
+            return api.random_goals(ps_, (B,), gen, dtype=torch.float32, device=device)[0]
+
+        cidgik_call(comp, ps_c, goals_c(B_c), params)  # warm call
+        sets = [goals_c(B_c) for _ in range(2)]
+        calls = []
+        counters = (solve_tr_cuda, edge_ops.cost_and_egrad_cuda, edge_ops.ehess_cuda)
+        for f in counters:
+            f.launches = 0
+        for T_goal in sets:
+            cidgik.solve_cidgik.admm_steps = 0
+            calls.append(cidgik_call(comp, ps_c, T_goal, params) + (cidgik.solve_cidgik.admm_steps,))
+        hand = sum(f.launches for f in counters)
+        log(f"[{phase}] {tag}: hand-written kernel launches during the timed calls: {hand}")
+        check(hand == 0, f"{tag}: the CIDGIK path launched a hand-written kernel")
+        shapes = {"q": (B_c, ps_c.n), "T_base": (B_c, 4, 4), "points": (B_c, ps_c.N, 3),
+                  "status": (B_c,), "eig_sum": (B_c,), "feas": (B_c,), "q_polished": (B_c, ps_c.n),
+                  "e_pos": (B_c,), "e_rot": (B_c,)}
+        if ps_c.n_obstacles:
+            centers = torch.tensor(np.stack([c for c, _ in ps_c.obstacles]), dtype=torch.float32,
+                                   device=dev)
+            radii = torch.tensor([r for _, r in ps_c.obstacles], dtype=torch.float32, device=dev)
+        rates = []
+        for i, (ta, tf, o, steps) in enumerate(calls):
+            for k, shape in shapes.items():
+                check(tuple(o[k].shape) == shape, f"{tag}: {k} has shape {tuple(o[k].shape)}")
+                check(bool(torch.isfinite(o[k].double()).all()), f"{tag}: non-finite {k}")
+            hit = (o["e_pos"] < 1e-3) & (o["e_rot"] < np.deg2rad(1.0)) & o["ok"]
+            rate = float(hit.double().mean())
+            raw = float(((o["e_pos0"] < 1e-2) & (o["e_rot0"] < 1e-2)).double().mean())
+            rates.append(rate)
+            log(f"[{phase}] {tag} call {i}: ADMM {ta * 1e3:.1f} ms ({steps} iterations), finish "
+                f"{tf * 1e3:.1f} ms, total {(ta + tf) * 1e3:.1f} ms, {B_c / (ta + tf):.1f} solves/s; "
+                f"success {rate:.4f} (floor {FLOORS[tag]}), raw ADMM @1cm {raw:.4f}, median "
+                f"|eig_sum| {float(o['eig_sum'].abs().median()):.3e}, median feas "
+                f"{float(o['feas'].median()):.3e}, status INFEASIBLE on "
+                f"{int(o['status'].ne(cidgik.FEASIBLE).sum())}")
+            check(rate >= FLOORS[tag], f"{tag}: success below its floor")
+            if ps_c.n_obstacles:
+                p = ps_c.realization(o["q_polished"])[:, 1:ps_c.n + 1]
+                clear = torch.linalg.norm(p[:, :, None, :] - centers, dim=-1) - radii
+                worst = float(clear[hit].min())
+                log(f"[{phase}] {tag} call {i}: least clearance over successful lanes "
+                    f"{worst:.3e} m (>= -1e-3)")
+                check(worst >= -1e-3, f"{tag}: a successful lane enters an obstacle")
+        anc = ps_c.goal_positions(sets[-1])[:, torch.as_tensor(comp.anchor_idx, device=dev)]
+        n_schur = int(cidgik._split_aux(op, anc)["schur_info"].ne(0).sum())
+        steps = calls[-1][3]
+        t_admm = sum(c[0] for c in calls) / len(calls)
+        t_fin = sum(c[1] for c in calls) / len(calls)
+        b_ms = cidgik_flops(op, comp.s, B_c, steps) / PEAK_F32 * 1e3
+        log(f"[{phase}] {tag}: mean ADMM {t_admm * 1e3:.1f} ms, finish {t_fin * 1e3:.1f} ms, "
+            f"{B_c / (t_admm + t_fin):.1f} solves/s; ADMM flop bound (products and Newton-Schulz, "
+            f"{steps} iterations) {b_ms:.3f} ms at {PEAK_F32 / 1e12:.0f} TFLOP/s; lanes whose "
+            f"goal-row Schur complement failed its Cholesky: {n_schur}")
+
+        # launches and device-busy share of each stage, from one profiled
+        # call; busy share = its device time over the timed calls' mean wall
+        T_goal = sets[-1]
+        out_p = {}
+        k_a, c_a, busy_a = profiled(lambda: out_p.update(
+            cidgik.solve_cidgik(comp, T_goal, params=params)), dev)
+        q0 = out_p["q"]
+
+        def finish_only():
+            e0, r0 = api.pose_error(ps_c, q0, T_goal)
+            v0, ok0 = ps_c.check_distance_limits(ps_c.realization(q0))
+            api.polish_solution(ps_c, q0, T_goal, e0, r0, v0, ok0)
+
+        k_f, c_f, busy_f = profiled(finish_only, dev)
+        log(f"[{phase}] {tag} profiled call: ADMM {k_a} kernel launches + {c_a} copies/sets, "
+            f"device busy {busy_a:.1f} ms = {busy_a / (t_admm * 1e3):.3f} of the timed ADMM wall; "
+            f"finish {k_f} launches + {c_f} copies/sets, busy {busy_f:.1f} ms = "
+            f"{busy_f / (t_fin * 1e3):.3f} of the timed finish wall")
+
+        # a 16-goal batch on the card against the same call on the CPU, at a
+        # reduced budget shared by both
+        small = dataclasses.replace(params, admm_iters=200, admm_iters_rest=100, max_outer=3)
+        T16 = goals_c(16, device=torch.device("cpu")).numpy()
+        o_g = cidgik.solve_cidgik(comp, T16, params=small, device=dev)
+        o_c = cidgik.solve_cidgik(comp, T16, params=small, device="cpu")
+        check(o_g["points"].device == dev and o_c["points"].device.type == "cpu",
+              f"{tag}: the 16-goal calls ran on the wrong devices")
+        d_pts = (o_g["points"].cpu() - o_c["points"]).abs().flatten(1).amax(1)
+        d_eig = float((o_g["eig_sum"].cpu() - o_c["eig_sum"]).abs().max())
+        dfe = (o_g["feas"].cpu() - o_c["feas"]).abs()
+        d_feas, worst = float(dfe.max()), int(dfe.argmax())
+        same_status = bool(torch.equal(o_g["status"].cpu(), o_c["status"]))
+        n_close = int((d_pts <= 1e-3).sum())
+        log(f"[{phase}] {tag} 16 goals, {dev.type} vs CPU at admm (200, 2 x 100): status equal "
+            f"{same_status}; points within 1e-3 on {n_close}/16 lanes (max {float(d_pts.max()):.3e}); "
+            f"max |d eig_sum| {d_eig:.3e} (<= {EIG_TOL}), max |d feas| {d_feas:.3e} (<= {FEAS_TOL}; "
+            f"lane {worst}: {float(o_g['feas'][worst]):.3e} against {float(o_c['feas'][worst]):.3e})")
+        check(same_status and n_close >= 15 and d_eig <= EIG_TOL and d_feas <= FEAS_TOL,
+              f"{tag}: the card and the CPU disagree on the 16-goal batch")
+        records.append({"path": tag, "B": B_c, "admm_ms": t_admm * 1e3, "finish_ms": t_fin * 1e3,
+                        "solves_per_s": B_c / (t_admm + t_fin), "success": rates,
+                        "admm_iterations": steps, "admm_bound_ms": b_ms,
+                        "launches_admm": k_a, "launches_finish": k_f,
+                        "busy_admm": busy_a / (t_admm * 1e3), "busy_finish": busy_f / (t_fin * 1e3),
+                        "card_vs_cpu": {"points_close": n_close, "d_eig_sum": d_eig,
+                                        "d_feas": d_feas}})
+        log(f"[{phase}] {tag}: phase took {time.perf_counter() - t_phase:.1f} s")
+    return records
 
 
 def main() -> int:
@@ -631,6 +844,10 @@ def main() -> int:
                                n_tree, 3 * B_TREE, restarts=3, lanes_bitwise=3 * B_TREE,
                                success=[c[3]["success_rate"] for c in calls_tree]))
 
+    # ---- phases 11-12: dense CIDGIK (no hand-written kernel on this path) ----
+    cidgik_paths = cidgik_phases(dev, gen, [("ur10_cidgik", "11", ps, B_CIDGIK, CIDGIK_UR10),
+                                            ("ur10_table_cidgik", "12", ps_t, B_CIDGIK_TABLE, {})])
+
     # Bounds: counted from the shapes and, for the TR kernels, from the
     # iteration counts of the runs that were timed. No single PyTorch call
     # computes any of these functions, so there is no library time.
@@ -645,7 +862,7 @@ def main() -> int:
                    B_MAIN * (3 * N * d + E) * 4)
     shape_tr = tr_solve.kernel_shape(ep, B_MAIN, d)
     shape_ta = tr_solve.kernel_shape(ep_t, B_MAIN, 3)
-    log(f"[11] TR launch shapes at B={B_MAIN}: UR10 {shape_tr}; table {shape_ta}")
+    log(f"[13] TR launch shapes at B={B_MAIN}: UR10 {shape_tr}; table {shape_ta}")
     record = {"kernels": [
         {"name": "tr_solve", "route": "cuda", "source": "graphik_tpu_torch/csrc/tr_solve.cu",
          "replaces": "graphik_tpu/ops/tr_pallas.py:59", "launches": launches,
@@ -676,6 +893,7 @@ def main() -> int:
          "bound_ms": b_hess[0], "bound_by": b_hess[1], "library_ms": None,
          "at": f"UR10, B={B_MAIN}"},
     ]}
+    log(f"[13] CIDGIK paths: {json.dumps(cidgik_paths)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(f"card: {smi}")

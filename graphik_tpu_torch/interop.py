@@ -37,3 +37,14 @@ def structure_from_numpy(fields: dict) -> ProblemStructure:
 def edge_problem_from_numpy(fields: dict) -> EdgeProblem:
     """Build the port's EdgeProblem from a field dict."""
     return EdgeProblem(**{k: _copy(v) for k, v in fields.items()})
+
+
+def cidgik_from_numpy(fields: dict):
+    """Build the port's CidgikCompiled from a field dict (its `structure`
+    given as a ProblemStructure or as a dict of its fields)."""
+    from graphik_tpu_torch.solvers.cidgik import CidgikCompiled
+
+    f = {k: _copy(v) for k, v in fields.items()}
+    if not isinstance(f["structure"], ProblemStructure):
+        f["structure"] = structure_from_numpy(f["structure"])
+    return CidgikCompiled(**f)

@@ -262,3 +262,29 @@ def test_edge_kernels_match_plain(ur10_inputs):
     torch.testing.assert_close(f, fp, rtol=1e-5, atol=0)
     assert float((g - gp).abs().max()) <= 1e-4 * float(gp.abs().max())
     assert float((H - Hp).abs().max()) <= 1e-4 * float(Hp.abs().max())
+
+
+@pytest.mark.parametrize("table", [False, True])
+def test_cidgik_card_matches_cpu(cuda, table):
+    """Dense CIDGIK on 16 goals at a reduced budget (production, ADMM
+    (200, 2 x 100)), float32, on the card and on the CPU from the same numpy
+    goals: status equal on every lane, |d eig_sum| <= 5e-4 and |d feas| <=
+    1e-4 on every lane (chip_smoke.py's EIG_TOL, FEAS_TOL), points within
+    1e-3 on at least 15 of 16 lanes."""
+    from graphik_tpu_torch.solvers import cidgik
+
+    tpl, ps = load_ur10()
+    if table:
+        ps = ProblemStructure.from_template(tpl, obstacles=table_environment())
+    comp = cidgik.compile_cidgik(ps)
+    params = cidgik.CidgikParams.production(admm_iters=200, admm_iters_rest=100, max_outer=3)
+    T = api.random_goals(ps, (16,), torch.Generator().manual_seed(7), dtype=torch.float32,
+                         device="cpu")[0].numpy()
+    o_g = cidgik.solve_cidgik(comp, T, params=params)  # no device: the card
+    o_c = cidgik.solve_cidgik(comp, T, params=params, device="cpu")
+    assert o_g["q"].device.type == "cuda" and o_c["q"].device.type == "cpu"
+    assert torch.equal(o_g["status"].cpu(), o_c["status"])
+    assert float((o_g["eig_sum"].cpu() - o_c["eig_sum"]).abs().max()) <= 5e-4
+    assert float((o_g["feas"].cpu() - o_c["feas"]).abs().max()) <= 1e-4
+    d_pts = (o_g["points"].cpu() - o_c["points"]).abs().flatten(1).amax(1)
+    assert int((d_pts <= 1e-3).sum()) >= 15, d_pts

@@ -11,7 +11,12 @@ one configuration at its bench parameters, float32:
         10-step polish, 2-squaring smoothing;
     ur10_table_restarts2: production(250, 32), as above;
     tree_restarts3: the 5-joint, two-end-effector tree of tests/test_trees.py,
-        3 restarts, production(maxiter=300), the default polish and smoothing.
+        3 restarts, production(maxiter=300), the default polish and smoothing;
+  dense CIDGIK (solvers/cidgik.py, the bench's path: solve_cidgik, then
+  pose_error, check_distance_limits and polish_solution's 30-step LM):
+    ur10_cidgik: UR10, CidgikParams.production(admm_iters=700,
+        admm_iters_rest=300);
+    ur10_table_cidgik: UR10 + the table, CidgikParams.production().
 
 Two halves, because the machine with the GPU has no JAX:
 
@@ -85,6 +90,10 @@ CONFIGS = {
     "planar10_restarts2": dict(BENCH, robot="planar10", restarts=2, seed=48, backend="edge"),
     "tree_restarts3": dict(robot="tree", restarts=3, seed=49, maxiter=300, maxinner=None,
                            polish=None, smooth=None),
+    # dense CIDGIK at the bench's parameters (bench.py:391-393,526-539)
+    "ur10_cidgik": dict(robot="ur10", restarts=0, seed=50,
+                        cidgik=dict(admm_iters=700, admm_iters_rest=300)),
+    "ur10_table_cidgik": dict(robot="ur10_table", restarts=0, seed=51, cidgik={}),
 }
 
 
@@ -123,6 +132,41 @@ def two_sample_limit(n, k_a, k_b):
     return 1.96 * math.sqrt(2 * n * p * (1 - p))
 
 
+def cidgik_path(api, cidgik, ps, T_goal, overrides, stage=lambda f: f):
+    """The bench's CIDGIK path in either package (their functions share
+    names and signatures): solve_cidgik at CidgikParams.production(
+    **overrides), then the finish stage - the raw pose error,
+    check_distance_limits of the realization, and polish_solution's 30-step
+    LM. `stage` wraps each of the two stages (jax.jit for JAX). Returns
+    numpy (e_pos0, e_rot0, e_pos, e_rot, ok, eig_sum, feas)."""
+    comp = cidgik.compile_cidgik(ps)
+    params = cidgik.CidgikParams.production(**overrides)
+
+    def admm(Tg):
+        out = cidgik.solve_cidgik(comp, Tg, params=params)
+        return out["q"], out["eig_sum"], out["feas"]
+
+    def finish(q0, Tg):
+        e_pos0, e_rot0 = api.pose_error(ps, q0, Tg)
+        viol, ok = ps.check_distance_limits(ps.realization(q0))
+        _, e_pos, e_rot, _, ok = api.polish_solution(ps, q0, Tg, e_pos0, e_rot0, viol, ok)
+        return e_pos0, e_rot0, e_pos, e_rot, ok
+
+    q0, eig, feas = stage(admm)(T_goal)
+    out = stage(finish)(q0, T_goal) + (eig, feas)
+    return tuple(np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in out)
+
+
+def cidgik_summary(out):
+    """Per-goal success (1 mm / 1 deg, limit- and obstacle-feasible) and the
+    raw-ADMM rate at 1 cm, median |eig_sum| and median feas."""
+    e_pos0, e_rot0, e_pos, e_rot, ok, eig, feas = out
+    success = (e_pos < CRIT_POS) & (e_rot < CRIT_ROT) & ok
+    raw = float(((e_pos0 < 1e-2) & (e_rot0 < 1e-2)).mean())
+    return success, {"raw_admm_rate_1cm": raw, "median_eig_sum": float(np.median(np.abs(eig))),
+                     "median_feas": float(np.median(feas))}
+
+
 def solver_kwargs(cfg, TRParams, LocalParams):
     kw = dict(params=TRParams.production(maxiter=cfg["maxiter"], maxinner=cfg["maxinner"]))
     if cfg["polish"] is not None:
@@ -155,11 +199,19 @@ def run_jax(args):
     tpl = ps.template
     q = np.random.RandomState(seed).uniform(tpl.lb[1:], tpl.ub[1:], size=(args.n, tpl.n))
     T_goal = np.asarray(kinematics.all_poses(tpl, jnp.asarray(q))[:, tpl.ee], np.float32)
-    kw = solver_kwargs(cfg, TRParams, LocalParams)
-    backend = args.backend or cfg.get("backend", "pallas")
-    kw["params"] = dataclasses.replace(kw["params"], backend=backend)
     t0 = time.perf_counter()
-    fracs = {}
+    fracs, extra = {}, {}
+    if "cidgik" in cfg:
+        from graphik_tpu.solvers import cidgik
+
+        backend = "cidgik"
+        out = cidgik_path(api, cidgik, ps, jnp.asarray(T_goal), cfg["cidgik"], stage=jax.jit)
+        outs = [dict(zip(("e_pos", "e_rot", "success"), out[2:5]))]
+        extra = cidgik_summary(out)[1]
+    else:
+        kw = solver_kwargs(cfg, TRParams, LocalParams)
+        backend = args.backend or cfg.get("backend", "pallas")
+        kw["params"] = dataclasses.replace(kw["params"], backend=backend)
     if cfg["restarts"]:
         R = cfg["restarts"]
         solver = make_restart_solver(ps, n_restarts=R, dtype=jnp.float32, **kw)
@@ -172,7 +224,7 @@ def run_jax(args):
             np.asarray(jax.random.uniform(k, (args.n, M, M), dtype=jnp.float32))
             for k in jax.random.split(jax.random.PRNGKey(RESTART_SEED + i), R)[1:]])
             for i in range(min(REPLAY_DRAWS, args.draws))])  # (draws, R - 1, n, M, M)
-    else:
+    elif "cidgik" not in cfg:
         outs = [api.make_solver(ps, dtype=jnp.float32, **kw)(jnp.asarray(T_goal))]
     outs = jax.block_until_ready(outs)
     wall = time.perf_counter() - t0
@@ -185,12 +237,13 @@ def run_jax(args):
     path = args.out or f"build/parity/{args.config}.npz"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, T_goal=T_goal, q_goal=q, seed=seed, config=args.config, backend=backend,
-             success=ok, e_pos=e_pos, e_rot=e_rot, **fracs)
+             success=ok, e_pos=e_pos, e_rot=e_rot, jax_stats=json.dumps(extra), **fracs)
     lo, hi = wilson95(ok.size, int(ok.sum()))
     print(json.dumps({"half": "jax", "config": args.config, "device": jax.default_backend(),
                       "backend": backend, "n": ok.size, "seed": seed, "success": int(ok.sum()),
                       "per_draw": ok.reshape(-1, args.n).sum(1).tolist(),
-                      "wilson95": [lo, hi], "wall_s": wall, "out": path}))
+                      "wilson95": [lo, hi], "floor": lo - 0.02, "wall_s": wall, "out": path,
+                      **extra}))
     return 0
 
 
@@ -222,22 +275,32 @@ def run_torch(args):
     cfg = CONFIGS[config]
     ps = structure(cfg["robot"], library, ProblemStructure, table_environment,
                    lambda: library.load_tree5()[1])
-    kw = solver_kwargs(cfg, TRParams, LocalParams)
     T_goal = torch.as_tensor(ref["T_goal"], dtype=torch.float32, device=dev)
     ok_j = ref["success"].astype(bool)
     launches = solve_tr_cuda.launches
     t0 = time.perf_counter()
-    if cfg["restarts"]:
-        solver = make_restart_solver(ps, n_restarts=cfg["restarts"], device=dev, **kw)
-        outs = [solver(T_goal, torch.Generator(device=dev).manual_seed(RESTART_SEED + i))
-                for i in range(len(ok_j))]
+    stats, iters = {}, None
+    if "cidgik" in cfg:
+        from graphik_tpu_torch.solvers import cidgik
+
+        ok_c, port_stats = cidgik_summary(cidgik_path(api, cidgik, ps, T_goal, cfg["cidgik"]))
+        stats = {"jax_stats": json.loads(str(ref["jax_stats"])), "port_stats": port_stats}
+        oks = [ok_c]
     else:
-        outs = [api.make_solver(ps, device=dev, **kw)(T_goal)]
+        kw = solver_kwargs(cfg, TRParams, LocalParams)
+        if cfg["restarts"]:
+            solver = make_restart_solver(ps, n_restarts=cfg["restarts"], device=dev, **kw)
+            outs = [solver(T_goal, torch.Generator(device=dev).manual_seed(RESTART_SEED + i))
+                    for i in range(len(ok_j))]
+        else:
+            outs = [api.make_solver(ps, device=dev, **kw)(T_goal)]
+        oks = [ok_of(o) for o in outs]
+        iters = float(torch.stack([o["iterations"] for o in outs]).double().mean())
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = solve_tr_cuda.launches - launches
-    ok_t = np.stack([ok_of(o) for o in outs]).reshape(ok_j.shape)
+    ok_t = np.stack(oks).reshape(ok_j.shape)
     replay = {}
     if "fracs" in ref:  # the JAX half's own inits, draw by draw
         ok_r = np.stack([ok_of(solver(T_goal, fracs=torch.as_tensor(f, device=dev)))
@@ -261,13 +324,13 @@ def run_torch(args):
         "half": "torch", "config": config, "device": device, "n": n,
         "seed": int(ref["seed"]), "restarts": cfg["restarts"],
         "jax_success": k_j, "jax_wilson95": [lo, hi], "port_success": k_t,
-        "jax_per_draw": ok_j.reshape(len(outs), -1).sum(1).tolist(),
-        "port_per_draw": ok_t.reshape(len(outs), -1).sum(1).tolist(),
+        "jax_per_draw": ok_j.reshape(len(oks), -1).sum(1).tolist(),
+        "port_per_draw": ok_t.reshape(len(oks), -1).sum(1).tolist(),
         "both": int((ok_j & ok_t).sum()), "port_only": int((ok_t & ~ok_j).sum()),
         "jax_only": int((ok_j & ~ok_t).sum()),
-        "port_mean_iterations": float(torch.stack([o["iterations"] for o in outs]).double().mean()),
+        "port_mean_iterations": iters,
         "kernel_launches": launches, "wall_s": wall, **test,
-        **replay,
+        **replay, **stats,
     }))
     return 0 if agree else 1
 
