@@ -62,7 +62,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      B = 1024 with CidgikParams.production(admm_iters=700,
      admm_iters_rest=300), then the bench's finish (pose error, limits,
      30-step LM polish); eager PyTorch, no hand-written kernel. One warm
-     call, 2 timed calls with the ADMM and finish walls, success at or above
+     call, one timed call with the ADMM and finish walls, success at or above
      the floor, the raw-ADMM rate at 1 cm, median |eig_sum| and feas, finite
      outputs of the right shapes; the kernel launches and device-busy share
      of each stage from one profiled call; a 16-goal batch on the card
@@ -71,13 +71,29 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      least 15 lanes;
  12. the same on UR10 + the table (ur10_table_cidgik), B = 512,
      CidgikParams.production(), and every successful lane's p1..p6 at
-     least radius - 1e-3 from every center.
+     least radius - 1e-3 from every center;
+ 13. sparse (chordal) CIDGIK on UR10 (ur10_cidgik_sparse):
+     solvers/cidgik_sparse.solve_cidgik_sparse at B = 1024 with
+     production(700, 300), then the bench's finish, as phase 11 but with
+     eig_sum held per lane to sparse_eig_bound; and torch.linalg.eigh on the card on
+     the path's stacked clique blocks (the middle block zero-padded)
+     against the CPU's float64: finite, eigenvalues within 1e-5 x each
+     block's norm;
+ 14. Riemannian conjugate gradient on UR10 (ur10_cg): make_solver with
+     CGParams.production() at B = 8192, the UR10 path's polish and
+     smoothing: one warm and one timed call with per-stage walls, success
+     at or above the floor, no TR kernel launched, the solve's host reads,
+     the solve stage's launches and device-busy share from one profiled
+     call, and 64 goals on the card against the CPU: solve_cg from the
+     same Y0 at float64 (20 iterations) and float32 (5), iterations equal
+     per lane and Y and cost within CG_TOL64 / CG_TOL32, then the whole
+     solver's success counts.
 
 A floor is the lower end of the JAX package's 95% Wilson interval on that
 configuration's 1000 goals (tools/torch_parity.py jax --config <name>), less
 0.02.
 
-The CIDGIK phases' records are logged as one JSON line before the total.
+The records of phases 11-14 are logged as JSON lines before the total.
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its flops over the f32 peak and its bytes over the memory
 rate, counted from the shapes and this run's iteration counts), the
@@ -117,6 +133,8 @@ FLOORS = {
     "tree_restarts3": 0.833,        # 13738 / 16000 [0.8531, 0.8639]
     "ur10_cidgik": 0.839,           # 881 / 1000 [0.8595, 0.8996]
     "ur10_table_cidgik": 0.736,     # 783 / 1000 [0.7564, 0.8074]
+    "ur10_cidgik_sparse": 0.906,    # 943 / 1000 [0.9269, 0.9557]
+    "ur10_cg": 0.740,               # 787 / 1000 [0.7606, 0.8113]
 }
 B_TREE = 1000
 # dense CIDGIK: the bench's batches and schedules (bench.py:391-393,526-539)
@@ -128,6 +146,37 @@ CIDGIK_UR10 = dict(admm_iters=700, admm_iters_rest=300)
 # 10 small eigenvalues); at the points' observed 2.5e-5 agreement that is
 # ~1e-4 and ~3e-4.
 EIG_TOL, FEAS_TOL = 5e-4, 1e-4
+# The sparse solver's eig_sum sums the 6 small eigenvalues of each of its 3
+# blocks, |d eig_sum| <= 6 sum_k ||dZ_k||_2, and at this budget some lanes'
+# Z moves more with rounding, so its bound is per lane, relative to the
+# lane's own eig_sum: SPARSE_EIG_RTOL max(|eig_sum|, 1e-3), and at most
+# SPARSE_EIG_TOL. On 512 goals (tools/cidgik_f32_spread.py --config
+# ur10_cidgik_sparse --goals 256, seeds 11 and 12) the CPU's float32 lies
+# up to 1.1e-3 from its float64 in eig_sum (a lane at eig_sum 0.59), and
+# up to 0.035 of max(|eig_sum|, 1e-3) (a lane at 2.3e-4, 3.5e-5 apart);
+# two float32 runs may lie twice that apart. feas moved by at most 1.1e-5
+# there, inside FEAS_TOL.
+SPARSE_EIG_TOL, SPARSE_EIG_RTOL = 2.5e-3, 0.07
+# Riemannian CG on UR10 (ur10_cg): UR10's production path with the solver
+# switched, at the UR10 path's batch
+B_CG = 8192
+# the 64-goal card-vs-CPU CG check. First riemannian.solve_cg from the same
+# prepared Y0 on both: iterations equal per lane, and Y and cost (over
+# max(1, max cost)) within a bound. float64, 20 iterations with the per-lane
+# stops of tests/test_torch_cg.py (plateau every 4 at rtol 0.08, stepsize
+# floor 1e-3): 1e-7, the bound tests/test_torch_cg.py holds the port to
+# against the JAX package over 20 iterations (past ~25 float64
+# trajectories part). float32, 5 iterations of the production
+# params: twice the CPU's own float32-vs-float64 spread, 2.2e-5 in Y and
+# 4.0e-5 in cost on 512 goals (tools/cg_f32_spread.py --iters 5, seeds
+# 0-7), rounded up; by 20 iterations float32 trajectories have parted
+# (0.3 in Y). Then the whole solver: the two success counts are two
+# samples, and 1.96 sqrt(2 n p (1 - p)) at n = 64 and p = 0.79 (the JAX
+# package's ur10_cg rate) is 9 goals.
+CG_TRAJ64 = dict(maxiter=20, plateau_every=4, plateau_rtol=0.08, minstepsize=1e-3)
+CG_TRAJ32 = dict(maxiter=5)
+CG_TOL64, CG_TOL32 = 1e-7, 1e-4
+CG_CARD_CPU_GOALS = 9
 # The H100 SXM's published peaks: f32 outside the tensor cores, and HBM3.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -168,6 +217,11 @@ def tr_bytes(N, d, E, B):
     return B * (2 * N * d * 4 + E * 4 + 16)
 
 
+def sparse_eig_bound(eig_sum):
+    """Per-lane bound on |d eig_sum| between two float32 sparse CIDGIK runs."""
+    return (SPARSE_EIG_RTOL * eig_sum.abs().clamp(min=1e-3)).clamp(max=SPARSE_EIG_TOL)
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -177,14 +231,20 @@ def check(ok, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cidgik_flops(op, s, B, steps):
+def cidgik_flops(op, blocks, B, steps):
     """Flops of `steps` split-ADMM iterations at batch B: per iteration the
     shared-weight products, 9 of (B, m_s) x (m_s, m_s) (two factor products
     per G_ss solve, four solves with the refinement step, and the
-    refinement's G_ss product) and 2 of (B, s^2) x (s^2, m_s), and the 16
-    Newton-Schulz steps' 2 (s, s) products per instance."""
+    refinement's G_ss product) and 2 of (B, n) x (n, m_s), n the flattened
+    Z's size, and the 16 Newton-Schulz steps' 2 (s, s) products per block;
+    blocks: (K, s), K blocks of s x s (the dense solver's one). The sparse
+    solver's goal rows add 2 (m_d, n) products per instance (D_flat)."""
     m_s = op.m_s
-    return steps * (18.0 * B * m_s * m_s + 4.0 * B * s * s * m_s + 64.0 * B * s ** 3)
+    K, s = blocks
+    n = K * s * s
+    m_d = op.m_d if K > 1 else 0
+    return steps * (18.0 * B * m_s * m_s + 4.0 * B * n * m_s + 4.0 * B * m_d * n
+                    + 64.0 * B * K * s ** 3)
 
 
 def sync(dev):
@@ -194,16 +254,16 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def cidgik_call(comp, ps_c, T_goal, params):
-    """One call of the bench's CIDGIK path (bench.py:379-453): solve_cidgik,
-    then the finish - the raw pose error, the limits of the realization and
-    polish_solution's 30-step LM. Returns (ADMM wall, finish wall, outputs)."""
+def cidgik_call(solve, comp, ps_c, T_goal, params):
+    """One call of the bench's CIDGIK path (bench.py:379-453): `solve`
+    (solve_cidgik or solve_cidgik_sparse), then the finish - the raw pose
+    error, the limits of the realization and polish_solution's 30-step LM.
+    Returns (ADMM wall, finish wall, outputs)."""
     from graphik_tpu_torch import api
-    from graphik_tpu_torch.solvers import cidgik
 
     sync(T_goal.device)
     t0 = time.perf_counter()
-    out = cidgik.solve_cidgik(comp, T_goal, params=params)
+    out = solve(comp, T_goal, params=params)
     sync(T_goal.device)
     t1 = time.perf_counter()
     e_pos0, e_rot0 = api.pose_error(ps_c, out["q"], T_goal)
@@ -234,43 +294,55 @@ def profiled(fn, dev):
 
 
 def cidgik_phases(dev, gen, cfgs):
-    """The dense CIDGIK paths: for each (tag, phase, structure, B,
-    production overrides), one warm and 2 timed calls with the ADMM and
-    finish walls, success at or above the floor, finite outputs of the right
-    shapes (and, with obstacles, successful lanes clear of every sphere),
-    the launches and device-busy share of each stage from one profiled
-    call, and a 16-goal batch on `dev` against the same call on the CPU.
-    Returns one record per path."""
+    """The CIDGIK paths: for each (tag, phase, structure, B, production
+    overrides, sparse), one warm and one timed call with the ADMM and
+    finish walls, success at or above the floor, finite outputs
+    of the right shapes (and, with obstacles, successful lanes clear of every
+    sphere), the launches and device-busy share of each stage from one
+    profiled call, and a 16-goal batch on `dev` against the same call on the
+    CPU; on the sparse path, also torch.linalg.eigh of its clique blocks on
+    `dev` against the CPU's float64. Returns one record per path."""
     import torch
 
     from graphik_tpu_torch import api
     from graphik_tpu_torch.ops import edge as edge_ops
     from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda
-    from graphik_tpu_torch.solvers import cidgik
+    from graphik_tpu_torch.solvers import cidgik, cidgik_sparse
 
     records = []
-    for tag, phase, ps_c, B_c, overrides in cfgs:
+    for tag, phase, ps_c, B_c, overrides, sparse in cfgs:
         t_phase = time.perf_counter()
-        comp = cidgik.compile_cidgik(ps_c)
-        op = cidgik._build_split_operator(comp)
         params = cidgik.CidgikParams.production(**overrides)
-        log(f"[{phase}] {tag}: N = {ps_c.N}, s = {comp.s}, m_eq = {comp.m_eq}, m_in = {comp.m_in}, "
-            f"static rows m_s = {op.m_s}, goal rows m_d = {op.m_d}; B = {B_c}; {params}")
+        if sparse:
+            comp = cidgik_sparse.compile_cidgik_sparse(ps_c)
+            op = cidgik_sparse._build_sparse_split_operator(comp)
+            solve = cidgik_sparse.solve_cidgik_sparse
+            blocks = (comp.K, comp.ds)
+            log(f"[{phase}] {tag}: N = {ps_c.N}, {comp.K} cliques of {[len(c) for c in comp.cliques]} "
+                f"free nodes, blocks ds = {comp.ds}, static rows m_s = {op.m_s} ({op.m_eq_s} "
+                f"equalities, {op.m_in_s} bounds), goal rows m_d = {op.m_d}; B = {B_c}; {params}")
+        else:
+            comp = cidgik.compile_cidgik(ps_c)
+            op = cidgik._build_split_operator(comp)
+            solve = cidgik.solve_cidgik
+            blocks = (1, comp.s)
+            log(f"[{phase}] {tag}: N = {ps_c.N}, s = {comp.s}, m_eq = {comp.m_eq}, m_in = "
+                f"{comp.m_in}, static rows m_s = {op.m_s}, goal rows m_d = {op.m_d}; B = {B_c}; "
+                f"{params}")
 
         def goals_c(B, device=dev, ps_=ps_c):
             return api.random_goals(ps_, (B,), gen, dtype=torch.float32, device=device)[0]
 
-        cidgik_call(comp, ps_c, goals_c(B_c), params)  # warm call
-        sets = [goals_c(B_c) for _ in range(2)]
-        calls = []
+        cidgik_call(solve, comp, ps_c, goals_c(B_c), params)  # warm call
+        T_goal = goals_c(B_c)
         counters = (solve_tr_cuda, edge_ops.cost_and_egrad_cuda, edge_ops.ehess_cuda)
         for f in counters:
             f.launches = 0
-        for T_goal in sets:
-            cidgik.solve_cidgik.admm_steps = 0
-            calls.append(cidgik_call(comp, ps_c, T_goal, params) + (cidgik.solve_cidgik.admm_steps,))
+        cidgik.solve_cidgik.admm_steps = 0
+        t_admm, t_fin, o, steps = cidgik_call(solve, comp, ps_c, T_goal, params) + (
+            cidgik.solve_cidgik.admm_steps,)
         hand = sum(f.launches for f in counters)
-        log(f"[{phase}] {tag}: hand-written kernel launches during the timed calls: {hand}")
+        log(f"[{phase}] {tag}: hand-written kernel launches during the timed call: {hand}")
         check(hand == 0, f"{tag}: the CIDGIK path launched a hand-written kernel")
         shapes = {"q": (B_c, ps_c.n), "T_base": (B_c, 4, 4), "points": (B_c, ps_c.N, 3),
                   "status": (B_c,), "eig_sum": (B_c,), "feas": (B_c,), "q_polished": (B_c, ps_c.n),
@@ -279,46 +351,39 @@ def cidgik_phases(dev, gen, cfgs):
             centers = torch.tensor(np.stack([c for c, _ in ps_c.obstacles]), dtype=torch.float32,
                                    device=dev)
             radii = torch.tensor([r for _, r in ps_c.obstacles], dtype=torch.float32, device=dev)
-        rates = []
-        for i, (ta, tf, o, steps) in enumerate(calls):
-            for k, shape in shapes.items():
-                check(tuple(o[k].shape) == shape, f"{tag}: {k} has shape {tuple(o[k].shape)}")
-                check(bool(torch.isfinite(o[k].double()).all()), f"{tag}: non-finite {k}")
-            hit = (o["e_pos"] < 1e-3) & (o["e_rot"] < np.deg2rad(1.0)) & o["ok"]
-            rate = float(hit.double().mean())
-            raw = float(((o["e_pos0"] < 1e-2) & (o["e_rot0"] < 1e-2)).double().mean())
-            rates.append(rate)
-            log(f"[{phase}] {tag} call {i}: ADMM {ta * 1e3:.1f} ms ({steps} iterations), finish "
-                f"{tf * 1e3:.1f} ms, total {(ta + tf) * 1e3:.1f} ms, {B_c / (ta + tf):.1f} solves/s; "
-                f"success {rate:.4f} (floor {FLOORS[tag]}), raw ADMM @1cm {raw:.4f}, median "
-                f"|eig_sum| {float(o['eig_sum'].abs().median()):.3e}, median feas "
-                f"{float(o['feas'].median()):.3e}, status INFEASIBLE on "
-                f"{int(o['status'].ne(cidgik.FEASIBLE).sum())}")
-            check(rate >= FLOORS[tag], f"{tag}: success below its floor")
-            if ps_c.n_obstacles:
-                p = ps_c.realization(o["q_polished"])[:, 1:ps_c.n + 1]
-                clear = torch.linalg.norm(p[:, :, None, :] - centers, dim=-1) - radii
-                worst = float(clear[hit].min())
-                log(f"[{phase}] {tag} call {i}: least clearance over successful lanes "
-                    f"{worst:.3e} m (>= -1e-3)")
-                check(worst >= -1e-3, f"{tag}: a successful lane enters an obstacle")
-        anc = ps_c.goal_positions(sets[-1])[:, torch.as_tensor(comp.anchor_idx, device=dev)]
-        n_schur = int(cidgik._split_aux(op, anc)["schur_info"].ne(0).sum())
-        steps = calls[-1][3]
-        t_admm = sum(c[0] for c in calls) / len(calls)
-        t_fin = sum(c[1] for c in calls) / len(calls)
-        b_ms = cidgik_flops(op, comp.s, B_c, steps) / PEAK_F32 * 1e3
-        log(f"[{phase}] {tag}: mean ADMM {t_admm * 1e3:.1f} ms, finish {t_fin * 1e3:.1f} ms, "
-            f"{B_c / (t_admm + t_fin):.1f} solves/s; ADMM flop bound (products and Newton-Schulz, "
-            f"{steps} iterations) {b_ms:.3f} ms at {PEAK_F32 / 1e12:.0f} TFLOP/s; lanes whose "
-            f"goal-row Schur complement failed its Cholesky: {n_schur}")
+        for k, shape in shapes.items():
+            check(tuple(o[k].shape) == shape, f"{tag}: {k} has shape {tuple(o[k].shape)}")
+            check(bool(torch.isfinite(o[k].double()).all()), f"{tag}: non-finite {k}")
+        hit = (o["e_pos"] < 1e-3) & (o["e_rot"] < np.deg2rad(1.0)) & o["ok"]
+        rate = float(hit.double().mean())
+        raw = float(((o["e_pos0"] < 1e-2) & (o["e_rot0"] < 1e-2)).double().mean())
+        anc = ps_c.goal_positions(T_goal)[:, torch.as_tensor(comp.anchor_idx, device=dev)]
+        aux = cidgik_sparse._sparse_split_aux(op, anc) if sparse else cidgik._split_aux(op, anc)
+        n_schur = int(aux["schur_info"].ne(0).sum())
+        b_ms = cidgik_flops(op, blocks, B_c, steps) / PEAK_F32 * 1e3
+        log(f"[{phase}] {tag} timed call: ADMM {t_admm * 1e3:.1f} ms ({steps} iterations), finish "
+            f"{t_fin * 1e3:.1f} ms, total {(t_admm + t_fin) * 1e3:.1f} ms, "
+            f"{B_c / (t_admm + t_fin):.1f} solves/s; success {rate:.4f} (floor {FLOORS[tag]}), "
+            f"raw ADMM @1cm {raw:.4f}, median |eig_sum| {float(o['eig_sum'].abs().median()):.3e}, "
+            f"median feas {float(o['feas'].median()):.3e}, status INFEASIBLE on "
+            f"{int(o['status'].ne(cidgik.FEASIBLE).sum())}; ADMM flop bound (products and "
+            f"Newton-Schulz) {b_ms:.3f} ms at {PEAK_F32 / 1e12:.0f} TFLOP/s; lanes whose goal-row "
+            f"Schur complement failed its Cholesky: {n_schur}")
+        check(rate >= FLOORS[tag], f"{tag}: success below its floor")
+        if ps_c.n_obstacles:
+            centers = torch.tensor(np.stack([c for c, _ in ps_c.obstacles]), dtype=torch.float32,
+                                   device=dev)
+            radii = torch.tensor([r for _, r in ps_c.obstacles], dtype=torch.float32, device=dev)
+            p = ps_c.realization(o["q_polished"])[:, 1:ps_c.n + 1]
+            clear = torch.linalg.norm(p[:, :, None, :] - centers, dim=-1) - radii
+            worst = float(clear[hit].min())
+            log(f"[{phase}] {tag}: least clearance over successful lanes {worst:.3e} m (>= -1e-3)")
+            check(worst >= -1e-3, f"{tag}: a successful lane enters an obstacle")
 
         # launches and device-busy share of each stage, from one profiled
-        # call; busy share = its device time over the timed calls' mean wall
-        T_goal = sets[-1]
+        # call; busy share = its device time over the timed call's wall
         out_p = {}
-        k_a, c_a, busy_a = profiled(lambda: out_p.update(
-            cidgik.solve_cidgik(comp, T_goal, params=params)), dev)
+        k_a, c_a, busy_a = profiled(lambda: out_p.update(solve(comp, T_goal, params=params)), dev)
         q0 = out_p["q"]
 
         def finish_only():
@@ -336,31 +401,169 @@ def cidgik_phases(dev, gen, cfgs):
         # reduced budget shared by both
         small = dataclasses.replace(params, admm_iters=200, admm_iters_rest=100, max_outer=3)
         T16 = goals_c(16, device=torch.device("cpu")).numpy()
-        o_g = cidgik.solve_cidgik(comp, T16, params=small, device=dev)
-        o_c = cidgik.solve_cidgik(comp, T16, params=small, device="cpu")
+        o_g = solve(comp, T16, params=small, device=dev)
+        o_c = solve(comp, T16, params=small, device="cpu")
         check(o_g["points"].device == dev and o_c["points"].device.type == "cpu",
               f"{tag}: the 16-goal calls ran on the wrong devices")
         d_pts = (o_g["points"].cpu() - o_c["points"]).abs().flatten(1).amax(1)
-        d_eig = float((o_g["eig_sum"].cpu() - o_c["eig_sum"]).abs().max())
+        d_eig_l = (o_g["eig_sum"].cpu() - o_c["eig_sum"]).abs()
+        eig_tol = (sparse_eig_bound(o_c["eig_sum"]) if sparse
+                   else torch.full_like(d_eig_l, EIG_TOL))
+        d_eig, w = float(d_eig_l.max()), int((d_eig_l / eig_tol).argmax())
         dfe = (o_g["feas"].cpu() - o_c["feas"]).abs()
         d_feas, worst = float(dfe.max()), int(dfe.argmax())
         same_status = bool(torch.equal(o_g["status"].cpu(), o_c["status"]))
         n_close = int((d_pts <= 1e-3).sum())
         log(f"[{phase}] {tag} 16 goals, {dev.type} vs CPU at admm (200, 2 x 100): status equal "
             f"{same_status}; points within 1e-3 on {n_close}/16 lanes (max {float(d_pts.max()):.3e}); "
-            f"max |d eig_sum| {d_eig:.3e} (<= {EIG_TOL}), max |d feas| {d_feas:.3e} (<= {FEAS_TOL}; "
-            f"lane {worst}: {float(o_g['feas'][worst]):.3e} against {float(o_c['feas'][worst]):.3e})")
-        check(same_status and n_close >= 15 and d_eig <= EIG_TOL and d_feas <= FEAS_TOL,
-              f"{tag}: the card and the CPU disagree on the 16-goal batch")
-        records.append({"path": tag, "B": B_c, "admm_ms": t_admm * 1e3, "finish_ms": t_fin * 1e3,
-                        "solves_per_s": B_c / (t_admm + t_fin), "success": rates,
-                        "admm_iterations": steps, "admm_bound_ms": b_ms,
-                        "launches_admm": k_a, "launches_finish": k_f,
-                        "busy_admm": busy_a / (t_admm * 1e3), "busy_finish": busy_f / (t_fin * 1e3),
-                        "card_vs_cpu": {"points_close": n_close, "d_eig_sum": d_eig,
-                                        "d_feas": d_feas}})
+            f"max |d eig_sum| {d_eig:.3e}, nearest its bound on lane {w}: {float(d_eig_l[w]):.3e} "
+            f"(<= {float(eig_tol[w]):.3e}, eig_sum {float(o_c['eig_sum'][w]):.3e}); max |d feas| "
+            f"{d_feas:.3e} (<= {FEAS_TOL}; lane {worst}: {float(o_g['feas'][worst]):.3e} against "
+            f"{float(o_c['feas'][worst]):.3e})")
+        check(same_status and n_close >= 15 and bool((d_eig_l <= eig_tol).all())
+              and d_feas <= FEAS_TOL, f"{tag}: the card and the CPU disagree on the 16-goal batch")
+        record = {"path": tag, "B": B_c, "admm_ms": t_admm * 1e3, "finish_ms": t_fin * 1e3,
+                  "solves_per_s": B_c / (t_admm + t_fin), "success": rate,
+                  "admm_iterations": steps, "admm_bound_ms": b_ms,
+                  "launches_admm": k_a, "launches_finish": k_f,
+                  "busy_admm": busy_a / (t_admm * 1e3), "busy_finish": busy_f / (t_fin * 1e3),
+                  "schur_failed": n_schur,
+                  "card_vs_cpu": {"points_close": n_close, "d_eig_sum": d_eig,
+                                  "d_eig_sum_over_bound": float(d_eig_l[w] / eig_tol[w]),
+                                  "d_feas": d_feas}}
+        if sparse:
+            record["eigh_padded_blocks"] = eigh_check(phase, comp, ps_c, o, dev)
+        records.append(record)
         log(f"[{phase}] {tag}: phase took {time.perf_counter() - t_phase:.1f} s")
     return records
+
+
+def eigh_check(phase, comp, ps_c, out, dev):
+    """torch.linalg.eigh on `dev` of the sparse path's stacked clique blocks
+    at its batch: the blocks of its solved points, plus symmetric noise
+    (1e-2) on the valid slots, the padded rows and columns exactly zero;
+    float32 and float64, against the CPU's float64 eigenvalues. Checks
+    finite values and |d lambda| <= 1e-5 x the block's Frobenius norm."""
+    import torch
+
+    from graphik_tpu_torch.solvers import cidgik_sparse
+
+    pts = out["points"].double().cpu()[:, torch.as_tensor(comp.free_idx)]
+    Z = cidgik_sparse.lifted_blocks(comp, pts)
+    E = 1e-2 * torch.randn(Z.shape, generator=torch.Generator().manual_seed(SEED),
+                           dtype=torch.float64)
+    valid = torch.as_tensor(cidgik_sparse._valid_slots(comp.member, comp.d))
+    Z = (Z + E + E.transpose(-1, -2)) * (valid[:, :, None] * valid[:, None, :])
+    n_pad = int((valid == 0).sum())
+    ref = torch.linalg.eigvalsh(Z)
+    scale = torch.linalg.matrix_norm(Z)[..., None]
+    errs = {}
+    for dt in (torch.float32, torch.float64):
+        lam, Q = torch.linalg.eigh(Z.to(dev, dt))
+        sync(dev)
+        finite = bool(torch.isfinite(lam).all() and torch.isfinite(Q).all())
+        err = float(((lam.double().cpu() - ref).abs() / scale).max())
+        errs[str(dt).split(".")[-1]] = err
+        log(f"[{phase}] eigh on {dev.type} of {tuple(Z.shape)} clique blocks ({n_pad} padded "
+            f"slots a lane), {dt}: finite {finite}, max |d lambda| / ||Z_k||_F against the CPU's "
+            f"float64 {err:.3e} (<= 1e-5)")
+        check(finite and err <= 1e-5, f"eigh on the padded clique blocks ({dt})")
+    return errs
+
+
+def cg_phase(dev, gen, ps, polish):
+    """The CG path (ur10_cg): make_solver with CGParams.production() at
+    B_CG, one warm and one timed call with per-stage walls, success at or
+    above the floor, no TR kernel launched, the solve's host reads, the
+    solve stage's launches and busy share from one profiled call, and 64
+    goals on `dev` against the CPU: solve_cg's trajectories from the same
+    Y0 at float64 and float32, then the whole solver. Returns its record."""
+    import torch
+
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda
+    from graphik_tpu_torch.solvers import riemannian
+    from graphik_tpu_torch.solvers.riemannian import CGParams
+
+    t_phase = time.perf_counter()
+    tag = "ur10_cg"
+    params = CGParams.production()
+    solver = api.make_solver(ps, params=params, polish_params=polish, smooth_iters=2)
+    log(f"[14] {tag}: UR10, B = {B_CG}; {params}")
+
+    def goals(B, device=dev):
+        return api.random_goals(ps, (B,), gen, dtype=torch.float32, device=device)[0]
+
+    solver(goals(B_CG))  # warm call
+    sync(dev)
+    T_goal = goals(B_CG)
+    solve_tr_cuda.launches = 0
+    riemannian.solve_cg.host_reads = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    D_goal, Y0 = solver.prepare(T_goal)
+    sync(dev)
+    t1 = time.perf_counter()
+    sol = solver.solve(Y0, D_goal)
+    sync(dev)
+    t2 = time.perf_counter()
+    out = solver.finish(sol, T_goal)
+    sync(dev)
+    t3 = time.perf_counter()
+    reads = riemannian.solve_cg.host_reads
+    tr = solve_tr_cuda.launches
+    log(f"[14] {tag}: TR kernel launches during the timed call: {tr}")
+    check(tr == 0, f"{tag}: the CG path launched the TR kernel")
+    for k in ("q", "Y", "e_pos", "e_rot", "cost", "iterations"):
+        check(out[k].shape[0] == B_CG and bool(torch.isfinite(out[k].double()).all()),
+              f"{tag}: {k} has the wrong shape or is not finite")
+    check(not bool(out["num_inner"].any()), f"{tag}: num_inner is not zero")
+    summ = api.summarize(out)
+    wall = t3 - t0
+    it = out["iterations"].double()
+    log(f"[14] {tag} timed call: prepare {(t1 - t0) * 1e3:.1f} ms, solve {(t2 - t1) * 1e3:.1f} ms "
+        f"({reads} host reads; iterations mean {float(it.mean()):.1f}, max {int(it.max())}), "
+        f"finish {(t3 - t2) * 1e3:.1f} ms, total {wall * 1e3:.1f} ms, {B_CG / wall:.1f} solves/s; "
+        f"success {summ['success_rate']:.4f} (floor {FLOORS[tag]}), pose only "
+        f"{summ['pose_only_rate']:.4f}, median e_pos {summ['median_pos_err']:.3e} m")
+    check(summ["success_rate"] >= FLOORS[tag], f"{tag}: success below its floor")
+
+    k_s, c_s, busy_s = profiled(lambda: solver.solve(Y0, D_goal), dev)
+    log(f"[14] {tag} profiled solve: {k_s} kernel launches + {c_s} copies/sets "
+        f"({k_s / float(it.max()):.1f} launches an iteration), device busy {busy_s:.1f} ms = "
+        f"{busy_s / ((t2 - t1) * 1e3):.3f} of the timed solve wall")
+
+    T64 = goals(64, device=torch.device("cpu"))
+    D64, Y64 = solver.prepare(T64)
+    traj = {}
+    for dt, kw, tol in ((torch.float64, CG_TRAJ64, CG_TOL64), (torch.float32, CG_TRAJ32, CG_TOL32)):
+        o_g, o_c = (riemannian.solve_cg(Y64.to(d_, dt), D64.to(d_, dt), solver.omega, solver.psi_L,
+                                        solver.psi_U, params=CGParams.production(**kw))
+                    for d_ in (dev, torch.device("cpu")))
+        same_it = bool(torch.equal(o_g["iterations"].cpu(), o_c["iterations"]))
+        d_Y = float((o_g["Y"].cpu() - o_c["Y"]).abs().max())
+        d_cost = float((o_g["cost"].cpu() - o_c["cost"]).abs().max()
+                       / max(1.0, float(o_c["cost"].abs().max())))
+        name = str(dt).split(".")[-1]
+        traj[name] = {"d_Y": d_Y, "d_cost": d_cost}
+        log(f"[14] {tag} 64 goals, solve_cg from the same Y0 on {dev.type} and the CPU, {name}, "
+            f"{kw}: iterations equal {same_it} (counts {sorted(set(o_c['iterations'].tolist()))}), "
+            f"max |d Y| {d_Y:.3e}, max |d cost| / max(1, cost) {d_cost:.3e} (<= {tol})")
+        check(same_it and d_Y <= tol and d_cost <= tol,
+              f"{tag}: the card's CG trajectory leaves the CPU's ({name})")
+    s_g = api.summarize(solver(T64.to(dev)))["success_rate"] * 64
+    o_c = solver(T64)
+    check(o_c["Y"].device.type == "cpu", f"{tag}: the CPU call ran on {o_c['Y'].device}")
+    s_c = api.summarize(o_c)["success_rate"] * 64
+    log(f"[14] {tag} 64 goals: successes on the card {s_g:.0f}, on the CPU {s_c:.0f} "
+        f"(|d| <= {CG_CARD_CPU_GOALS})")
+    check(abs(s_g - s_c) <= CG_CARD_CPU_GOALS, f"{tag}: card and CPU success differ")
+    log(f"[14] {tag}: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"path": tag, "B": B_CG, "prepare_ms": (t1 - t0) * 1e3, "solve_ms": (t2 - t1) * 1e3,
+            "finish_ms": (t3 - t2) * 1e3, "solves_per_s": B_CG / wall,
+            "success": summ["success_rate"], "mean_iterations": float(it.mean()),
+            "host_reads_solve": reads, "launches_solve": k_s, "busy_solve": busy_s / ((t2 - t1) * 1e3),
+            "card_vs_cpu_successes": [s_g, s_c], "card_vs_cpu_trajectory": traj}
 
 
 def main() -> int:
@@ -844,9 +1047,17 @@ def main() -> int:
                                n_tree, 3 * B_TREE, restarts=3, lanes_bitwise=3 * B_TREE,
                                success=[c[3]["success_rate"] for c in calls_tree]))
 
-    # ---- phases 11-12: dense CIDGIK (no hand-written kernel on this path) ----
-    cidgik_paths = cidgik_phases(dev, gen, [("ur10_cidgik", "11", ps, B_CIDGIK, CIDGIK_UR10),
-                                            ("ur10_table_cidgik", "12", ps_t, B_CIDGIK_TABLE, {})])
+    # ---- phases 11-13: dense and sparse CIDGIK (no hand-written kernel) ----
+    cidgik_paths = cidgik_phases(dev, gen, [
+        ("ur10_cidgik", "11", ps, B_CIDGIK, CIDGIK_UR10, False),
+        ("ur10_table_cidgik", "12", ps_t, B_CIDGIK_TABLE, {}, False)])
+    t_new = time.perf_counter()
+    cidgik_paths += cidgik_phases(dev, gen, [
+        ("ur10_cidgik_sparse", "13", ps, B_CIDGIK, CIDGIK_UR10, True)])
+
+    # ---- phase 14: Riemannian CG on UR10 (no hand-written kernel) ----
+    cg_path = cg_phase(dev, gen, ps, polish)
+    log(f"[14] phases 13 and 14 took {time.perf_counter() - t_new:.1f} s")
 
     # Bounds: counted from the shapes and, for the TR kernels, from the
     # iteration counts of the runs that were timed. No single PyTorch call
@@ -862,7 +1073,7 @@ def main() -> int:
                    B_MAIN * (3 * N * d + E) * 4)
     shape_tr = tr_solve.kernel_shape(ep, B_MAIN, d)
     shape_ta = tr_solve.kernel_shape(ep_t, B_MAIN, 3)
-    log(f"[13] TR launch shapes at B={B_MAIN}: UR10 {shape_tr}; table {shape_ta}")
+    log(f"[kernels] TR launch shapes at B={B_MAIN}: UR10 {shape_tr}; table {shape_ta}")
     record = {"kernels": [
         {"name": "tr_solve", "route": "cuda", "source": "graphik_tpu_torch/csrc/tr_solve.cu",
          "replaces": "graphik_tpu/ops/tr_pallas.py:59", "launches": launches,
@@ -893,7 +1104,8 @@ def main() -> int:
          "bound_ms": b_hess[0], "bound_by": b_hess[1], "library_ms": None,
          "at": f"UR10, B={B_MAIN}"},
     ]}
-    log(f"[13] CIDGIK paths: {json.dumps(cidgik_paths)}")
+    log(f"[11-13] CIDGIK paths: {json.dumps(cidgik_paths)}")
+    log(f"[14] CG path: {json.dumps(cg_path)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(f"card: {smi}")

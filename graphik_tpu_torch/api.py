@@ -1,9 +1,10 @@
-"""High-level IK API: batched IK solves with the Riemannian solver.
+"""High-level IK API: batched IK solves with the Riemannian solvers.
 
 Port of graphik_tpu/api.py for 3D revolute robots, with or without
 spherical obstacles, and for planar robots. The pipeline runs eagerly in
 three stages - prepare (goal anchors, bound smoothing, MDS init), solve
-(the TR kernel), finish (joint recovery, FK validation, pose error, LM
+(the TR kernel, or the eager conjugate-gradient solver with CGParams),
+finish (joint recovery, FK validation, pose error, LM
 polish, keep-the-better) - on the goals' device: goals given as a torch
 tensor stay where the caller put them, and goals with no device (numpy
 arrays) go to the solver's
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -28,7 +29,7 @@ from graphik_tpu_torch.robots import kinematics
 from graphik_tpu_torch.solvers import local as local_solver
 from graphik_tpu_torch.solvers import riemannian
 from graphik_tpu_torch.solvers.local import LocalParams
-from graphik_tpu_torch.solvers.riemannian import TRParams
+from graphik_tpu_torch.solvers.riemannian import CGParams, TRParams
 from graphik_tpu_torch.utils import lie
 
 
@@ -59,24 +60,28 @@ def pose_error(structure: ProblemStructure, q, T_goal):
 
 
 def solve_reduced(structure, Y0, D_goal, omega_np, psi_L, psi_U,
-                  params: TRParams = TRParams(), use_limits: bool = True):
+                  params: Union[TRParams, CGParams] = TRParams(), use_limits: bool = True):
     """Riemannian solve with the anchored-obstacle reduction.
 
-    Obstacle nodes have constant positions, so they leave the variable set
-    and their bound edges become anchored hinge terms. Y0 and D_goal may be
-    reduced (Nr nodes) or full-graph. The returned Y is padded back to the
-    full node count with the obstacle positions.
+    The params' type selects the solver: TRParams the trust region
+    (riemannian.solve), CGParams the conjugate gradient
+    (riemannian.solve_cg). Obstacle nodes have constant positions, so they
+    leave the variable set and their bound edges become anchored hinge
+    terms. Y0 and D_goal may be reduced (Nr nodes) or full-graph. The
+    returned Y is padded back to the full node count with the obstacle
+    positions.
     """
+    solve_fn = riemannian.solve_cg if isinstance(params, CGParams) else riemannian.solve
     spec = structure.reduced_spec()
     if spec is None:
-        return riemannian.solve(
+        return solve_fn(
             Y0, D_goal, omega_np,
             psi_L if use_limits else None,
             psi_U if use_limits else None,
             params=params,
         )
     Nr = spec["Nr"]
-    sol = riemannian.solve(
+    sol = solve_fn(
         Y0[..., :Nr, :],
         D_goal[..., :Nr, :Nr],
         omega_np[:Nr, :Nr],
@@ -122,7 +127,7 @@ class Solver:
     stages one by one (prepare -> solve -> finish) to time them."""
 
     structure: ProblemStructure
-    params: TRParams = TRParams()
+    params: Union[TRParams, CGParams] = TRParams()
     use_limits: bool = True
     dtype: Optional[torch.dtype] = None
     limit_tol: float = 1e-6
@@ -188,24 +193,26 @@ class Solver:
         return self.finish(self.solve(Y0, D_goal), T_goal)
 
 
-def make_solver(structure: ProblemStructure, params: TRParams = TRParams(),
+def make_solver(structure: ProblemStructure, params: Union[TRParams, CGParams] = TRParams(),
                 use_limits: bool = True, dtype=None, limit_tol: float = 1e-6,
                 polish: bool = True, polish_params: Optional[LocalParams] = None,
                 smooth_iters: Optional[int] = None, device=None) -> Solver:
     """A batched solver for `structure`: solver(T_goal) -> dict of
     per-instance q, Y, e_pos, e_rot, limit_violation, success, cost,
-    gradnorm, iterations, num_inner. A tensor T_goal runs on its own
-    device; goals with no device run on `device` (None: the card, which
-    raises when there is none)."""
+    gradnorm, iterations, num_inner. params: TRParams for the trust-region
+    solver, CGParams for the conjugate-gradient one. A tensor T_goal runs
+    on its own device; goals with no device run on `device` (None: the
+    card, which raises when there is none)."""
     return Solver(structure, params, use_limits, dtype, limit_tol, polish,
                   polish_params, smooth_iters, device)
 
 
-def solve_ik(structure: ProblemStructure, T_goal, params: TRParams = TRParams(),
+def solve_ik(structure: ProblemStructure, T_goal, params: Union[TRParams, CGParams] = TRParams(),
              use_limits: bool = True, Y_init=None, dtype=None, limit_tol: float = 1e-6,
              polish: bool = True, polish_params: Optional[LocalParams] = None,
              smooth_iters: Optional[int] = None, device=None):
-    """One-shot batched IK solve.
+    """One-shot batched IK solve (TRParams: trust region, CGParams:
+    conjugate gradient).
 
     Y_init: optional (..., N, d) or (..., Nr, d) initialization, broadcast
     over the batch; the default is the bound-smoothing MDS init. device: as

@@ -48,3 +48,14 @@ def cidgik_from_numpy(fields: dict):
     if not isinstance(f["structure"], ProblemStructure):
         f["structure"] = structure_from_numpy(f["structure"])
     return CidgikCompiled(**f)
+
+
+def cidgik_sparse_from_numpy(fields: dict):
+    """Build the port's CidgikSparseCompiled from a field dict (its
+    `structure` given as a ProblemStructure or as a dict of its fields)."""
+    from graphik_tpu_torch.solvers.cidgik_sparse import CidgikSparseCompiled
+
+    f = {k: _copy(v) for k, v in fields.items()}
+    if not isinstance(f["structure"], ProblemStructure):
+        f["structure"] = structure_from_numpy(f["structure"])
+    return CidgikSparseCompiled(**f)

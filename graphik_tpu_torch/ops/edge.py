@@ -216,6 +216,10 @@ def cost_and_egrad(ep: EdgeProblem, Y, dgoal_e):
     return f, g
 
 
+def egrad(ep: EdgeProblem, Y, dgoal_e):
+    return cost_and_egrad(ep, Y, dgoal_e)[1]
+
+
 def residual_max(ep: EdgeProblem, Y, dgoal_e):
     """Max relative edge residual: |D_goal - D| over the edge's squared
     length, hinge violations over their bound, floored at the mean

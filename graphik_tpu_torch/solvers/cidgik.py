@@ -399,13 +399,19 @@ def _sym_eigh(W):
     return torch.linalg.eigh(0.5 * (W + W.transpose(-1, -2)))
 
 
-def _cone_project(W, t, lo, hi, params):
-    """PSD x box projection of (W, t)."""
+def _cone_project(W, t, lo, hi, params, pad_mask=None):
+    """PSD x box projection of (W, t). W may stack blocks (..., s, s), each
+    projected on its own; pad_mask (a 0/1 tensor broadcast against W) zeroes
+    padded rows and columns before and after the projection."""
+    if pad_mask is not None:
+        W = W * pad_mask
     if params.cone_ns_iters:
         Wp = psd_project_ns(W, iters=params.cone_ns_iters)
     else:
         lam, Q = _sym_eigh(W)
         Wp = (Q * torch.clamp(lam, min=0.0)[..., None, :]) @ Q.transpose(-1, -2)
+    if pad_mask is not None:
+        Wp = Wp * pad_mask
     return Wp, torch.clamp(t, min=lo, max=hi)
 
 
@@ -416,7 +422,8 @@ def _run_admm(step, state, res, iters, running_of):
     lane (B,) or for the batch (). A step is kept only where the flag, taken
     from the previous residual, is set (res starts at inf), so the result
     is a while_loop's; the host reads the flag every SYNC_EVERY steps.
-    Each step taken adds one to `solve_cidgik.admm_steps`.
+    Each step taken adds one to `solve_cidgik.admm_steps` (the sparse
+    solver's steps too).
     """
     running = running_of(res)
     for k in range(iters):
@@ -430,22 +437,30 @@ def _run_admm(step, state, res, iters, running_of):
     return state
 
 
-def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params):
+def _per_lane(v, like):
+    """A per-lane (B,) tensor shaped to broadcast against `like` (B, ...)."""
+    return v.reshape(v.shape + (1,) * (like.ndim - v.ndim))
+
+
+def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params, pad_mask=None):
     """One linear-cost SDP per instance by two-block ADMM (the vmap engine).
 
-    Batched over the leading dim B: A_eq (B, m_eq, s, s), A_in (B, m_in, s, s),
-    C, Z0 (B, s, s), t0 (B, m_in), U0 = (Uz, ut). Splitting: P = (Z, t) with
-    the affine set {A_eq(Z) = b, A_in(Z) - t = 0} and the cone PSD x
-    [lo, hi]; the affine projection solves with the Cholesky of the
+    Batched over the leading dim B: A_eq (B, m_eq, *z), A_in (B, m_in, *z),
+    C, Z0 (B, *z), t0 (B, m_in), U0 = (Uz, ut), where z is (s, s), or
+    (K, ds, ds) for the sparse solver's stacked clique blocks (its cone is
+    their product, with `pad_mask` as in _cone_project). Splitting: P =
+    (Z, t) with the affine set {A_eq(Z) = b, A_in(Z) - t = 0} and the cone
+    PSD x [lo, hi]; the affine projection solves with the Cholesky of the
     constraint Gram, formed once per call. Each lane stops on its own
     primal residual. Returns (Z, t, (Uz, ut), feas).
     """
-    B, m_eq, s = A_eq.shape[0], A_eq.shape[1], A_eq.shape[-1]
+    B, m_eq = A_eq.shape[0], A_eq.shape[1]
     m_in = A_in.shape[1]
     dt, dev = Z0.dtype, Z0.device
-    A_all = torch.cat([A_eq, A_in], dim=1).reshape(B, m_eq + m_in, s * s)
-    A_allT = A_all.transpose(1, 2)
+    zdims = tuple(range(1, Z0.ndim))
     m = m_eq + m_in
+    A_all = torch.cat([A_eq, A_in], dim=1).reshape(B, m, -1)
+    A_allT = A_all.transpose(1, 2)
     eye_m = torch.eye(m, dtype=dt, device=dev)
     Gmm = A_all @ A_allT
     Gmm[:, m_eq:, m_eq:] += eye_m[m_eq:, m_eq:]
@@ -461,27 +476,27 @@ def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params):
         return y
 
     def affine_project(Z, t):
-        v = _bmv(A_all, Z.reshape(B, s * s))
+        v = _bmv(A_all, Z.reshape(B, -1))
         y = solve_gram(v - torch.cat([b_eq, t], dim=1))
-        return Z - _bmv(A_allT, y).reshape(B, s, s), t + y[:, m_eq:]
+        return Z - _bmv(A_allT, y).reshape(Z.shape), t + y[:, m_eq:]
 
     alpha = params.relax
 
     def step(state, k):
         Z, t, Uz, ut, rho_c = state
         # prox of <C,Z> + the affine indicator at (W - U): shift by C/rho
-        Z1, t1 = affine_project(Z - Uz - C / rho_c[:, None, None], t - ut)
+        Z1, t1 = affine_project(Z - Uz - C / _per_lane(rho_c, C), t - ut)
         Zr = alpha * Z1 + (1.0 - alpha) * Z
         tr_ = alpha * t1 + (1.0 - alpha) * t
-        Z2, t2 = _cone_project(Zr + Uz, tr_ + ut, lo, hi, params)
+        Z2, t2 = _cone_project(Zr + Uz, tr_ + ut, lo, hi, params, pad_mask)
         Uz_new = Uz + Zr - Z2
         ut_new = ut + tr_ - t2
-        pri = torch.sqrt(((Z1 - Z2) ** 2).sum(dim=(-2, -1)) + ((t1 - t2) ** 2).sum(-1))
+        pri = torch.sqrt(((Z1 - Z2) ** 2).sum(dim=zdims) + ((t1 - t2) ** 2).sum(-1))
         rho_new = rho_c
         if params.adapt_every:
             # residual balancing; the scaled duals rescale with 1/rho so the
             # unscaled dual variable is continuous
-            dua = rho_c * torch.sqrt(((Z2 - Z) ** 2).sum(dim=(-2, -1)) + ((t2 - t) ** 2).sum(-1))
+            dua = rho_c * torch.sqrt(((Z2 - Z) ** 2).sum(dim=zdims) + ((t2 - t) ** 2).sum(-1))
             up = pri > params.adapt_mu * dua
             down = dua > params.adapt_mu * pri
             if k % params.adapt_every == params.adapt_every - 1:
@@ -490,7 +505,7 @@ def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params):
                     up | down,
                     torch.clamp(rho_c * scale, params.adapt_lo, params.adapt_hi), rho_c)
             adj = rho_c / rho_new
-            Uz_new = Uz_new * adj[:, None, None]
+            Uz_new = Uz_new * _per_lane(adj, Uz_new)
             ut_new = ut_new * adj[:, None]
         return (Z2, t2, Uz_new, ut_new, rho_new), pri
 
@@ -500,7 +515,7 @@ def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params):
                                 lambda r: r > params.admm_tol)
 
     # primal feasibility of the returned cone-feasible iterate
-    v = _bmv(A_all, Z.reshape(B, s * s))
+    v = _bmv(A_all, Z.reshape(B, -1))
     feas = (v[:, :m_eq] - b_eq).abs().amax(-1)
     if m_in:
         vi = v[:, m_eq:]
@@ -627,17 +642,20 @@ def _build_split_operator(comp: CidgikCompiled) -> _SplitOperator:
     return op
 
 
-def _split_aux(op: _SplitOperator, anchors_pos):
-    """Per-solve device data: the static operator in the solve's dtype, the
-    per-instance dynamic rows, their Gram blocks G_sd, G_dd, and the Schur
-    complement's Cholesky factor and explicit inverse.
+def _goal_row_data(op, anchors_pos, As_diag, As_rowvec, same):
+    """The per-instance goal rows of a split operator (dense or sparse): the
+    row data, their Gram blocks G_sd, G_dd and the Schur complement's
+    Cholesky factor and explicit inverse, and the static data in the
+    solve's dtype and device.
 
-    anchors_pos: (B, n_anchor, d); the dtype and device of the solve.
+    op: the operator (g_d, d2_d, lo_d, hi_d, m_eq_d, m_in_d, Linv_ss, G_ss,
+    b_eq_s, lo_s, hi_s); As_diag (m_s, m_d) and As_rowvec (m_s, m_d, d): the
+    static rows' coefficients at each goal row's diagonal and row-vector
+    entries; same (m_d, m_d): goal-row pairs that stamp the same entries.
+    anchors_pos: (B, n_anchor, d).
     """
     dt, dev = anchors_pos.dtype, anchors_pos.device
-    d = op.As_rowvec.shape[-1]
-    s = math.isqrt(op.A_flat.shape[1])
-    m_s, m_d, m_eq_d = op.m_s, op.m_d, op.m_eq_d
+    m_d, m_eq_d = op.m_d, op.m_eq_d
 
     def const(x):
         return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
@@ -650,12 +668,9 @@ def _split_aux(op: _SplitOperator, anchors_pos):
     lo_d = (const(op.lo_d[m_eq_d:]) - a2[:, m_eq_d:]) / nrm_d[:, m_eq_d:]
     hi_d = (const(op.hi_d[m_eq_d:]) - a2[:, m_eq_d:]) / nrm_d[:, m_eq_d:]
 
-    u_d = np.asarray(op.u_d)
-    G_sd = (const(op.As_diag[:, u_d])[None]
-            - 2.0 * torch.einsum("bjk,ijk->bij", a_d, const(op.As_rowvec[:, u_d, :]))
+    G_sd = (const(As_diag)[None] - 2.0 * torch.einsum("bjk,ijk->bij", a_d, const(As_rowvec))
             ) / nrm_d[:, None, :]  # (B, m_s, m_d)
-    same_u = const(u_d[:, None] == u_d[None, :])
-    G_dd = same_u * (1.0 + 2.0 * a_d @ a_d.transpose(1, 2)) / (nrm_d[:, :, None] * nrm_d[:, None, :])
+    G_dd = const(same) * (1.0 + 2.0 * a_d @ a_d.transpose(1, 2)) / (nrm_d[:, :, None] * nrm_d[:, None, :])
     slack = np.concatenate([np.zeros(m_eq_d), np.ones(op.m_in_d)])
     G_dd = G_dd + torch.diag(const(slack))
 
@@ -668,6 +683,29 @@ def _split_aux(op: _SplitOperator, anchors_pos):
     # precision gets a non-zero schur_info, not an exception for the batch
     Ls, info = torch.linalg.cholesky_ex(S)
     Sinv = torch.cholesky_inverse(Ls)
+    B = anchors_pos.shape[0]
+    return {
+        "a_d": a_d, "nrm_d": nrm_d, "b_d": b_d, "lo_d": lo_d, "hi_d": hi_d,
+        "G_sd": G_sd, "G_dd": G_dd, "Ls_schur": Ls, "Sinv": Sinv, "schur_info": info,
+        "Linv": Linv, "G_ssT": const(op.G_ss.T), "b_eq_s": const(op.b_eq_s),
+        "lo": torch.cat([const(op.lo_s).expand(B, op.m_in_s), lo_d], dim=1),
+        "hi": torch.cat([const(op.hi_s).expand(B, op.m_in_s), hi_d], dim=1),
+    }
+
+
+def _split_aux(op: _SplitOperator, anchors_pos):
+    """Per-solve device data: the static operator in the solve's dtype, the
+    per-instance dynamic rows, their Gram blocks G_sd, G_dd, and the Schur
+    complement's Cholesky factor and explicit inverse.
+
+    anchors_pos: (B, n_anchor, d); the dtype and device of the solve.
+    """
+    d = op.As_rowvec.shape[-1]
+    s = math.isqrt(op.A_flat.shape[1])
+    m_d = op.m_d
+    u_d = np.asarray(op.u_d)
+    aux = _goal_row_data(op, anchors_pos, op.As_diag[:, u_d], op.As_rowvec[:, u_d, :],
+                         u_d[:, None] == u_d[None, :])
 
     # The dynamic rows' reads of Z (Z[d+u, d+u], Z[d+u, :d]) and writes to
     # dZ (the same entries and their transposes), as 0/1 matrices over the
@@ -684,15 +722,54 @@ def _split_aux(op: _SplitOperator, anchors_pos):
         P_sym[k, j, j * s + d + u_d] += 1.0
     A_ext = np.concatenate([op.A_flat, P_diag, P_row.reshape(-1, s * s)])
     A_adj = np.concatenate([op.A_flat, P_diag, P_sym.reshape(-1, s * s)])
-    B = anchors_pos.shape[0]
-    return {
-        "a_d": a_d, "nrm_d": nrm_d, "b_d": b_d, "lo_d": lo_d, "hi_d": hi_d,
-        "G_sd": G_sd, "G_dd": G_dd, "Ls_schur": Ls, "Sinv": Sinv, "schur_info": info,
-        "A_extT": const(A_ext.T), "A_adj": const(A_adj), "Linv": Linv, "G_ssT": const(op.G_ss.T),
-        "b_eq_s": const(op.b_eq_s),
-        "lo": torch.cat([const(op.lo_s).expand(B, op.m_in_s), lo_d], dim=1),
-        "hi": torch.cat([const(op.hi_s).expand(B, op.m_in_s), hi_d], dim=1),
-    }
+    dt, dev = anchors_pos.dtype, anchors_pos.device
+    aux["A_extT"] = torch.as_tensor(A_ext.T, dtype=dt, device=dev)
+    aux["A_adj"] = torch.as_tensor(A_adj, dtype=dt, device=dev)
+    return aux
+
+
+def _gram_solver(aux, refine_steps: int):
+    """solve_gram(r_s, r_d) -> (y_s, y_d): the full Gram system of a split
+    operator, by block elimination through the Schur complement, plus
+    `refine_steps` rounds of iterative refinement. aux: _goal_row_data's."""
+    G_sd, G_dd, Sinv = aux["G_sd"], aux["G_dd"], aux["Sinv"]
+    G_sdT = G_sd.transpose(1, 2)
+    Linv, G_ssT = aux["Linv"], aux["G_ssT"]
+    LinvT = Linv.T
+
+    def gss_inv(r):  # G_ss^-1 r: two products with the shared factor
+        return (r @ LinvT) @ Linv
+
+    def gram_solve(r_s, r_d):
+        z_s = gss_inv(r_s)
+        y_d = _bmv(Sinv, r_d - _bmv(G_sdT, z_s))
+        return gss_inv(r_s - _bmv(G_sd, y_d)), y_d
+
+    def solve_gram(r_s, r_d):
+        y_s, y_d = gram_solve(r_s, r_d)
+        for _ in range(refine_steps):
+            # residual of the full Gram system, then one more solve
+            e_s = r_s - (y_s @ G_ssT + _bmv(G_sd, y_d))
+            e_d = r_d - (_bmv(G_sdT, y_s) + _bmv(G_dd, y_d))
+            dy_s, dy_d = gram_solve(e_s, e_d)
+            y_s, y_d = y_s + dy_s, y_d + dy_d
+        return y_s, y_d
+
+    return solve_gram
+
+
+def _split_feas(op, v_s, v_d, lo, hi):
+    """Primal feasibility of a split solve's returned iterate from the raw
+    constraint values (b subtracted on the equality rows only): the largest
+    equality residual or bound violation."""
+    feas = v_s[:, :op.m_eq_s].abs().amax(-1)
+    if op.m_eq_d:
+        feas = torch.maximum(feas, v_d[:, :op.m_eq_d].abs().amax(-1))
+    if lo.shape[1]:
+        v_in = torch.cat([v_s[:, op.m_eq_s:], v_d[:, op.m_eq_d:]], dim=1)
+        vio = torch.clamp(lo - v_in, min=0.0) + torch.clamp(v_in - hi, min=0.0)
+        feas = torch.maximum(feas, vio.amax(-1))
+    return feas
 
 
 def _solve_sdp_admm_split(op: _SplitOperator, aux, C, Z0, t0, U0, params, d: int):
@@ -706,16 +783,11 @@ def _solve_sdp_admm_split(op: _SplitOperator, aux, C, Z0, t0, U0, params, d: int
     m_s, m_eq_s, m_in_s = op.m_s, op.m_eq_s, op.m_in_s
     m_d, m_eq_d = op.m_d, op.m_eq_d
     a_d, nrm_d, b_d = aux["a_d"], aux["nrm_d"], aux["b_d"]
-    G_sd, G_dd, Sinv = aux["G_sd"], aux["G_dd"], aux["Sinv"]
-    G_sdT = G_sd.transpose(1, 2)
-    Linv, G_ssT, lo, hi = aux["Linv"], aux["G_ssT"], aux["lo"], aux["hi"]
-    LinvT = Linv.T
+    lo, hi = aux["lo"], aux["hi"]
     A_extT, A_adj = aux["A_extT"], aux["A_adj"]
     b_eq_s = aux["b_eq_s"].expand(B, m_eq_s)
     b_eq_d = b_d[:, :m_eq_d]
-
-    def gss_inv(r):  # G_ss^-1 r: two products with the shared factor
-        return (r @ LinvT) @ Linv
+    solve_gram = _gram_solver(aux, params.refine_steps)
 
     def apply_A(Z, t):
         """Residuals r = [A(Z) - b; A_in(Z) - t], ordered [eq_s | in_s] and
@@ -726,21 +798,6 @@ def _solve_sdp_admm_split(op: _SplitOperator, aux, C, Z0, t0, U0, params, d: int
         v_d = (V[:, m_s:m_s + m_d] - 2.0 * (a_d * row_v).sum(-1)) / nrm_d
         # b_d is 0 on the in rows, where the slack is subtracted instead
         return r_s, v_d - torch.cat([b_eq_d, t[:, m_in_s:]], dim=1)
-
-    def gram_solve(r_s, r_d):  # block elimination through the Schur complement
-        z_s = gss_inv(r_s)
-        y_d = _bmv(Sinv, r_d - _bmv(G_sdT, z_s))
-        return gss_inv(r_s - _bmv(G_sd, y_d)), y_d
-
-    def solve_gram(r_s, r_d):
-        y_s, y_d = gram_solve(r_s, r_d)
-        for _ in range(params.refine_steps):
-            # residual of the full Gram system, then one more solve
-            e_s = r_s - (y_s @ G_ssT + _bmv(G_sd, y_d))
-            e_d = r_d - (_bmv(G_sdT, y_s) + _bmv(G_dd, y_d))
-            dy_s, dy_d = gram_solve(e_s, e_d)
-            y_s, y_d = y_s + dy_s, y_d + dy_d
-        return y_s, y_d
 
     def adjoint(y_s, y_d):
         """dZ = sum_m y_m A_m, and the slack part +y on the in rows."""
@@ -773,14 +830,7 @@ def _solve_sdp_admm_split(op: _SplitOperator, aux, C, Z0, t0, U0, params, d: int
     # primal feasibility of the returned cone-feasible iterate: with t = 0,
     # apply_A gives the raw constraint values (b subtracted on eq rows only)
     v_s, v_d = apply_A(Z, torch.zeros_like(t))
-    feas = v_s[:, :m_eq_s].abs().amax(-1)
-    if m_eq_d:
-        feas = torch.maximum(feas, v_d[:, :m_eq_d].abs().amax(-1))
-    if t.shape[1]:
-        v_in = torch.cat([v_s[:, m_eq_s:], v_d[:, m_eq_d:]], dim=1)
-        vio = torch.clamp(lo - v_in, min=0.0) + torch.clamp(v_in - hi, min=0.0)
-        feas = torch.maximum(feas, vio.amax(-1))
-    return Z, t, (Uz, ut), feas
+    return Z, t, (Uz, ut), _split_feas(op, v_s, v_d, lo, hi)
 
 
 def _fantope(Z, d):
@@ -852,6 +902,58 @@ def _extract_joints(ps, comp, points, T_goal):
         return ps.joint_variables(P, Tg), T_base
     eye = torch.eye(4, dtype=points.dtype, device=points.device)
     return ps.joint_variables(points, T_goal), eye.expand(points.shape[:-2] + (4, 4)).clone()
+
+
+# ---------------------------------------------------------------------------
+# The convex iteration
+# ---------------------------------------------------------------------------
+
+def _rounds(params: CidgikParams, engine: str):
+    """Each round's ADMM parameters: the split engine's (long, short)
+    schedule - round 0 solves cold, the warm-started rounds reuse the
+    primal / dual point and run admm_iters_rest - or admm_iters in every
+    round of the vmap engine."""
+    rest = params
+    if engine == "split" and params.admm_iters_rest is not None:
+        rest = dataclasses.replace(params, admm_iters=params.admm_iters_rest)
+    return [params] + [rest] * (params.max_outer - 1)
+
+
+def _convex_iteration(admm, fantope, rounds, Z, C, lo, hi, params: CidgikParams):
+    """The rounds of the convex iteration (dense or sparse): an ADMM solve
+    of min <C, Z> from the previous round's point, then the Fantope step's
+    new C and excess-rank sum. A lane is done once its cost stops changing
+    (abs_tol, rel_tol) or reaches abs_tol, and keeps its state from then on.
+
+    admm(C, Z, t, U, round_params) -> (Z, t, U, feas); fantope(Z) ->
+    (C, eig_sum). Returns (Z, feas, eig_sum), batched over Z's first dim.
+    """
+    B, dt, dev = Z.shape[0], Z.dtype, Z.device
+    zdims = tuple(range(1, Z.ndim))
+    t = torch.clamp(torch.zeros_like(lo), min=lo, max=hi)
+    U = (torch.zeros_like(Z), torch.zeros_like(t))
+    last_cost = torch.full((B,), 1e6, dtype=dt, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    feas = torch.full((B,), math.inf, dtype=dt, device=dev)
+    eig_sum = torch.full((B,), math.inf, dtype=dt, device=dev)
+    for r, round_params in enumerate(rounds):
+        if r and bool(done.all()):  # every lane is frozen: the rest change nothing
+            break
+        Z_new, t_new, U_new, feas_new = admm(C, Z, t, U, round_params)
+        C_new, eig_new = fantope(Z_new)
+        cost = (C * Z_new).sum(dim=zdims)
+        change = (last_cost - cost).abs()
+        rel = change / torch.clamp(last_cost.abs(), min=1e-30)
+        # lanes done before this round keep their state
+        go = ~done
+        Z, t = _select(go, Z_new, Z), _select(go, t_new, t)
+        U = (_select(go, U_new[0], U[0]), _select(go, U_new[1], U[1]))
+        C = _select(go, C_new, C)
+        last_cost = _select(go, cost, last_cost)
+        feas = _select(go, feas_new, feas)
+        eig_sum = _select(go, eig_new, eig_sum)
+        done = done | (change <= params.abs_tol) | (cost <= params.abs_tol) | (rel < params.rel_tol)
+    return Z, feas, eig_sum
 
 
 # ---------------------------------------------------------------------------
@@ -956,45 +1058,17 @@ def solve_cidgik(comp: CidgikCompiled, T_goal, params: CidgikParams = CidgikPara
         op = _build_split_operator(comp)
         aux = _split_aux(op, anc)
         lo, hi = aux["lo"], aux["hi"]
-        rest = params
-        if params.admm_iters_rest is not None:
-            rest = dataclasses.replace(params, admm_iters=params.admm_iters_rest)
-        # (long, short) schedule: round 0 solves cold; the warm-started
-        # rounds reuse the primal / dual point
-        rounds = [params] + [rest] * (params.max_outer - 1)
 
         def admm(C, Z, t, U, round_params):
             return _solve_sdp_admm_split(op, aux, C, Z, t, U, round_params, d)
     else:
         A_eq, b_eq, A_in, lo, hi = _constraint_matrices(comp, anc)
-        rounds = [params] * params.max_outer
 
         def admm(C, Z, t, U, round_params):
             return _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z, t, U, round_params)
 
-    t = torch.clamp(torch.zeros_like(lo), min=lo, max=hi)
-    U = (torch.zeros_like(Z), torch.zeros_like(t))
-    last_cost = torch.full((B,), 1e6, dtype=dt, device=dev)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    feas = torch.full((B,), math.inf, dtype=dt, device=dev)
-    eig_sum = torch.full((B,), math.inf, dtype=dt, device=dev)
-    for r, round_params in enumerate(rounds):
-        if r and bool(done.all()):  # every lane is frozen: the rest change nothing
-            break
-        Z_new, t_new, U_new, feas_new = admm(C, Z, t, U, round_params)
-        C_new, eig_new = _fantope(Z_new, d)
-        cost = (C * Z_new).sum(dim=(-2, -1))
-        change = (last_cost - cost).abs()
-        rel = change / torch.clamp(last_cost.abs(), min=1e-30)
-        # lanes done before this round keep their state
-        go = ~done
-        Z, t = _select(go, Z_new, Z), _select(go, t_new, t)
-        U = (_select(go, U_new[0], U[0]), _select(go, U_new[1], U[1]))
-        C = _select(go, C_new, C)
-        last_cost = _select(go, cost, last_cost)
-        feas = _select(go, feas_new, feas)
-        eig_sum = _select(go, eig_new, eig_sum)
-        done = done | (change <= params.abs_tol) | (cost <= params.abs_tol) | (rel < params.rel_tol)
+    Z, feas, eig_sum = _convex_iteration(admm, lambda Z: _fantope(Z, d),
+                                         _rounds(params, engine), Z, C, lo, hi, params)
 
     points = pos_all.reshape(B, ps.N, d).clone()
     points[:, torch.as_tensor(comp.free_idx, device=dev), :] = Z[:, d:, :d]

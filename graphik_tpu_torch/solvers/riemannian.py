@@ -1,16 +1,22 @@
-"""Batched Riemannian trust-region solver over the rank-d PSD quotient manifold.
+"""Batched Riemannian solvers over the rank-d PSD quotient manifold.
 
-Port of graphik_tpu/solvers/riemannian.py (the TR path). A point is Y in
-R^{N x d} representing the Gram matrix Y Y^T; the horizontal projection
-solves a Lyapunov system reduced to d(d-1)/2 unknowns; the retraction is
-Y + U. The solve runs on the compiled edge form: the CUDA kernel for f32
-CUDA tensors, the plain torch version of the same loop on the CPU
-(ops/tr_solve.py). The JAX package's "dense" and "edge" XLA backends
-compute the same algorithm and are the parity oracles in the tests.
+Port of graphik_tpu/solvers/riemannian.py. A point is Y in R^{N x d}
+representing the Gram matrix Y Y^T; the horizontal projection solves a
+Lyapunov system reduced to d(d-1)/2 unknowns; the retraction is Y + U.
+
+* Trust region (`solve`, TRParams): runs on the compiled edge form - the
+  CUDA kernel for f32 CUDA tensors, the plain torch version of the same
+  loop on the CPU (ops/tr_solve.py). The JAX package's "dense" and "edge"
+  XLA backends compute the same algorithm and are the parity oracles in the
+  tests.
+* Conjugate gradient (`solve_cg`, CGParams): Hager-Zhang CG with an
+  adaptive Armijo line search, eager batched torch over the dense masked
+  costs (solvers/costs.py) or the edge form (ops/edge.py); no kernel.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional
 
@@ -19,6 +25,7 @@ import torch
 
 from graphik_tpu_torch.ops import edge as edge_ops
 from graphik_tpu_torch.ops.tr_solve import solve_tr
+from graphik_tpu_torch.solvers import costs
 from graphik_tpu_torch.utils import dgp
 
 
@@ -54,6 +61,42 @@ class TRParams:
         """Tuned serving preset: opts into the plateau stop (in float32 the
         gradnorm test almost never fires, so without it every lane burns
         the full maxiter budget)."""
+        base = dict(plateau_every=16)
+        base.update(overrides)
+        return cls(**base)
+
+
+@dataclasses.dataclass(frozen=True)
+class CGParams:
+    """Riemannian conjugate-gradient hyperparameters (the JAX CGParams):
+    Hager-Zhang beta, an adaptive Armijo line search, a Powell restart when
+    successive gradients lose orthogonality (orth_value; the default 1e10
+    effectively never restarts), and gradnorm / stepsize stops.
+
+    plateau_every: the per-lane cost-plateau stop, as TRParams'; 0 disables
+    it, `production()` opts in. backend: "dense" (solvers/costs.py, masked
+    (N, N) algebra) or "edge" (ops/edge.py) cost evaluation.
+    """
+
+    maxiter: int = 1000
+    mingradnorm: Optional[float] = None  # default by dtype: 2e-6 f32, 1e-9 f64
+    minstepsize: float = 1e-10
+    orth_value: float = 1e10
+    # line search
+    ls_contraction: float = 0.5
+    ls_optimism: float = 2.0
+    ls_suff_decr: float = 1e-4
+    ls_maxiter: int = 25
+    ls_initial: float = 1.0
+    plateau_every: int = 0
+    plateau_rtol: float = 1e-4
+    plateau_atol: float = 0.0
+    backend: str = "dense"
+
+    @classmethod
+    def production(cls, **overrides) -> "CGParams":
+        """Tuned serving preset: opts into the plateau stop (see
+        TRParams.production)."""
         base = dict(plateau_every=16)
         base.update(overrides)
         return cls(**base)
@@ -172,3 +215,203 @@ def generate_initialization(lb, ub, omega, dim, generator=None, frac=None):
     X = dgp.mds(G, eps=1e-8)
     omega = torch.as_tensor(np.asarray(omega), device=lb.device)
     return dgp.linear_projection(X, omega, dim)
+
+
+# line searches whose slowest lane sets how many evaluations the next one
+# runs before its first host read
+LS_WINDOW = 16
+
+
+def _inner(a, b):
+    """Per-lane Frobenius inner product of (B, N, d) tensors."""
+    return (a * b).sum(dim=(-2, -1))
+
+
+def _cg_batch(Y0, cost_fn, grad_fn, p: CGParams):
+    """Riemannian CG on a batch of lanes, each with the JAX package's
+    per-instance trajectory (its vmapped while_loops): a finished lane
+    keeps its state; each lane's line search stops on its own condition
+    and counts its own evaluations; the batch runs until every lane is
+    done. Transport is the horizontal projection at the new point (the
+    total space is Euclidean).
+
+    The flags stay on the device. Each line search first runs the least
+    number of evaluations that its slowest lane needed in any of the last
+    LS_WINDOW line searches, a lane that has stopped searching kept as it
+    is by its flag; it then reads whether any lane still searches (and,
+    once an iteration, whether any is still running) after each evaluation.
+    Each read adds one to `solve_cg.host_reads`.
+    """
+    dt, dev = Y0.dtype, Y0.device
+    B = Y0.shape[0]
+    tiny = torch.finfo(dt).tiny
+    mingradnorm = p.mingradnorm
+    if mingradnorm is None:
+        mingradnorm = 1e-9 if dt == torch.float64 else 2e-6
+
+    Y, fx, grad = Y0, cost_fn(Y0), grad_fn(Y0)
+    norm_grad = torch.sqrt(_inner(grad, grad))
+    d = -grad
+    oldalpha = torch.zeros(B, dtype=dt, device=dev)
+    k = torch.zeros(B, dtype=torch.int32, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    fx_ref = fx
+    zero = torch.zeros((), dtype=dt, device=dev)
+    needed = collections.deque(maxlen=LS_WINDOW)  # the slowest lane's evaluations
+
+    def lane(v):
+        return v[:, None, None]
+
+    while True:
+        running = ~done
+        # not a descent direction: restart along the steepest descent
+        df0 = _inner(grad, d)
+        bad = df0 >= 0
+        d = torch.where(lane(bad), -grad, d)
+        df0 = torch.where(bad, -norm_grad ** 2, df0)
+
+        # adaptive Armijo backtracking, each lane on its own condition
+        norm_d = torch.sqrt(_inner(d, d))
+        alpha = torch.where(oldalpha > 0, oldalpha,
+                            p.ls_initial / torch.clamp(norm_d, min=tiny))
+        newf = cost_fn(Y + lane(alpha) * d)
+        evals = torch.ones(B, dtype=torch.int64, device=dev)
+
+        def searching():
+            return running & (newf > fx + p.ls_suff_decr * alpha * df0) & (evals <= p.ls_maxiter)
+
+        def contract():
+            nonlocal alpha, newf, evals, search
+            alpha = torch.where(search, alpha * p.ls_contraction, alpha)
+            newf = torch.where(search, cost_fn(Y + lane(alpha) * d), newf)
+            evals = evals + search
+            search = searching()
+
+        def read(*flags):
+            solve_cg.host_reads += 1
+            return torch.stack([search.sum(), evals.max()] + list(flags)).tolist()
+
+        search = searching()
+        for _ in range(min(needed, default=1) - 1):
+            contract()
+        any_search, n_evals, any_running = read(running.sum())
+        if not any_running:
+            break
+        while any_search:
+            contract()
+            any_search, n_evals = read()
+        needed.append(n_evals)
+        # no decrease at all: reject the step (alpha = 0)
+        alpha = torch.where(newf > fx, zero, alpha)
+        newf = torch.where(alpha > 0, newf, fx)
+        # memory: one contraction keeps alpha, otherwise be optimistic
+        oldalpha_new = torch.where(evals == 2, alpha, p.ls_optimism * alpha)
+        stepsize = alpha * norm_d
+
+        Y_new = Y + lane(alpha) * d
+        g_new = grad_fn(Y_new)
+        norm_g_new = torch.sqrt(_inner(g_new, g_new))
+        # Powell restart when successive gradients lose orthogonality
+        orth = _inner(g_new, grad).abs() / torch.clamp(norm_g_new ** 2, min=tiny)
+        powell = orth >= p.orth_value
+        # Hager-Zhang beta with its robustness floor
+        d_t = manifold_proj(Y_new, d)
+        g_t = manifold_proj(Y_new, grad)
+        diff = g_new - g_t
+        deno = _inner(diff, d_t)
+        nonzero = deno.abs() > 0
+        safe_deno = torch.where(nonzero, deno, torch.ones_like(deno))
+        numo = _inner(diff, g_new) - 2.0 * _inner(diff, diff) * _inner(d_t, g_new) / safe_deno
+        beta = numo / safe_deno
+        norm_dt = torch.sqrt(_inner(d_t, d_t))
+        eta_hz = -1.0 / torch.clamp(norm_dt * torch.clamp(norm_grad, max=0.01), min=tiny)
+        beta = torch.maximum(beta, eta_hz)
+        beta = torch.where(nonzero & ~powell, beta, zero)
+        d_new = -g_new + lane(beta) * d_t
+
+        k_new = k + 1
+        done_new = (norm_g_new < mingradnorm) | (stepsize < p.minstepsize) | (k_new >= p.maxiter)
+        fx_ref_new = fx_ref
+        if p.plateau_every:
+            at_check = (k_new % p.plateau_every) == 0
+            stalled = (fx_ref - newf) <= p.plateau_rtol * newf + p.plateau_atol
+            done_new = done_new | (at_check & stalled)
+            fx_ref_new = torch.where(at_check, newf, fx_ref)
+
+        # a finished lane keeps its state
+        Y = torch.where(lane(running), Y_new, Y)
+        fx = torch.where(running, newf, fx)
+        grad = torch.where(lane(running), g_new, grad)
+        norm_grad = torch.where(running, norm_g_new, norm_grad)
+        d = torch.where(lane(running), d_new, d)
+        oldalpha = torch.where(running, oldalpha_new, oldalpha)
+        k = torch.where(running, k_new, k)
+        fx_ref = torch.where(running, fx_ref_new, fx_ref)
+        done = done | (running & done_new)
+
+    return {"Y": Y, "cost": fx, "gradnorm": norm_grad, "iterations": k,
+            "num_inner": torch.zeros(B, dtype=torch.int32, device=dev)}
+
+
+def solve_cg(
+    Y0,
+    D_goal,
+    omega,
+    psi_L=None,
+    psi_U=None,
+    params: CGParams = CGParams(),
+    anchors=None,
+):
+    """Batched Riemannian conjugate-gradient solve of the EDM completion
+    problem; the same data contract as `solve`.
+
+    Returns dict of per-instance results: Y, cost, gradnorm, iterations,
+    and num_inner, which is all zeros - CG has no inner solver, and the
+    JAX package fills the key with zeros too.
+    """
+    N, d = Y0.shape[-2], Y0.shape[-1]
+    dt, dev = Y0.dtype, Y0.device
+    omega_host = np.asarray(omega, np.float64)
+    if psi_L is None:
+        psi_L_host = psi_U_host = np.zeros((N, N))
+    else:
+        psi_L_host = np.asarray(psi_L, np.float64)
+        psi_U_host = np.asarray(psi_U, np.float64)
+    batch = Y0.shape[:-2]
+    Yf = Y0.reshape((-1, N, d))
+    D = D_goal.to(dt).expand(batch + (N, N)).reshape((-1, N, N))
+
+    if params.backend == "edge":
+        ep = edge_ops.build_edge_problem(omega_host, psi_L_host, psi_U_host, dim=d,
+                                         anchors=anchors)
+        dg_e = ep.edge_values(D)
+
+        def cost_fn(Y):
+            return edge_ops.cost(ep, Y, dg_e)
+
+        def grad_fn(Y):
+            return edge_ops.egrad(ep, Y, dg_e)
+    elif params.backend == "dense":
+        def dev_t(x):
+            return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+        L_mask, U_mask = costs.make_masks(omega_host, psi_L_host, psi_U_host)
+        masks = tuple(dev_t(m) for m in (omega_host, psi_L_host, psi_U_host, L_mask, U_mask))
+        anc = None
+        if anchors is not None:  # on the device once, not at every evaluation
+            anc = {k: dev_t(anchors[k]) for k in ("centers", "psi_L", "psi_U", "L_mask", "U_mask")}
+            anc["idx"] = torch.as_tensor(np.asarray(anchors["idx"]), dtype=torch.long, device=dev)
+
+        def cost_fn(Y):
+            return costs.cost(Y, D, *masks, anc)
+
+        def grad_fn(Y):
+            return costs.egrad(Y, D, *masks, anc)
+    else:
+        raise ValueError(f"unknown CG backend {params.backend!r}")
+
+    out = _cg_batch(Yf, cost_fn, grad_fn, params)
+    return {k: v.reshape(batch + v.shape[1:]) for k, v in out.items()}
+
+
+solve_cg.host_reads = 0

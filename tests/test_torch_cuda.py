@@ -288,3 +288,93 @@ def test_cidgik_card_matches_cpu(cuda, table):
     assert float((o_g["feas"].cpu() - o_c["feas"]).abs().max()) <= 1e-4
     d_pts = (o_g["points"].cpu() - o_c["points"]).abs().flatten(1).amax(1)
     assert int((d_pts <= 1e-3).sum()) >= 15, d_pts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eigh_on_padded_clique_stacks(cuda, dtype):
+    """torch.linalg.eigh on the card (cuSOLVER's batched small-matrix path)
+    on 1024 lanes of UR10's sparse CIDGIK clique blocks (K = 3, ds = 9, the
+    middle block with an exact-zero padded row and column): finite, and
+    eigenvalues within 1e-5 x each block's Frobenius norm of the CPU's
+    float64."""
+    from graphik_tpu_torch.solvers import cidgik_sparse
+
+    tpl, ps = load_ur10()
+    comp = cidgik_sparse.compile_cidgik_sparse(ps)
+    gen = torch.Generator().manual_seed(8)
+    q = api.random_goals(ps, (1024,), gen, dtype=torch.float64, device="cpu")[1]
+    Z = cidgik_sparse.lifted_blocks(comp, ps.realization(q)[:, comp.free_idx])
+    E = 0.05 * torch.randn(Z.shape, generator=gen, dtype=torch.float64)
+    valid = torch.as_tensor(cidgik_sparse._valid_slots(comp.member, comp.d))
+    Z = (Z + E + E.transpose(-1, -2)) * (valid[:, :, None] * valid[:, None, :])
+    assert float(Z[:, 1, -1].abs().max()) == 0.0  # the middle clique's padded row
+    lam, Q = torch.linalg.eigh(Z.to(cuda, dtype))
+    assert bool(torch.isfinite(lam).all() and torch.isfinite(Q).all())
+    ref = torch.linalg.eigvalsh(Z)
+    scale = torch.linalg.matrix_norm(Z)[..., None]
+    assert float(((lam.cpu().double() - ref).abs() / scale).max()) <= 1e-5
+
+
+def test_cidgik_sparse_card_matches_cpu(cuda):
+    """Sparse CIDGIK on 16 goals at a reduced budget (production, ADMM
+    (200, 2 x 100)), float32, on the card and on the CPU from the same numpy
+    goals: status equal on every lane, on each lane |d eig_sum| <= 0.07
+    max(|eig_sum|, 1e-3) and at most 2.5e-3, and |d feas| <= 1e-4
+    (chip_smoke.py's SPARSE_EIG_RTOL, SPARSE_EIG_TOL, FEAS_TOL, with their
+    derivation), points within 1e-3 on at least 15 of 16 lanes."""
+    from graphik_tpu_torch.solvers import cidgik, cidgik_sparse
+
+    ps = load_ur10()[1]
+    comp = cidgik_sparse.compile_cidgik_sparse(ps)
+    params = cidgik.CidgikParams.production(admm_iters=200, admm_iters_rest=100, max_outer=3)
+    T = api.random_goals(ps, (16,), torch.Generator().manual_seed(9), dtype=torch.float32,
+                         device="cpu")[0].numpy()
+    o_g = cidgik_sparse.solve_cidgik_sparse(comp, T, params=params)  # no device: the card
+    o_c = cidgik_sparse.solve_cidgik_sparse(comp, T, params=params, device="cpu")
+    assert o_g["q"].device.type == "cuda" and o_c["q"].device.type == "cpu"
+    assert torch.equal(o_g["status"].cpu(), o_c["status"])
+    d_eig = (o_g["eig_sum"].cpu() - o_c["eig_sum"]).abs()
+    bound = (0.07 * o_c["eig_sum"].abs().clamp(min=1e-3)).clamp(max=2.5e-3)
+    assert bool((d_eig <= bound).all()), (d_eig, o_c["eig_sum"])
+    assert float((o_g["feas"].cpu() - o_c["feas"]).abs().max()) <= 1e-4
+    d_pts = (o_g["points"].cpu() - o_c["points"]).abs().flatten(1).amax(1)
+    assert int((d_pts <= 1e-3).sum()) >= 15, d_pts
+
+
+def test_cg_card_matches_cpu(cuda):
+    """CG on 64 UR10 goals on the card and on the CPU. First solve_cg from
+    the same prepared Y0: at float64, 20 iterations with per-lane plateau
+    and stepsize stops, iterations equal per lane and Y and cost (over
+    max(1, max cost)) within 1e-7; at float32, 5 iterations of the
+    production params, within 1e-4 (chip_smoke.py's CG_TOL64 / CG_TOL32,
+    with their derivation). Then make_solver with CGParams.production(),
+    float32, the UR10 path's polish and smoothing: no TR kernel launch, and
+    success counts within 9 goals (float32 CG trajectories part, so the two
+    runs are two samples: 9 is the 95% limit 1.96 sqrt(2 n p (1 - p)) at
+    n = 64, p = 0.79)."""
+    from graphik_tpu_torch.solvers import riemannian
+    from graphik_tpu_torch.solvers.riemannian import CGParams
+
+    _, ps = load_ur10()
+    solver = api.make_solver(ps, params=CGParams.production(),
+                             polish_params=LocalParams(maxiter=10, tol_grad=1e-8), smooth_iters=2)
+    T = api.random_goals(ps, (64,), torch.Generator().manual_seed(10), dtype=torch.float32,
+                         device="cpu")[0]
+    D, Y0 = solver.prepare(T)
+    for dt, kw, tol in ((torch.float64, dict(maxiter=20, plateau_every=4, plateau_rtol=0.08,
+                                             minstepsize=1e-3), 1e-7),
+                        (torch.float32, dict(maxiter=5), 1e-4)):
+        o_g, o_c = (riemannian.solve_cg(Y0.to(d_, dt), D.to(d_, dt), solver.omega, solver.psi_L,
+                                        solver.psi_U, params=CGParams.production(**kw))
+                    for d_ in (cuda, torch.device("cpu")))
+        assert torch.equal(o_g["iterations"].cpu(), o_c["iterations"]), dt
+        assert float((o_g["Y"].cpu() - o_c["Y"]).abs().max()) <= tol, dt
+        scale = max(1.0, float(o_c["cost"].abs().max()))
+        assert float((o_g["cost"].cpu() - o_c["cost"]).abs().max()) <= tol * scale, dt
+    before = tr_solve.solve_tr_cuda.launches
+    o_g = solver(T.to(cuda))
+    assert tr_solve.solve_tr_cuda.launches == before
+    o_c = solver(T)
+    assert o_g["Y"].device.type == "cuda" and o_c["Y"].device.type == "cpu"
+    s_g, s_c = (api.summarize(o)["success_rate"] * 64 for o in (o_g, o_c))
+    assert abs(s_g - s_c) <= 9, (s_g, s_c)

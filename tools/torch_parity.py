@@ -12,11 +12,18 @@ one configuration at its bench parameters, float32:
     ur10_table_restarts2: production(250, 32), as above;
     tree_restarts3: the 5-joint, two-end-effector tree of tests/test_trees.py,
         3 restarts, production(maxiter=300), the default polish and smoothing;
-  dense CIDGIK (solvers/cidgik.py, the bench's path: solve_cidgik, then
-  pose_error, check_distance_limits and polish_solution's 30-step LM):
-    ur10_cidgik: UR10, CidgikParams.production(admm_iters=700,
-        admm_iters_rest=300);
-    ur10_table_cidgik: UR10 + the table, CidgikParams.production().
+  Riemannian conjugate gradient (api.make_solver with CGParams, the dense
+  cost backend):
+    ur10_cg: UR10, CGParams.production(), 10-step polish, 2-squaring
+        smoothing;
+  CIDGIK (the bench's path: solve_cidgik, then pose_error,
+  check_distance_limits and polish_solution's 30-step LM):
+    ur10_cidgik: UR10, dense (solvers/cidgik.py),
+        CidgikParams.production(admm_iters=700, admm_iters_rest=300);
+    ur10_table_cidgik: UR10 + the table, dense, CidgikParams.production();
+    ur10_cidgik_sparse: UR10, sparse (solvers/cidgik_sparse.py,
+        solve_cidgik_sparse), CidgikParams.production(admm_iters=700,
+        admm_iters_rest=300).
 
 Two halves, because the machine with the GPU has no JAX:
 
@@ -94,6 +101,11 @@ CONFIGS = {
     "ur10_cidgik": dict(robot="ur10", restarts=0, seed=50,
                         cidgik=dict(admm_iters=700, admm_iters_rest=300)),
     "ur10_table_cidgik": dict(robot="ur10_table", restarts=0, seed=51, cidgik={}),
+    # sparse CIDGIK at the bench's parameters (bench.py:398-400,518-524)
+    "ur10_cidgik_sparse": dict(robot="ur10", restarts=0, seed=52, sparse=True,
+                               cidgik=dict(admm_iters=700, admm_iters_rest=300)),
+    # UR10's production path with the solver switched to CG (its dense backend)
+    "ur10_cg": dict(BENCH, robot="ur10", restarts=0, seed=53, cg=True, backend="dense"),
 }
 
 
@@ -132,18 +144,24 @@ def two_sample_limit(n, k_a, k_b):
     return 1.96 * math.sqrt(2 * n * p * (1 - p))
 
 
-def cidgik_path(api, cidgik, ps, T_goal, overrides, stage=lambda f: f):
+def cidgik_path(api, cidgik, ps, T_goal, overrides, stage=lambda f: f, sparse=None):
     """The bench's CIDGIK path in either package (their functions share
-    names and signatures): solve_cidgik at CidgikParams.production(
+    names and signatures): solve_cidgik (with `sparse`, the package's
+    cidgik_sparse module: solve_cidgik_sparse) at CidgikParams.production(
     **overrides), then the finish stage - the raw pose error,
     check_distance_limits of the realization, and polish_solution's 30-step
     LM. `stage` wraps each of the two stages (jax.jit for JAX). Returns
     numpy (e_pos0, e_rot0, e_pos, e_rot, ok, eig_sum, feas)."""
-    comp = cidgik.compile_cidgik(ps)
     params = cidgik.CidgikParams.production(**overrides)
+    if sparse is None:
+        comp = cidgik.compile_cidgik(ps)
+        solve = cidgik.solve_cidgik
+    else:
+        comp = sparse.compile_cidgik_sparse(ps)
+        solve = sparse.solve_cidgik_sparse
 
     def admm(Tg):
-        out = cidgik.solve_cidgik(comp, Tg, params=params)
+        out = solve(comp, Tg, params=params)
         return out["q"], out["eig_sum"], out["feas"]
 
     def finish(q0, Tg):
@@ -167,8 +185,11 @@ def cidgik_summary(out):
                      "median_feas": float(np.median(feas))}
 
 
-def solver_kwargs(cfg, TRParams, LocalParams):
-    kw = dict(params=TRParams.production(maxiter=cfg["maxiter"], maxinner=cfg["maxinner"]))
+def solver_kwargs(cfg, TRParams, LocalParams, CGParams):
+    if cfg.get("cg"):
+        kw = dict(params=CGParams.production())
+    else:
+        kw = dict(params=TRParams.production(maxiter=cfg["maxiter"], maxinner=cfg["maxinner"]))
     if cfg["polish"] is not None:
         kw["polish_params"] = LocalParams(maxiter=cfg["polish"], tol_grad=1e-8)
     if cfg["smooth"] is not None:
@@ -187,7 +208,7 @@ def run_jax(args):
     from graphik_tpu.parallel.mesh import make_restart_solver
     from graphik_tpu.robots import kinematics, library
     from graphik_tpu.solvers.local import LocalParams
-    from graphik_tpu.solvers.riemannian import TRParams
+    from graphik_tpu.solvers.riemannian import CGParams, TRParams
     from graphik_tpu.utils.environments import table_environment
 
     cfg = CONFIGS[args.config]
@@ -202,14 +223,15 @@ def run_jax(args):
     t0 = time.perf_counter()
     fracs, extra = {}, {}
     if "cidgik" in cfg:
-        from graphik_tpu.solvers import cidgik
+        from graphik_tpu.solvers import cidgik, cidgik_sparse
 
         backend = "cidgik"
-        out = cidgik_path(api, cidgik, ps, jnp.asarray(T_goal), cfg["cidgik"], stage=jax.jit)
+        out = cidgik_path(api, cidgik, ps, jnp.asarray(T_goal), cfg["cidgik"], stage=jax.jit,
+                          sparse=cidgik_sparse if cfg.get("sparse") else None)
         outs = [dict(zip(("e_pos", "e_rot", "success"), out[2:5]))]
         extra = cidgik_summary(out)[1]
     else:
-        kw = solver_kwargs(cfg, TRParams, LocalParams)
+        kw = solver_kwargs(cfg, TRParams, LocalParams, CGParams)
         backend = args.backend or cfg.get("backend", "pallas")
         kw["params"] = dataclasses.replace(kw["params"], backend=backend)
     if cfg["restarts"]:
@@ -261,7 +283,7 @@ def run_torch(args):
     from graphik_tpu_torch.parallel.mesh import make_restart_solver
     from graphik_tpu_torch.robots import library
     from graphik_tpu_torch.solvers.local import LocalParams
-    from graphik_tpu_torch.solvers.riemannian import TRParams
+    from graphik_tpu_torch.solvers.riemannian import CGParams, TRParams
     from graphik_tpu_torch.utils.environments import table_environment
 
     dev = torch.device(args.device)
@@ -281,13 +303,15 @@ def run_torch(args):
     t0 = time.perf_counter()
     stats, iters = {}, None
     if "cidgik" in cfg:
-        from graphik_tpu_torch.solvers import cidgik
+        from graphik_tpu_torch.solvers import cidgik, cidgik_sparse
 
-        ok_c, port_stats = cidgik_summary(cidgik_path(api, cidgik, ps, T_goal, cfg["cidgik"]))
+        ok_c, port_stats = cidgik_summary(cidgik_path(
+            api, cidgik, ps, T_goal, cfg["cidgik"],
+            sparse=cidgik_sparse if cfg.get("sparse") else None))
         stats = {"jax_stats": json.loads(str(ref["jax_stats"])), "port_stats": port_stats}
         oks = [ok_c]
     else:
-        kw = solver_kwargs(cfg, TRParams, LocalParams)
+        kw = solver_kwargs(cfg, TRParams, LocalParams, CGParams)
         if cfg["restarts"]:
             solver = make_restart_solver(ps, n_restarts=cfg["restarts"], device=dev, **kw)
             outs = [solver(T_goal, torch.Generator(device=dev).manual_seed(RESTART_SEED + i))
