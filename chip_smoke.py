@@ -87,13 +87,32 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      call, and 64 goals on the card against the CPU: solve_cg from the
      same Y0 at float64 (20 iterations) and float32 (5), iterations equal
      per lane and Y and cost within CG_TOL64 / CG_TOL32, then the whole
-     solver's success counts.
+     solver's success counts;
+ 15. planar10_ring6 (load_planar_chain(10, limits=pi/2) and the six circles
+     of utils/environments.py ring_environment): the anchored TR kernel's
+     <2, 2, 16, true> instance against its plain version on the path's
+     prepared inputs at B = 1000 (one step, then production(250, 32): every
+     lane bitwise equal), its launch shape, registers and spills;
+     make_solver at B = 8192 with production(250, 32), the 10-step polish
+     and 2-squaring smoothing: one warm and 2 timed calls with per-stage
+     walls, one anchored launch a call, success at or above the floor,
+     every successful lane's p1..p10 at least radius - 1e-3 from every
+     centre; the kernel's time and bound; 64 goals on the card against
+     the CPU;
+ 16. the data-parallel solve on the card: parallel.solve_ik_sharded on
+     UR10 at B = 8191 with the main path's parameters over make_mesh() and
+     over [cuda:0, cuda:0] (two shards, one padded), each against the
+     unsharded solver lane for lane (q within rtol 1e-3 / atol 1e-4,
+     success equal), one TR launch a shard, walls beside the unsharded
+     one's; parallel.distributed.solve_ik_global at world size 1 over NCCL
+     (its metrics equal to summarize of its own solve); and
+     dryrun_multigpu over every card.
 
 A floor is the lower end of the JAX package's 95% Wilson interval on that
 configuration's 1000 goals (tools/torch_parity.py jax --config <name>), less
 0.02.
 
-The records of phases 11-14 are logged as JSON lines before the total.
+The records of phases 11-14 and 16 are logged as JSON lines before the total.
 The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its flops over the f32 peak and its bytes over the memory
 rate, counted from the shapes and this run's iteration counts), the
@@ -135,6 +154,7 @@ FLOORS = {
     "ur10_table_cidgik": 0.736,     # 783 / 1000 [0.7564, 0.8074]
     "ur10_cidgik_sparse": 0.906,    # 943 / 1000 [0.9269, 0.9557]
     "ur10_cg": 0.740,               # 787 / 1000 [0.7606, 0.8113]
+    "planar10_ring6": 0.818,        # 861 / 1000 [0.8382, 0.8811] ("edge" backend)
 }
 B_TREE = 1000
 # dense CIDGIK: the bench's batches and schedules (bench.py:391-393,526-539)
@@ -291,6 +311,71 @@ def profiled(fn, dev):
     copies = sum(1 for e in dev_ev if e.name().startswith(("Memcpy", "Memset")))
     busy_ms = sum(e.duration_ns() for e in dev_ev) / 1e6
     return len(dev_ev) - copies, copies, busy_ms
+
+
+def ptxas_lines():
+    """Each kernel instance of the built library, from its ptxas log:
+    {"name<template args>": (registers, static shared memory bytes, spill
+    store bytes)}."""
+    from graphik_tpu_torch.ops._build import library_path
+
+    with open(library_path() + ".log") as f:
+        ptxas = f.read()
+    out = {}
+    for entry in ptxas.split("Compiling entry function '")[1:]:
+        name = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E|Lb\d+E)+)E", entry)
+        args = ",".join(re.findall(r"L[ib](\d+)E", name.group(2)))
+        regs, smem = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", entry).groups()
+        spill = re.search(r"(\d+) bytes spill stores", entry).group(1)
+        out[f"{name.group(1)}<{args}>"] = (int(regs), int(smem), int(spill))
+    return out
+
+
+def lanes_equal(k, p):
+    """Lanes whose Y, cost, gradnorm, iterations and num_inner are all
+    bitwise equal."""
+    same = (k["Y"] == p["Y"]).flatten(1).all(1)
+    for key in ("cost", "gradnorm", "iterations", "num_inner"):
+        same &= k[key] == p[key]
+    return int(same.sum())
+
+
+def event_ms(fn, reps):
+    """Mean ms of fn over reps runs after a warm run (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def staged(solver, T_goal, *gen):
+    """One call of the path, stage by stage: (prepare, solve, finish walls
+    in s, peak device memory of prepare in bytes, out). A restart
+    solver's prepare takes its generator."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    D_goal, Y0m = solver.prepare(T_goal, *gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - base
+    sol = solver.solve(Y0m, D_goal)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = solver.finish(sol, T_goal)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return t1 - t0, t2 - t1, t3 - t2, peak, out
 
 
 def cidgik_phases(dev, gen, cfgs):
@@ -566,6 +651,229 @@ def cg_phase(dev, gen, ps, polish):
             "card_vs_cpu_successes": [s_g, s_c], "card_vs_cpu_trajectory": traj}
 
 
+def ring_phase(dev, gen, polish):
+    """Phase 15, planar10_ring6 (load_planar_chain(10, limits=pi/2) and the
+    six circles of ring_environment): the anchored TR kernel's <2, 2, 16,
+    true> instance against its plain version on the path's prepared inputs
+    at B_CHECK (one step, then production(250, 32): every lane bitwise
+    equal), its launch shape, registers and spills; make_solver at B_MAIN
+    with production(250, 32), the polish and 2-squaring smoothing: one warm
+    and 2 timed calls with per-stage walls, one anchored launch a call,
+    success at or above the floor on each, every successful lane's
+    p1..p10 at least radius - 1e-3 from every centre; the kernel's and the
+    plain version's times; 64 goals on the card against the CPU. Returns
+    the kernel's record."""
+    import torch
+
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.graphs.problem import ProblemStructure
+    from graphik_tpu_torch.ops import edge as edge_ops
+    from graphik_tpu_torch.ops import tr_solve
+    from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda, solve_tr_reference
+    from graphik_tpu_torch.robots.library import load_planar_chain
+    from graphik_tpu_torch.solvers.riemannian import TRParams
+    from graphik_tpu_torch.utils.environments import ring_environment
+
+    t_phase = time.perf_counter()
+    tag = "planar10_ring6"
+    tpl = load_planar_chain(10, limits=np.pi / 2)[0]
+    ps = ProblemStructure.from_template(tpl, obstacles=ring_environment())
+    spec = ps.reduced_spec()
+    Nr = spec["Nr"]
+    om, pl, pu = ps.masks()
+    ep = edge_ops.build_edge_problem(om[:Nr, :Nr], pl[:Nr, :Nr], pu[:Nr, :Nr], dim=2,
+                                     anchors=spec)
+    params = TRParams.production(maxiter=250, maxinner=32)
+    kw = dict(maxiter=250, maxinner=32, plateau_every=16, plateau_rtol=params.plateau_rtol)
+    solver = api.make_solver(ps, params=params, polish_params=polish, smooth_iters=2)
+    shape = tr_solve.kernel_shape(ep, B_MAIN, 2)
+    inst = "tr_kernel<2,2,16,1>"
+    regs, smem, spill = ptxas_lines()[inst]
+    live = int(np.count_nonzero(np.asarray(ep.aL_mask)) + np.count_nonzero(np.asarray(ep.aU_mask)))
+    log(f"[15] {tag}: N = {ps.N}, Nr = {Nr}, E = {ep.E}, anchor rows A = {ep.A} ({live} live; "
+        f"{ep.a_nsel} groups of {ep.a_R}); {inst}: {regs} registers, {smem} B static smem, "
+        f"{spill} B spill stores; kernel_shape at B={B_MAIN}: {shape}")
+    check(shape["two_per_warp"], f"{tag}: the instances do not share a warp")
+
+    def goals(B, device=dev):
+        return api.random_goals(ps, (B,), gen, dtype=torch.float32, device=device)[0]
+
+    D_c, Y0_c = solver.prepare(goals(B_CHECK))
+    Y0_c, dg_c = Y0_c.contiguous(), ep.edge_values(D_c).contiguous()
+    k1 = solve_tr_cuda(ep, Y0_c, dg_c, maxiter=1, maxinner=32)
+    p1 = solve_tr_reference(ep, Y0_c, dg_c, maxiter=1, maxinner=32)
+    torch.cuda.synchronize()
+    same1 = lanes_equal(k1, p1)
+    err = float((k1["Y"] - p1["Y"]).abs().max())
+    log(f"[15] {tag} one step, B={B_CHECK}: lanes bitwise equal {same1}/{B_CHECK}, max|dY| {err:.3e}")
+    check(same1 == B_CHECK, f"{tag}: one-step kernel/plain outputs not bitwise equal")
+    kk = solve_tr_cuda(ep, Y0_c, dg_c, **kw)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    pp = solve_tr_reference(ep, Y0_c, dg_c, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    ms_plain = start.elapsed_time(end)
+    for name, o in (("kernel", kk), ("plain", pp)):
+        check(all(bool(torch.isfinite(o[k]).all()) for k in ("Y", "cost", "gradnorm")),
+              f"{tag}: {name} has non-finite lanes")
+    same = lanes_equal(kk, pp)
+    err = max(err, float((kk["Y"] - pp["Y"]).abs().max()))
+    log(f"[15] {tag} production(250, 32), B={B_CHECK}: lanes bitwise equal {same}/{B_CHECK}; mean "
+        f"iterations {float(kk['iterations'].double().mean()):.2f}, mean num_inner "
+        f"{float(kk['num_inner'].double().mean()):.1f}")
+    check(same == B_CHECK, f"{tag}: production kernel/plain outputs not bitwise equal")
+    ms_kernel = event_ms(lambda: solve_tr_cuda(ep, Y0_c, dg_c, **kw), 5)
+    b = bound(tr_flops(ep.N, 2, ep.E, kk, anchored_nodes=ep.a_nsel),
+              tr_bytes(ep.N, 2, ep.E, B_CHECK))
+    log(f"[15] {tag} at B={B_CHECK}: kernel {ms_kernel:.3f} ms, plain torch {ms_plain:.3f} ms, "
+        f"bound {b[0]:.4f} ms ({b[1]})")
+
+    solver(goals(B_MAIN))  # warm call
+    torch.cuda.synchronize()
+    calls = []
+    solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = 0
+    for _ in range(2):
+        tp, ts, tf, peak, o = staged(solver, goals(B_MAIN))
+        calls.append((tp, ts, tf, peak, api.summarize(o), o))
+    launches = solve_tr_cuda.anchored_launches
+    log(f"[15] {tag}: TR launches during the 2 timed calls: {solve_tr_cuda.launches} "
+        f"(anchored {launches})")
+    check(launches == 2 and solve_tr_cuda.launches == 2,
+          f"{tag}: the anchored TR kernel did not launch once per call")
+    centers = torch.tensor(np.stack([c[:2] for c, _ in ps.obstacles]), dtype=torch.float32,
+                           device=dev)
+    radii = torch.tensor([r for _, r in ps.obstacles], dtype=torch.float32, device=dev)
+    walls = []
+    for i, (tp, ts, tf, peak, summ, o) in enumerate(calls):
+        wall = tp + ts + tf
+        walls.append(wall)
+        log(f"[15] {tag} call {i}: prepare {tp * 1e3:.1f} ms (peak {peak / 2**20:.1f} MiB), solve "
+            f"{ts * 1e3:.1f} ms, finish {tf * 1e3:.1f} ms, total {wall * 1e3:.1f} ms, "
+            f"{B_MAIN / wall:.1f} solves/s; success {summ['success_rate']:.4f} (floor "
+            f"{FLOORS[tag]}), pose only {summ['pose_only_rate']:.4f}, median e_pos "
+            f"{summ['median_pos_err']:.3e} m, mean iterations {summ['mean_iterations']:.2f}")
+        for k, shp in {"q": (B_MAIN, 10), "Y": (B_MAIN, ps.N, 2), "e_pos": (B_MAIN,),
+                       "e_rot": (B_MAIN,), "cost": (B_MAIN,), "iterations": (B_MAIN,)}.items():
+            check(tuple(o[k].shape) == shp, (tag, k, tuple(o[k].shape)))
+            check(bool(torch.isfinite(o[k].double()).all()), f"{tag}: non-finite {k}")
+        check(summ["success_rate"] >= FLOORS[tag], f"{tag}: success below its floor")
+        p = ps.realization(o["q"])[:, 1:11]  # (B, 10, 2)
+        clear = torch.linalg.norm(p[:, :, None, :] - centers, dim=-1) - radii
+        worst = float(clear[o["success"]].min())
+        log(f"[15] {tag} call {i}: least clearance over successful lanes {worst:.3e} (>= -1e-3)")
+        check(worst >= -1e-3, f"{tag}: a successful lane enters a circle")
+    D_m, Y0_m = solver.prepare(goals(B_MAIN))
+    Y0_m, dg_m = Y0_m.contiguous(), ep.edge_values(D_m).contiguous()
+    k_m = solve_tr_cuda(ep, Y0_m, dg_m, **kw)
+    ms_path = event_ms(lambda: solve_tr_cuda(ep, Y0_m, dg_m, **kw), 2)
+    b_path = bound(tr_flops(ep.N, 2, ep.E, k_m, anchored_nodes=ep.a_nsel),
+                   tr_bytes(ep.N, 2, ep.E, B_MAIN))
+    log(f"[15] {tag} kernel at the path's shapes (B={B_MAIN}): {ms_path:.3f} ms, bound "
+        f"{b_path[0]:.4f} ms ({b_path[1]}), {ms_path / b_path[0]:.0f}x")
+
+    T_small = goals(B_SMALL, device=torch.device("cpu"))
+    s_gpu = api.summarize(solver(T_small.to(dev)))["success_rate"]
+    o_cpu = solver(T_small)
+    check(o_cpu["Y"].device.type == "cpu", f"{tag}: the CPU call ran on {o_cpu['Y'].device}")
+    s_cpu = api.summarize(o_cpu)["success_rate"]
+    log(f"[15] {tag} {B_SMALL} goals: success on the card {s_gpu:.4f}, on the CPU {s_cpu:.4f}")
+    check(abs(s_gpu - s_cpu) * B_SMALL <= 6, f"{tag}: card and CPU success differ by more than 6")
+    log(f"[15] {tag}: phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"name": "tr_solve_anchored_planar", "route": "cuda",
+            "source": "graphik_tpu_torch/csrc/tr_solve.cu",
+            "replaces": "graphik_tpu/ops/tr_pallas.py:77", "launches": launches,
+            "max_abs_err": err, "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None, "instance": inst, "registers": regs,
+            "spill_stores": spill, "blocks_resident": shape["blocks_resident"],
+            "at": f"{tag}, B={B_CHECK}, production(250, 32)",
+            "paths": [{"path": tag, "launches": launches, "ms": ms_path, "bound_ms": b_path[0],
+                       "bound_by": b_path[1], "N": ep.N, "d": 2, "E": ep.E, "A": ep.A,
+                       "A_live": live, "B": B_MAIN, "kernel_shape": shape,
+                       "success": [c[4]["success_rate"] for c in calls],
+                       "walls_ms": [w * 1e3 for w in walls]}]}
+
+
+def sharded_phase(dev, gen, ps, params, polish):
+    """Phase 16, the data-parallel solve on the card: solve_ik_sharded on
+    UR10 at B_MAIN - 1 goals with the main path's parameters over
+    make_mesh() and over [dev, dev] (two shards, one padded), each lane for
+    lane against the unsharded solver (q within rtol 1e-3 / atol 1e-4,
+    success equal), one TR launch a shard; solve_ik_global at world size 1
+    over NCCL, its metrics equal to summarize of its own solve; and
+    dryrun_multigpu over every card. Returns the phase's record."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda
+    from graphik_tpu_torch.parallel import distributed
+    from graphik_tpu_torch.parallel.mesh import dryrun_multigpu, make_mesh, solve_ik_sharded
+
+    t_phase = time.perf_counter()
+    B = B_MAIN - 1
+    kw = dict(params=params, polish_params=polish, smooth_iters=2)
+    T_goal = api.random_goals(ps, (B,), gen, dtype=torch.float32, device=dev)[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        solve_tr_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, solve_tr_cuda.launches
+
+    api.solve_ik(ps, T_goal, **kw)  # warm call
+    ref, ms_ref, n_ref = timed(lambda: api.solve_ik(ps, T_goal, **kw))
+    check(n_ref == 1, "the unsharded solve did not launch the TR kernel once")
+    record = {"B": B, "unsharded_ms": ms_ref, "meshes": []}
+    for mesh in (make_mesh(), [dev, dev]):
+        out, ms, n = timed(lambda: solve_ik_sharded(ps, T_goal, mesh, **kw))
+        dq = (out["q"] - ref["q"]).abs()
+        over = int((dq > 1e-4 + 1e-3 * ref["q"].abs()).any(-1).sum())
+        n_succ = int((out["success"] != ref["success"]).sum())
+        log(f"[16] solve_ik_sharded over {[str(d) for d in mesh]}, B={B}: {ms:.1f} ms (unsharded "
+            f"{ms_ref:.1f} ms), TR launches {n}; lanes with q outside rtol 1e-3 / atol 1e-4 "
+            f"{over}, max |dq| {float(dq.max()):.3e}, success differs on {n_succ} lanes; success "
+            f"{api.summarize(out)['success_rate']:.4f}")
+        check(n == len(mesh), "solve_ik_sharded did not launch the TR kernel once a shard")
+        check(tuple(out["q"].shape) == (B, 6) and out["q"].device == ref["q"].device,
+              "sharded q has the wrong shape or device")
+        check(over == 0 and n_succ == 0, "the sharded solve leaves the unsharded one")
+        record["meshes"].append({"mesh": [str(d) for d in mesh], "ms": ms, "launches": n,
+                                 "max_dq": float(dq.max())})
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    gdev = distributed.initialize("cuda", init_method=f"tcp://localhost:{port}", world_size=1,
+                                  rank=0)
+    try:
+        backend = dist.get_backend()
+        out, metrics = distributed.solve_ik_global(ps, T_goal, params=params, polish_params=polish,
+                                                   smooth_iters=2)
+        summ = api.summarize(out)
+    finally:
+        dist.destroy_process_group()
+    log(f"[16] solve_ik_global, world size 1, backend {backend} on {gdev}: {metrics} "
+        f"({(time.perf_counter() - t0) * 1e3:.0f} ms with the group's set-up)")
+    check(backend == "nccl", f"solve_ik_global ran over {backend}")
+    check(metrics["global_batch"] == B and metrics["num_processes"] == 1, "global metrics' sizes")
+    for k in ("success_rate", "pose_only_rate", "mean_iterations", "mean_pos_err"):
+        check(abs(metrics[k] - summ[k]) <= 1e-12 * max(1.0, abs(summ[k])),
+              f"solve_ik_global's {k} {metrics[k]} is not summarize's {summ[k]}")
+    q, m = dryrun_multigpu(torch.cuda.device_count())
+    log(f"[16] dryrun_multigpu({torch.cuda.device_count()}): q {tuple(q.shape)} on {q.device}, "
+        f"success {m['success_rate']:.3f}")
+    log(f"[16] phase took {time.perf_counter() - t_phase:.1f} s")
+    record["global_metrics"] = metrics
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -605,56 +913,9 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     log(f"[1] kernel build+load: {time.perf_counter() - t0:.2f} s -> {library_path()}")
-    with open(library_path() + ".log") as f:
-        ptxas = f.read()
-    # one line per kernel instance: name<template args>, registers, static
-    # shared memory, spill stores
-    for entry in ptxas.split("Compiling entry function '")[1:]:
-        name = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E|Lb\d+E)+)E", entry)
-        args = ",".join(re.findall(r"L[ib](\d+)E", name.group(2)))
-        regs, smem = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", entry).groups()
-        spill = re.search(r"(\d+) bytes spill stores", entry).group(1)
-        log(f"[1] ptxas: {name.group(1)}<{args}>: {regs} registers, {smem} B static smem, "
-            f"{spill} B spill stores")
-
-    def lanes_equal(k, p):
-        """Lanes whose Y, cost, gradnorm, iterations and num_inner are all
-        bitwise equal."""
-        same = (k["Y"] == p["Y"]).flatten(1).all(1)
-        for key in ("cost", "gradnorm", "iterations", "num_inner"):
-            same &= k[key] == p[key]
-        return int(same.sum())
-
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def staged(solver, T_goal, *gen):
-        """One call of the path, stage by stage: (prepare, solve, finish walls
-        in s, peak device memory of prepare in bytes, out). A restart
-        solver's prepare takes its generator."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        D_goal, Y0m = solver.prepare(T_goal, *gen)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        peak = torch.cuda.max_memory_allocated() - base
-        sol = solver.solve(Y0m, D_goal)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        out = solver.finish(sol, T_goal)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        return t1 - t0, t2 - t1, t3 - t2, peak, out
+    ptxas = ptxas_lines()
+    for inst, (regs, smem, spill) in ptxas.items():
+        log(f"[1] ptxas: {inst}: {regs} registers, {smem} B static smem, {spill} B spill stores")
 
     tpl, ps = load_ur10()
     omega, psi_L, psi_U = ps.masks()
@@ -1059,6 +1320,13 @@ def main() -> int:
     cg_path = cg_phase(dev, gen, ps, polish)
     log(f"[14] phases 13 and 14 took {time.perf_counter() - t_new:.1f} s")
 
+    # ---- phase 15: planar10_ring6, the anchored TR kernel at d = 2 ----
+    t_new = time.perf_counter()
+    ring_kernel = ring_phase(dev, gen, polish)
+    # ---- phase 16: the data-parallel solve on the card ----
+    sharded_path = sharded_phase(dev, gen, ps, prod, polish)
+    log(f"[16] phases 15 and 16 took {time.perf_counter() - t_new:.1f} s")
+
     # Bounds: counted from the shapes and, for the TR kernels, from the
     # iteration counts of the runs that were timed. No single PyTorch call
     # computes any of these functions, so there is no library time.
@@ -1103,9 +1371,11 @@ def main() -> int:
          "max_abs_err": err_h, "ms": ms_h, "plain_ms": ms_h_p,
          "bound_ms": b_hess[0], "bound_by": b_hess[1], "library_ms": None,
          "at": f"UR10, B={B_MAIN}"},
+        ring_kernel,
     ]}
     log(f"[11-13] CIDGIK paths: {json.dumps(cidgik_paths)}")
     log(f"[14] CG path: {json.dumps(cg_path)}")
+    log(f"[16] sharded paths: {json.dumps(sharded_path)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(f"card: {smi}")

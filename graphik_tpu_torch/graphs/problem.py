@@ -1,7 +1,7 @@
 """Problem-graph compiler: robot template -> static distance-geometry arrays.
 
-Port of graphik_tpu/graphs/problem.py for 3D revolute robots, with
-spherical obstacles, and planar (d = 2) robots without them. The graph is
+Port of graphik_tpu/graphs/problem.py for 3D revolute and planar (d = 2)
+robots, with spherical (circular, at d = 2) obstacles. The graph is
 compiled once, host-side, into a `ProblemStructure` of dense numpy
 matrices (the numpy builder is a copy of the JAX package's, so both
 packages compile identical structures); per-goal instance data is then
@@ -12,10 +12,7 @@ Node indexing (3D revolute, n joints):
     n+1..2n+1   -> q0..qn           (auxiliary rotation-axis points)
     2n+2, 2n+3  -> x, y             (base frame points)
     2n+4..      -> o0, o1, ...      (obstacle centers)
-Planar (2D): 0..n -> p0..pn, n+1 -> x, n+2 -> y.
-
-Planar robots with obstacles (the anchored K4 at d = 2) are a later slice
-of the port: `add_spherical_obstacle` raises NotImplementedError for them.
+Planar (2D): 0..n -> p0..pn, n+1 -> x, n+2 -> y, n+3.. -> o0, o1, ...
 """
 
 from __future__ import annotations
@@ -136,11 +133,8 @@ class ProblemStructure:
     def add_spherical_obstacle(self, center: np.ndarray, radius: float) -> "ProblemStructure":
         """Append an obstacle node (graph_base.py:201-211, intended
         semantics): exact edges to every statically positioned node and
-        bounded-below edges (radius) to the main points p1..pn."""
-        if self.dim != 3:
-            raise NotImplementedError(
-                "planar robots with obstacles (the anchored TR kernel at d = 2) are a "
-                "later slice of the port")
+        bounded-below edges (radius) to the main points p1..pn. A planar
+        structure keeps the centre's first two coordinates."""
         N_old = self.N
         N = N_old + 1
         dim = self.dim
@@ -250,6 +244,38 @@ class ProblemStructure:
             "L_mask": (diff & (psi_L > 0)).astype(np.float64),
             "U_mask": (diff & (psi_U > 0)).astype(np.float64),
         }
+
+    def distance_bounds_from_sampling(self, generator: Optional[torch.Generator] = None,
+                                      n_samples: int = 2000) -> "ProblemStructure":
+        """Empirical all-pairs distance bounds from random configurations:
+        n_samples configurations drawn within the limits (on the CPU, from
+        `generator`, seed 0 when None), elementwise min / max distances
+        installed as [L, U] on every node pair; pairs with max - min < 1e-5
+        become exact edges. Returns an updated copy."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        q = kinematics.random_configuration(self.template, (n_samples,), generator,
+                                            device="cpu")
+        pos = self.realization(q)  # (S, N, dim)
+        D = torch.sqrt(torch.clamp(dgp.distance_matrix_from_pos(pos), min=0.0))
+        D_min = D.amin(dim=0).numpy()
+        D_max = D.amax(dim=0).numpy()
+
+        edge_mask = np.ones_like(self.edge_mask, dtype=bool)
+        np.fill_diagonal(edge_mask, False)
+        near_exact = (D_max - D_min) < 1e-5
+        omega = self.omega_struct | (near_exact & edge_mask)
+        D_struct = self.D_struct.copy()
+        new_exact = near_exact & edge_mask & ~self.omega_struct
+        D_struct[new_exact] = (0.5 * (D_min + D_max))[new_exact] ** 2
+        return dataclasses.replace(
+            self,
+            omega_struct=omega,
+            D_struct=D_struct,
+            L_edges=D_min.copy(),
+            U_edges=D_max.copy(),
+            edge_mask=edge_mask,
+        )
 
     def masks(self):
         """Static solver masks: (omega, psi_L, psi_U) as numpy arrays.
@@ -728,8 +754,8 @@ def _joint_variables_revolute(ps: ProblemStructure, pos, T_goal):
         p_pt = pos[..., k, :]
         diff = pos[..., n + 1 + k, :] - p_pt
         qnorm = p_pt + diff / torch.linalg.norm(diff, dim=-1, keepdim=True)
-        q_in_B = torch.einsum("...ij,...j->...i", B_inv[..., :3, :3], qnorm) + B_inv[..., :3, 3]
-        qs = torch.einsum("...ji,...j->...i", T_prev[..., :3, :3], q_in_B - T_prev[..., :3, 3])
+        q_in_B = lie.matvec_small(B_inv[..., :3, :3], qnorm) + B_inv[..., :3, 3]
+        qs = lie.matvec_small(T_prev[..., :3, :3].transpose(-1, -2), q_in_B - T_prev[..., :3, 3])
 
         # theta = atan2(-qs0^T Omega_z qs, qs0^T Omega_z Omega_z^T qs)
         num = -(qs_0[0] * (-qs[..., 1]) + qs_0[1] * qs[..., 0])
@@ -737,7 +763,7 @@ def _joint_variables_revolute(ps: ProblemStructure, pos, T_goal):
         th = torch.atan2(num, den)
 
         theta.append(th)
-        T_all.append((T_prev @ lie.se3_rotz(th)) @ T_rel)
+        T_all.append(lie.matmul_small(T_prev @ lie.se3_rotz(th), T_rel))
 
     # final-joint correction when the last axis is along ee z
     if T_goal is not None:
@@ -770,9 +796,9 @@ def _joint_variables_planar(ps: ProblemStructure, pos):
     R_acc = [torch.eye(2, dtype=dt, device=dev).expand(pos.shape[:-2] + (2, 2))]
     for k in range(1, tpl.n + 1):
         u = int(tpl.parents[k])
-        diff = torch.einsum("...ij,...j->...i", R_, pos[..., k, :] - pos[..., u, :])
+        diff = lie.matvec_small(R_, pos[..., k, :] - pos[..., u, :])
         diff = diff / torch.linalg.norm(diff, dim=-1, keepdim=True)
-        sol = torch.einsum("...ji,...j->...i", R_acc[u], diff)
+        sol = lie.matvec_small(R_acc[u].transpose(-1, -2), diff)
         th = lie.wraptopi(torch.atan2(sol[..., 1], sol[..., 0]))
         theta.append(th)
         R_acc.append(R_acc[u] @ lie.rot2(th))

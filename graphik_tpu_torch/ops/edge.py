@@ -339,10 +339,11 @@ def cost_and_egrad_cuda(ep: EdgeProblem, Y, dgoal_e):
 
     lib = load_library()
     ei, ej, epar, rowptr, inc = kernel_edge_tables(ep, Y.device)
-    rc = lib.graphik_edge_cost_grad(
-        Y.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1], ei.data_ptr(), ej.data_ptr(),
-        epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(), f.data_ptr(), g.data_ptr(),
-        B, N, d, ep.E, torch.cuda.current_stream(Y.device).cuda_stream)
+    with torch.cuda.device(Y.device):  # the launch goes to the current device
+        rc = lib.graphik_edge_cost_grad(
+            Y.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1], ei.data_ptr(), ej.data_ptr(),
+            epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(), f.data_ptr(), g.data_ptr(),
+            B, N, d, ep.E, torch.cuda.current_stream(Y.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"edge cost+grad kernel launch failed: cudaError {rc}")
     cost_and_egrad_cuda.launches += 1
@@ -368,10 +369,11 @@ def ehess_cuda(ep: EdgeProblem, Y, Z, dgoal_e):
 
     lib = load_library()
     ei, ej, epar, rowptr, inc = kernel_edge_tables(ep, Y.device)
-    rc = lib.graphik_edge_hess(
-        Y.data_ptr(), Z.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1], ei.data_ptr(),
-        ej.data_ptr(), epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(), H.data_ptr(),
-        B, N, d, ep.E, torch.cuda.current_stream(Y.device).cuda_stream)
+    with torch.cuda.device(Y.device):
+        rc = lib.graphik_edge_hess(
+            Y.data_ptr(), Z.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1], ei.data_ptr(),
+            ej.data_ptr(), epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(), H.data_ptr(),
+            B, N, d, ep.E, torch.cuda.current_stream(Y.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"edge Hessian kernel launch failed: cudaError {rc}")
     ehess_cuda.launches += 1

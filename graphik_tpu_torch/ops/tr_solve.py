@@ -498,19 +498,20 @@ def solve_tr_cuda(
     ei, ej, epar, rowptr, inc = kernel_edge_tables(ep, dev)
     acen, apar, anode = _anchor_tables(ep, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.graphik_tr_solve(
-        Y0.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1],
-        ei.data_ptr(), ej.data_ptr(), epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(),
-        acen.data_ptr(), apar.data_ptr(), anode.data_ptr(),
-        out["Y"].data_ptr(), out["cost"].data_ptr(), out["gradnorm"].data_ptr(),
-        out["iterations"].data_ptr(), out["num_inner"].data_ptr(),
-        B, N, d, E, ep.A, ep.a_nsel, ep.a_R,
-        int(maxiter), int(maxinner), int(mininner), int(plateau_every),
-        float(mingradnorm), float(kappa), float(theta), float(rho_prime),
-        float(rho_regularization), float(Delta_bar), float(Delta0),
-        float(plateau_rtol), float(plateau_atol), float(res_tol), _anchor_near(ep),
-        stream,
-    )
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        rc = lib.graphik_tr_solve(
+            Y0.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1],
+            ei.data_ptr(), ej.data_ptr(), epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(),
+            acen.data_ptr(), apar.data_ptr(), anode.data_ptr(),
+            out["Y"].data_ptr(), out["cost"].data_ptr(), out["gradnorm"].data_ptr(),
+            out["iterations"].data_ptr(), out["num_inner"].data_ptr(),
+            B, N, d, E, ep.A, ep.a_nsel, ep.a_R,
+            int(maxiter), int(maxinner), int(mininner), int(plateau_every),
+            float(mingradnorm), float(kappa), float(theta), float(rho_prime),
+            float(rho_regularization), float(Delta_bar), float(Delta0),
+            float(plateau_rtol), float(plateau_atol), float(res_tol), _anchor_near(ep),
+            stream,
+        )
     if rc != 0:
         raise RuntimeError(f"TR kernel launch failed: cudaError {rc}")
     solve_tr_cuda.launches += 1

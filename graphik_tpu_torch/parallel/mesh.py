@@ -1,29 +1,110 @@
-"""Multi-restart solves with per-goal best-solution selection.
+"""The data-parallel fleet layer: the sharded solve, and multi-restart
+solves with per-goal best-solution selection.
 
-Port of the restart part of graphik_tpu/parallel/mesh.py (`solve_ik_restarts`,
-`_select_best_restart`, `make_restart_solver`; `summarize` is re-exported
-from api.py). Restart 0 starts from the deterministic bound-interpolation
-init; restarts 1..R-1 sample the distance matrix uniformly inside the
-smoothed bounds, drawn in order from an explicit `torch.Generator` (where
-the JAX package splits a PRNG key). The R restarts fold into one flat batch
-of R * B instances, restart-major, so the TR kernel sees one launch per
-call; the best restart per goal is chosen by (limit-feasible, e_pos + e_rot).
-The sharded mesh solve of the JAX module (`make_mesh`, `shard_batch`,
-`solve_ik_sharded`) is multi-GPU work and is not ported here.
+Port of graphik_tpu/parallel/mesh.py. A mesh is a 1-D list of
+`torch.device`s over the instance batch (`make_mesh`: every visible card,
+or a list the caller gives). `solve_ik_sharded` splits the goal batch over
+it - padded to a multiple of the shard count with copies of goal 0, as the
+JAX package's shard_map requires - runs one single-device solver a shard on
+its own device, gathers to the first device and slices back to the batch.
+The shards are enqueued one after another from the calling thread; the
+devices overlap as far as a shard's path leaves the host free (the JAX
+package's shard_map runs them as one program). `dryrun_multigpu` is the
+analogue of __graft_entry__.py's multi-chip dry run.
+
+Restarts (`solve_ik_restarts`, `_select_best_restart`,
+`make_restart_solver`; `summarize` is re-exported from api.py): restart 0
+starts from the deterministic bound-interpolation init; restarts 1..R-1
+sample the distance matrix uniformly inside the smoothed bounds, drawn in
+order from an explicit `torch.Generator` (where the JAX package splits a
+PRNG key). The R restarts fold into one flat batch of R * B instances,
+restart-major, so the TR kernel sees one launch per call; the best restart
+per goal is chosen by (limit-feasible, e_pos + e_rot).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
+from graphik_tpu_torch import api
 from graphik_tpu_torch.api import Solver, summarize  # noqa: F401  (summarize: re-export)
 from graphik_tpu_torch.graphs.problem import ProblemStructure
 from graphik_tpu_torch.solvers import riemannian
 from graphik_tpu_torch.solvers.local import LocalParams
 from graphik_tpu_torch.solvers.riemannian import TRParams
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              devices: Optional[Sequence] = None) -> List[torch.device]:
+    """A 1-D mesh over the instance batch: `devices` when the caller gives
+    them (e.g. [cpu, cpu, cpu]), else every visible CUDA device; the first
+    n_devices of them when that is set. Raises when there is no card and
+    no list."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device (pass devices= for another mesh)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    mesh = [torch.device(d) for d in devices]
+    if n_devices is not None:
+        if not 0 < n_devices <= len(mesh):
+            raise ValueError(f"n_devices={n_devices} of a mesh of {len(mesh)}")
+        mesh = mesh[:n_devices]
+    return mesh
+
+
+def shard_batch(x, mesh: Sequence[torch.device]):
+    """Split the leading axis of a tensor, or of each tensor of a dict,
+    over the mesh: a list of len(mesh) contiguous shards, shard i on
+    mesh[i] (the last shards one row shorter when the batch is ragged)."""
+    if isinstance(x, dict):
+        parts = {k: shard_batch(v, mesh) for k, v in x.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(len(mesh))]
+    return [part.to(dev) for part, dev in zip(torch.tensor_split(x, len(mesh)), mesh)]
+
+
+def solve_ik_sharded(structure: ProblemStructure, T_goal, mesh: Sequence[torch.device],
+                     params: TRParams = TRParams(), **kwargs):
+    """Batched IK solve with the goal batch sharded over the mesh: the
+    batch is padded to a multiple of the shard count with copies of goal 0,
+    each shard is solved by `api.solve_ik(structure, shard, params,
+    **kwargs)` on its own device (one TR launch a shard), and every output
+    is gathered to mesh[0] and sliced back to the batch. The solve is
+    data-parallel, so each lane is the unsharded solver's up to the
+    rounding of batched eigh and matmul at another batch size."""
+    mesh = [torch.device(d) for d in mesh]
+    if not isinstance(T_goal, torch.Tensor):
+        T_goal = torch.as_tensor(T_goal, device=mesh[0])
+    B = T_goal.shape[0]
+    n = len(mesh)
+    Bp = -(-B // n) * n
+    if Bp != B:
+        pad = T_goal[:1].expand((Bp - B,) + T_goal.shape[1:])
+        T_goal = torch.cat([T_goal, pad], dim=0)
+    outs = [api.solve_ik(structure, shard, params=params, **kwargs)
+            for shard in shard_batch(T_goal, mesh)]
+    return {k: torch.cat([o[k].to(mesh[0]) for o in outs], dim=0)[:B] for k in outs[0]}
+
+
+def dryrun_multigpu(n_devices: Optional[int] = None, devices: Optional[Sequence] = None):
+    """The multi-device dry run (__graft_entry__.py:26-68): the UR10 solve
+    at TRParams(maxiter=3) on 2 float32 goals a device, sharded over make_mesh(
+    n_devices, devices), then summarize. Returns (q on the first device,
+    the metrics)."""
+    from graphik_tpu_torch.robots.library import load_ur10
+
+    tpl, ps = load_ur10()
+    mesh = make_mesh(n_devices, devices)
+    batch = 2 * len(mesh)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    T_goal, _ = api.random_goals(ps, (batch,), gen, dtype=torch.float32, device="cpu")
+    out = solve_ik_sharded(ps, T_goal.to(mesh[0]), mesh, params=TRParams(maxiter=3))
+    metrics = summarize(out)
+    if tuple(out["q"].shape) != (batch, tpl.n):
+        raise RuntimeError(f"dryrun_multigpu: q has shape {tuple(out['q'].shape)}")
+    return out["q"], metrics
 
 
 def _select_best_restart(all_out):

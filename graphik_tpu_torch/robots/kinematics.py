@@ -53,7 +53,7 @@ def prefix_products(template: RobotTemplate, q):
 
 def all_poses(template: RobotTemplate, q):
     """Poses of every joint frame: (..., n) -> (..., n+1, hd, hd)."""
-    return prefix_products(template, q) @ _const(template.T0, q)
+    return lie.matmul_small(prefix_products(template, q), _const(template.T0, q))
 
 
 def pose(template: RobotTemplate, q, node: int):
@@ -133,6 +133,24 @@ def linear_jacobians(template: RobotTemplate, q, T=None):
     anc = torch.as_tensor(_ancestor_matrix(tpl), device=q.device)
     vel = torch.where(anc[:, :, None], vel, torch.zeros_like(vel))
     return vel.transpose(-1, -2)
+
+
+def jacobian_geometric(template: RobotTemplate, q, node: int):
+    """World-frame geometric Jacobian of `node`: column i-1 (joint q_i on
+    the path to `node`) is [z_{parent(i)} x (p_node - p_{parent(i)});
+    z_{parent(i)}], z and p from the parent frame's current world pose;
+    off-path columns are zero. 3D only. q: (..., n) -> (..., 6, n)."""
+    tpl = template
+    if tpl.dim != 3:
+        raise ValueError("the geometric Jacobian is defined for 3D robots")
+    T = all_poses(tpl, q)                                  # (..., n+1, 4, 4)
+    Tp = T[..., torch.as_tensor(tpl.parents[1:], device=q.device), :, :]
+    z = Tp[..., :3, 2]                                     # (..., n, 3)
+    lin = torch.linalg.cross(z, T[..., node, None, :3, 3] - Tp[..., :3, 3], dim=-1)
+    cols = torch.cat([lin, z], dim=-1)                     # (..., n, 6)
+    on_path = torch.as_tensor(_path_membership(tpl, node)[1:], device=q.device)
+    cols = torch.where(on_path[:, None], cols, torch.zeros_like(cols))
+    return cols.transpose(-1, -2)
 
 
 def _ancestor_matrix(template: RobotTemplate):

@@ -76,7 +76,7 @@ def _pose_residuals(tpl, T_goal, q, with_jacobian=True, A=None):
     """
     if A is None:
         A = kinematics.prefix_products(tpl, q)
-    T_all = A @ torch.as_tensor(tpl.T0, dtype=q.dtype, device=q.device)
+    T_all = lie.matmul_small(A, torch.as_tensor(tpl.T0, dtype=q.dtype, device=q.device))
     planar = tpl.dim == 2
     es, Js = [], []
     for e_idx, ee in enumerate(tpl.ee):
@@ -91,15 +91,16 @@ def _pose_residuals(tpl, T_goal, q, with_jacobian=True, A=None):
         if with_jacobian:
             J = kinematics.jacobian(tpl, q, int(ee), A=A)
             if planar:
-                Js.append(_se2_residual_jacobian(e, M, lie.se2_adjoint(T_inv) @ J))
+                Js.append(_se2_residual_jacobian(e, M, lie.matmul_small(lie.se2_adjoint(T_inv), J)))
             else:
                 # d(e)/dq = -J_e through T(q)
-                Js.append(-(lie.se3_inv_left_jacobian(e) @ lie.se3_adjoint(T_inv) @ J))
+                Js.append(-lie.matmul_small(
+                    lie.matmul_small(lie.se3_inv_left_jacobian(e), lie.se3_adjoint(T_inv)), J))
     return torch.cat(es, dim=-1), torch.cat(Js, dim=-2) if with_jacobian else None
 
 
 def _obstacle_pairs(ps: ProblemStructure):
-    """Static (centers (n_obs, 3), radii (n_obs,)) numpy arrays. The
+    """Static (centers (n_obs, d), radii (n_obs,)) numpy arrays. The
     constraints are every obstacle against every main point p1..pn,
     obstacle-major: constraint o * n + (i - 1) is obstacle o vs p_i."""
     cen = np.asarray([np.asarray(c)[:ps.dim] for c, _ in ps.obstacles], np.float64)
@@ -113,18 +114,19 @@ def _obstacle_g_and_jac(tpl, q, centers, radii, A=None, with_jacobian=True):
     world-frame position Jacobians (kinematics.linear_jacobians)."""
     if A is None:
         A = kinematics.prefix_products(tpl, q)
-    T = A @ torch.as_tensor(tpl.T0, dtype=q.dtype, device=q.device)
-    p = T[..., 1:, :3, 3]                                  # (..., n, 3)
+    T = lie.matmul_small(A, torch.as_tensor(tpl.T0, dtype=q.dtype, device=q.device))
+    d = tpl.dim
+    p = T[..., 1:, :d, d]                                  # (..., n, d)
     c = torch.as_tensor(centers, dtype=q.dtype, device=q.device)[:, None, :]
     r = torch.as_tensor(radii, dtype=q.dtype, device=q.device)[:, None]
-    diff = c - p[..., None, :, :]                          # (..., n_obs, n, 3)
+    diff = c - p[..., None, :, :]                          # (..., n_obs, n, d)
     dist = torch.sqrt((diff * diff).sum(dim=-1) + 1e-30)
     g = (r - dist).flatten(-2)
     if not with_jacobian:
         return g, None
     # d(-dist)/dq = (c - p)^T / dist . dp/dq
     u = diff / dist[..., None]
-    J = kinematics.linear_jacobians(tpl, q, T)[..., 1:, :, :]  # (..., n, 3, n)
+    J = kinematics.linear_jacobians(tpl, q, T)[..., 1:, :, :]  # (..., n, d, n)
     Jg = torch.einsum("...oid,...idk->...oik", u, J)
     return g, Jg.flatten(-3, -2)
 
@@ -180,7 +182,7 @@ def solve_local(
             live = ~done
             r, J = residuals(q, mult, rho)
             Jt = J.transpose(-1, -2)
-            g = (Jt @ r[..., None])[..., 0]
+            g = (J * r[..., :, None]).sum(-2)  # J^T r, batch-invariant as lie.matvec_small
             H = Jt @ J + lam[..., None, None] * eye
             # A lane whose f32 system is not numerically SPD (info != 0)
             # takes no step and raises its damping - the same outcome as the

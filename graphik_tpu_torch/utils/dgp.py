@@ -1,6 +1,6 @@
 """Distance-geometry core: Gram <-> EDM <-> positions, MDS, bound smoothing.
 
-Port of graphik_tpu/utils/dgp.py (the parts the main paths run). All
+Port of graphik_tpu/utils/dgp.py. All
 functions broadcast over leading batch dims. Eigendecompositions use
 `torch.linalg.eigh`; the JAX package's fixed-sweep Jacobi and subspace
 iterations are TPU workarounds and are not ported.
@@ -111,6 +111,21 @@ def best_fit_transform(A, B):
     R = Vt.transpose(-1, -2) @ U.transpose(-1, -2)
     t = cb[..., 0, :] - torch.einsum("...ij,...j->...i", R, ca[..., 0, :])
     return R, t
+
+
+def procrustes_align(X, Y):
+    """Rigidly align point set X onto Y; returns the transformed X."""
+    R, t = best_fit_transform(X, Y)
+    return torch.einsum("...ij,...nj->...ni", R, X) + t[..., None, :]
+
+
+def normalize_positions(Y):
+    """Center points and rotate them into their principal axes (the
+    eigenvectors of their scatter, in eigh's ascending order)."""
+    Yc = Y - Y.mean(dim=-2, keepdim=True)
+    C = Yc.transpose(-1, -2) @ Yc
+    _, v = torch.linalg.eigh(0.5 * (C + C.transpose(-1, -2)))  # eigh reads one triangle
+    return Yc @ v
 
 
 # ---------------------------------------------------------------------------

@@ -42,3 +42,19 @@ def table_environment(
                 for i in range(0, n_height)
             ]
     return tabletop + legs
+
+
+def ring_environment(
+    n: int = 6,
+    ring_radius: float = 4.0,
+    radius: float = 0.5,
+    first_angle: float = np.pi / 6,
+) -> List[Tuple[np.ndarray, float]]:
+    """n circles of `radius` centred on a ring about the base, at angles
+    first_angle + 2 pi k / n: the planar10_ring6 scene at the defaults (six
+    circles of radius 0.5 at 4 (cos a, sin a, 0), a = 30, 90, ..., 330
+    degrees), a planar analogue of the table. The centres are 3-vectors; a
+    planar structure keeps their first two coordinates."""
+    angles = first_angle + 2.0 * np.pi * np.arange(n) / n
+    return [(np.asarray([ring_radius * np.cos(a), ring_radius * np.sin(a), 0.0]), radius)
+            for a in angles]

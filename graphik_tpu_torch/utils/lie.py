@@ -1,7 +1,8 @@
 """Batched SO(3)/SE(3) and SO(2)/SE(2) operations in PyTorch.
 
-Port of the parts of graphik_tpu/utils/lie.py that the solve paths use (FK,
-joint recovery, pose error, the joint-space polish).
+Port of graphik_tpu/utils/lie.py: the maps of FK, joint recovery, pose
+error and the joint-space polish, and the batch-invariant small products
+they use (`matmul_small`, `matvec_small`).
 
 Conventions
 -----------
@@ -20,6 +21,24 @@ import torch
 
 # Guard against literal division by zero only (value-level, dtype-safe).
 _TINY = 1e-9
+
+
+def matmul_small(a, b):
+    """a @ b for small matrices, broadcast over the leading dims, as
+    elementwise products summed over the shared axis. Every lane's
+    result is then independent of the batch size: a batched GEMM or GEMV
+    chooses its kernel, and so its rounding, by the batch count and shape,
+    which on the card parted the port's results lane for lane between a
+    batch and its shards (a constant broadcast over the batch, the batch
+    folded with another axis, matrix-vector products)."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+
+
+def matvec_small(a, v):
+    """a @ v for small matrices and vectors, (..., m, k) x (..., k) ->
+    (..., m), as an elementwise product summed over k: batch-invariant
+    like matmul_small."""
+    return (a * v[..., None, :]).sum(-1)
 
 
 def _taylor_threshold(dtype):
@@ -52,6 +71,11 @@ def so3_hat(w):
         ],
         dim=-2,
     )
+
+
+def so3_vee(W):
+    """(..., 3, 3) -> (..., 3), the inverse of so3_hat."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
 
 
 def _sinc(theta):
@@ -175,6 +199,34 @@ def so3_inv_left_jacobian(w):
     return _eye(3, w) - 0.5 * W + cot_term[..., None, None] * W2
 
 
+def rotx(theta):
+    c, s = torch.cos(theta), torch.sin(theta)
+    one = torch.ones_like(c)
+    zero = torch.zeros_like(c)
+    return torch.stack(
+        [
+            torch.stack([one, zero, zero], dim=-1),
+            torch.stack([zero, c, -s], dim=-1),
+            torch.stack([zero, s, c], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def roty(theta):
+    c, s = torch.cos(theta), torch.sin(theta)
+    one = torch.ones_like(c)
+    zero = torch.zeros_like(c)
+    return torch.stack(
+        [
+            torch.stack([c, zero, s], dim=-1),
+            torch.stack([zero, one, zero], dim=-1),
+            torch.stack([-s, zero, c], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
 def rotz(theta):
     c, s = torch.cos(theta), torch.sin(theta)
     one = torch.ones_like(c)
@@ -204,11 +256,23 @@ def se3_make(R, t):
     return torch.cat([top, bottom], dim=-2)
 
 
+def se3_identity(dtype=torch.float64, device=None):
+    return torch.eye(4, dtype=dtype, device=device)
+
+
+def se3_rot(T):
+    return T[..., :3, :3]
+
+
+def se3_trans(T):
+    return T[..., :3, 3]
+
+
 def se3_inv(T):
-    R = T[..., :3, :3]
-    t = T[..., :3, 3]
+    R = se3_rot(T)
+    t = se3_trans(T)
     Rt = R.transpose(-1, -2)
-    return se3_make(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
+    return se3_make(Rt, -matvec_small(Rt, t))
 
 
 def se3_exp(xi):
@@ -217,7 +281,7 @@ def se3_exp(xi):
     w = xi[..., 3:]
     R = so3_exp(w)
     J = so3_left_jacobian(w)
-    t = torch.einsum("...ij,...j->...i", J, v)
+    t = matvec_small(J, v)
     return se3_make(R, t)
 
 
@@ -225,14 +289,14 @@ def se3_log(T):
     """(..., 4, 4) -> (..., 6) twist [v, w]."""
     w = so3_log(T[..., :3, :3])
     Jinv = so3_inv_left_jacobian(w)
-    v = torch.einsum("...ij,...j->...i", Jinv, T[..., :3, 3])
+    v = matvec_small(Jinv, T[..., :3, 3])
     return torch.cat([v, w], dim=-1)
 
 
 def se3_adjoint(T):
     """(..., 4, 4) -> (..., 6, 6) adjoint for [v, w]-ordered twists."""
     R = T[..., :3, :3]
-    tR = so3_hat(T[..., :3, 3]) @ R
+    tR = matmul_small(so3_hat(T[..., :3, 3]), R)
     z = torch.zeros_like(R)
     top = torch.cat([R, tR], dim=-1)
     bottom = torch.cat([z, R], dim=-1)
@@ -320,6 +384,10 @@ def se2_make(R, t):
     return torch.cat([top, bottom], dim=-2)
 
 
+def se2_identity(dtype=torch.float64, device=None):
+    return torch.eye(3, dtype=dtype, device=device)
+
+
 def se2_rot(T):
     return T[..., :2, :2]
 
@@ -334,7 +402,7 @@ def se2_angle(T):
 
 def se2_inv(T):
     Rt = se2_rot(T).transpose(-1, -2)
-    return se2_make(Rt, -torch.einsum("...ij,...j->...i", Rt, se2_trans(T)))
+    return se2_make(Rt, -matvec_small(Rt, se2_trans(T)))
 
 
 def _se2_v(w):
@@ -349,7 +417,7 @@ def se2_exp(xi):
     w = xi[..., 2]
     a, b = _se2_v(w)
     J = torch.stack([torch.stack([a, -b], dim=-1), torch.stack([b, a], dim=-1)], dim=-2)
-    return se2_make(rot2(w), torch.einsum("...ij,...j->...i", J, v))
+    return se2_make(rot2(w), matvec_small(J, v))
 
 
 def se2_log(T):
@@ -359,7 +427,7 @@ def se2_log(T):
     det = a * a + b * b
     Jinv = torch.stack([torch.stack([a, b], dim=-1), torch.stack([-b, a], dim=-1)],
                        dim=-2) / det[..., None, None]
-    v = torch.einsum("...ij,...j->...i", Jinv, se2_trans(T))
+    v = matvec_small(Jinv, se2_trans(T))
     return torch.cat([v, w[..., None]], dim=-1)
 
 

@@ -378,3 +378,81 @@ def test_cg_card_matches_cpu(cuda):
     assert o_g["Y"].device.type == "cuda" and o_c["Y"].device.type == "cpu"
     s_g, s_c = (api.summarize(o)["success_rate"] * 64 for o in (o_g, o_c))
     assert abs(s_g - s_c) <= 9, (s_g, s_c)
+
+
+@pytest.fixture(scope="module")
+def ring6_inputs(cuda):
+    """planar10_ring6's reduced problem (13 nodes, 10 groups of 6 circle
+    rows padded to 8) on 1000 goals prepared on the card, and world-frame
+    starts near random configurations, where the hinges meet the chain."""
+    from graphik_tpu_torch.robots.library import load_planar_chain
+    from graphik_tpu_torch.utils.environments import ring_environment
+
+    tpl = load_planar_chain(10, limits=np.pi / 2)[0]
+    ps = ProblemStructure.from_template(tpl, obstacles=ring_environment())
+    spec = ps.reduced_spec()
+    Nr = spec["Nr"]
+    omega, psi_L, psi_U = ps.masks()
+    ep = edge_ops.build_edge_problem(omega[:Nr, :Nr], psi_L[:Nr, :Nr], psi_U[:Nr, :Nr],
+                                     dim=2, anchors=spec)
+    gen = torch.Generator().manual_seed(7)
+    T_goal, _ = api.random_goals(ps, (1000,), gen, dtype=torch.float32, device=cuda)
+    D_goal, Y0 = api.make_solver(ps, smooth_iters=2).prepare(T_goal)
+    _, q = api.random_goals(ps, (1000,), gen, dtype=torch.float32, device=cuda)
+    Yw = ps.realization(q)[:, :Nr].contiguous()
+    return ps, ep, Y0.contiguous(), Yw, ep.edge_values(D_goal).contiguous()
+
+
+def test_planar_anchored_shape(ring6_inputs):
+    """The <2, 2, 16, true> instance: two instances a warp."""
+    _, ep, _, _, _ = ring6_inputs
+    assert (ep.N, ep.dim, ep.E, ep.A, ep.a_nsel, ep.a_R) == (13, 2, 29, 80, 10, 8)
+    shape = tr_solve.kernel_shape(ep, 8192, 2)
+    assert shape["two_per_warp"] and shape["instances_per_block"] == 8
+
+
+@pytest.mark.parametrize("res_tol", [0.0, 0.05])
+def test_planar_anchored_bitwise(ring6_inputs, res_tol):
+    """One step and 100 steps from the prepared starts and from world-frame
+    starts, bitwise equal to the plain version."""
+    _, ep, Y0, Yw, dg = ring6_inputs
+    before = tr_solve.solve_tr_cuda.anchored_launches
+    for Ys in (Y0, Yw):
+        _bitwise(ep, Ys, dg, maxiter=1, maxinner=32, res_tol=res_tol)
+        _bitwise(ep, Ys, dg, maxiter=100, maxinner=32, plateau_every=16, plateau_rtol=1e-4,
+                 res_tol=res_tol)
+    assert tr_solve.solve_tr_cuda.anchored_launches == before + 4
+
+
+def test_planar_ring_main_path_runs_the_anchored_kernel(ring6_inputs, cuda):
+    ps = ring6_inputs[0]
+    T_goal, _ = api.random_goals(ps, (256,), torch.Generator().manual_seed(8),
+                                 dtype=torch.float32, device=cuda)
+    solver = api.make_solver(ps, TRParams.production(maxiter=250, maxinner=32),
+                             polish_params=LocalParams(maxiter=10, tol_grad=1e-8),
+                             smooth_iters=2)
+    before = tr_solve.solve_tr_cuda.anchored_launches
+    out = solver(T_goal)
+    assert tr_solve.solve_tr_cuda.anchored_launches == before + 1
+    assert out["Y"].shape == (256, ps.N, 2)
+    assert api.summarize(out)["success_rate"] >= 0.75
+
+
+def test_sharded_solve_on_card(cuda):
+    """solve_ik_sharded over two shards on the card: one TR launch a
+    shard, and every lane as the unsharded solver's (JAX's tolerance of
+    tests/test_parallel.py)."""
+    from graphik_tpu_torch.parallel import mesh
+
+    _, ps = load_ur10()
+    T_goal, _ = api.random_goals(ps, (1001,), torch.Generator().manual_seed(9),
+                                 dtype=torch.float32, device=cuda)
+    kw = dict(params=TRParams.production(maxiter=100, maxinner=24),
+              polish_params=LocalParams(maxiter=10, tol_grad=1e-8), smooth_iters=2)
+    before = tr_solve.solve_tr_cuda.launches
+    out_s = mesh.solve_ik_sharded(ps, T_goal, [cuda, cuda], **kw)
+    assert tr_solve.solve_tr_cuda.launches == before + 2
+    out_l = api.solve_ik(ps, T_goal, **kw)
+    assert out_s["q"].shape == (1001, 6) and out_s["q"].device.type == "cuda"
+    torch.testing.assert_close(out_s["q"], out_l["q"], rtol=1e-3, atol=1e-4)
+    assert torch.equal(out_s["success"], out_l["success"])

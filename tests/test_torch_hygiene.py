@@ -22,7 +22,9 @@ PORT_FILES = sorted(
     os.path.join(d, f)
     for d, _, files in os.walk(os.path.join(ROOT, "graphik_tpu_torch"))
     for f in files if f.endswith(".py")
-) + [os.path.join(ROOT, "chip_smoke.py")]
+) + [os.path.join(ROOT, f) for f in ("chip_smoke.py", "tools/torch_distributed_worker.py",
+                                      "examples/torch_riemannian_example.py",
+                                      "examples/torch_cidgik_example.py")]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, ROOT))
@@ -145,9 +147,9 @@ def test_edge_kernel_wrappers_refuse_cpu_and_float64(ur10_edge):
 
 
 def test_obstacles_raise():
-    """Obstacles compile on 3D robots and planar robots compile without
-    them; planar robots with obstacles (the anchored kernel at d = 2) are a
-    later slice and raise instead of compiling a wrong graph."""
+    """Obstacles compile on 3D robots and on planar robots (the anchored
+    kernel at d = 2): nothing raises, and a planar obstacle node sits at
+    its centre's first two coordinates."""
     from graphik_tpu_torch.graphs.problem import ProblemStructure
     from graphik_tpu_torch.robots.templates import planar_from_links
 
@@ -155,5 +157,6 @@ def test_obstacles_raise():
     assert ps.add_spherical_obstacle(np.array([0.5, 0.0, 0.5]), 0.2).n_obstacles == 1
     planar = planar_from_links([1.0, 1.0, 1.0])
     assert ProblemStructure.from_template(planar).N == 6
-    with pytest.raises(NotImplementedError, match="planar robots with obstacles.*later slice"):
-        ProblemStructure.from_template(planar, obstacles=[(np.zeros(2), 0.1)])
+    ps_o = ProblemStructure.from_template(planar, obstacles=[(np.array([0.5, 2.0, 7.0]), 0.1)])
+    assert ps_o.N == 7 and ps_o.n_obstacles == 1
+    np.testing.assert_array_equal(ps_o.pos_fixed[-1], [0.5, 2.0])

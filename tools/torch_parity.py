@@ -4,6 +4,9 @@ one configuration at its bench parameters, float32:
 
   single init (api.make_solver), a 10-step LM polish, 2-squaring smoothing:
     ur10_table (default) UR10 + the 100-sphere table scene, production(250, 32);
+    planar10_ring6: load_planar_chain(10, limits=pi/2) + six circles of radius
+        0.5 on a ring of radius 4 (the port's utils/environments.py
+        ring_environment), production(250, 32);
     ur10, kuka_iiwa, lwa4d, planar6, planar10 (load_planar_chain(n, limits=pi/2)):
         production(100, 24);
   restarts (parallel.make_restart_solver, restart key / generator seed 7):
@@ -54,7 +57,8 @@ JSON line with both counts and exits 1 when they disagree:
     rests on it).
 
 The JAX half solves with the JAX package's production TR backend, the fused
-Pallas kernel (interpret mode on the CPU), except on the planar chains: there
+Pallas kernel (interpret mode on the CPU), except on the planar chains (with
+or without obstacles): there
 it uses the package's "edge" XLA backend, the same algorithm, because at
 d = 2 the Pallas kernel in interpret mode stalls near convergence and
 succeeds less often (`--backend pallas` shows it: 936 of planar6's 1000
@@ -91,6 +95,7 @@ CONFIGS = {
     "lwa4d": dict(BENCH, robot="lwa4d", restarts=0, seed=42),
     "planar6": dict(BENCH, robot="planar6", restarts=0, seed=43, backend="edge"),
     "planar10": dict(BENCH, robot="planar10", restarts=0, seed=44, backend="edge"),
+    "planar10_ring6": dict(TABLE, robot="planar10_ring6", restarts=0, seed=54, backend="edge"),
     "ur10_restarts4": dict(BENCH, robot="ur10", restarts=4, seed=45),
     "ur10_table_restarts2": dict(TABLE, robot="ur10_table", restarts=2, seed=46),
     "planar6_restarts2": dict(BENCH, robot="planar6", restarts=2, seed=47, backend="edge"),
@@ -111,7 +116,8 @@ CONFIGS = {
 
 def structure(robot, library, ProblemStructure, table_environment, tree):
     """The config's ProblemStructure, from either package's modules (they
-    share the names); `tree` makes the tree's."""
+    share the names); `tree` makes the tree's. The ring of circles is the
+    port's numpy list, handed to either package's structure."""
     if robot in ("ur10", "ur10_table"):
         tpl = library.load_ur10()[0]
         obstacles = table_environment() if robot == "ur10_table" else None
@@ -122,6 +128,11 @@ def structure(robot, library, ProblemStructure, table_environment, tree):
         return library.load_schunk_lwa4d()[1]
     if robot in ("planar6", "planar10"):
         return library.load_planar_chain(int(robot[6:]), limits=np.pi / 2)[1]
+    if robot == "planar10_ring6":
+        from graphik_tpu_torch.utils.environments import ring_environment
+
+        tpl = library.load_planar_chain(10, limits=np.pi / 2)[0]
+        return ProblemStructure.from_template(tpl, obstacles=ring_environment())
     if robot == "tree":
         return tree()
     raise ValueError(robot)
