@@ -35,10 +35,17 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      one anchored TR step bitwise equal to the plain version at B = 8192,
      then the kernel's time there; a 64-goal batch on the card against
      the same solver on the CPU;
-  7. the edge cost+grad and Hessian kernels vs ops/edge.py's plain
-     versions at B = 8192, on the Y the UR10 path hands to the solve and
-     a seeded Z: f rtol 1e-5, g and H max abs error <= 1e-4 x max |plain|;
-     times;
+  7. the edge kernels K1 (cost+grad) and K2 (Hessian-vector product),
+     which no path launches (`edge_phase`): bitwise equal to their
+     kernel-order plain versions (ops/edge.py cost_and_egrad_kernel_order,
+     ehess_kernel_order) on 1000 goals prepared for UR10, planar6,
+     planar10, KUKA iiwa and the tree, and at B = 8192 on the Y the UR10
+     path hands to the solve and a seeded Z, where torch's own order
+     (cost_and_egrad, ehess) is held to f rtol 1e-5, g and H max abs error
+     <= 1e-4 x max |plain|; each kernel's device time (profiler, the L2
+     flushed by a 256 MB read before each launch) and call time (CUDA
+     events over 100 back-to-back calls) at B = 8192 and 131,072 (the UR10
+     inputs repeated: 84 MB and 109 MB, past the L2), beside its bounds;
   8. the other robots of the bench - planar6 and planar10
      (load_planar_chain(n, limits=pi/2)), KUKA iiwa and LWA4D - each with
      the UR10 path's parameters: the TR kernel vs its plain version on the
@@ -157,6 +164,9 @@ FLOORS = {
     "planar10_ring6": 0.818,        # 861 / 1000 [0.8382, 0.8811] ("edge" backend)
 }
 B_TREE = 1000
+# the edge kernels' second batch: the UR10 inputs repeated 16 times, so that
+# their working set (84 MB for K1, 109 MB for K2) passes the 50 MB L2
+B_EDGE_BIG = 16 * B_MAIN
 # dense CIDGIK: the bench's batches and schedules (bench.py:391-393,526-539)
 B_CIDGIK, B_CIDGIK_TABLE = 1024, 512
 CIDGIK_UR10 = dict(admm_iters=700, admm_iters_rest=300)
@@ -311,6 +321,152 @@ def profiled(fn, dev):
     copies = sum(1 for e in dev_ev if e.name().startswith(("Memcpy", "Memset")))
     busy_ms = sum(e.duration_ns() for e in dev_ev) / 1e6
     return len(dev_ev) - copies, copies, busy_ms
+
+
+def flushed_kernel_ms(fn, name, reps):
+    """Median device duration (ms) of the kernel named `name` (profiler
+    events) over `reps` runs of fn, each after a read of 256 MB that
+    flushes the L2: the kernel finds its inputs cold, as a caller does, and
+    evicts only clean lines."""
+    import torch
+
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ms = sorted(e.duration_ns() / 1e6 for e in prof.profiler.kineto_results.events()
+                if e.device_type() == cuda and name in e.name())
+    check(2 * len(ms) >= reps, f"the profiler saw {len(ms)} of {reps} {name} launches")
+    return ms[len(ms) // 2]
+
+
+def edge_bytes(N, d, E, B, hess):
+    """Bytes K1 (hess False) or K2 must move: Y (and Z) and the goal
+    distances in, g and f (or H) out."""
+    return B * ((3 if hess else 2) * N * d + E + (0 if hess else 1)) * 4
+
+
+def edge_phase(dev, ep, Y0, dg):
+    """Phase 7: the edge kernels K1 (cost_and_egrad_cuda) and K2
+    (ehess_cuda). Bitwise against their kernel-order plain versions on
+    B_CHECK goals prepared for UR10, planar6, planar10, KUKA iiwa and the
+    tree, and at B_MAIN on the UR10 path's Y0 / dg, which are also held to
+    torch's own order (cost_and_egrad / ehess) within a tolerance; then
+    each kernel's device time (profiler, L2 flushed) and call time (CUDA
+    events over back-to-back calls) at B_MAIN and B_EDGE_BIG (the UR10
+    inputs repeated), beside its bounds. Returns the two kernel records."""
+    import torch
+
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.ops import edge as edge_ops
+    from graphik_tpu_torch.robots.library import (
+        load_kuka, load_planar_chain, load_tree5, load_ur10)
+
+    t_phase = time.perf_counter()
+    K1, K2 = edge_ops.cost_and_egrad_cuda, edge_ops.ehess_cuda
+    zgen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def bitwise(tag, ep_, Y_, Z_, dg_):
+        f_k, g_k = K1(ep_, Y_, dg_)
+        h_k = K2(ep_, Y_, Z_, dg_)
+        f_p, g_p = edge_ops.cost_and_egrad_kernel_order(ep_, Y_, dg_)
+        h_p = edge_ops.ehess_kernel_order(ep_, Y_, Z_, dg_)
+        torch.cuda.synchronize()
+        same = [int(torch.equal(x, y)) for x, y in ((f_k, f_p), (g_k, g_p), (h_k, h_p))]
+        err = max(float((x - y).abs().max()) for x, y in ((f_k, f_p), (g_k, g_p), (h_k, h_p)))
+        finite = all(bool(torch.isfinite(x).all()) for x in (f_k, g_k, h_k))
+        shape = edge_ops.edge_kernel_shape(ep_, Y_.shape[0], dg_.shape[1], True, dev)
+        log(f"[7] {tag} (N={ep_.N}, d={ep_.dim}, E={ep_.E}), B={Y_.shape[0]}: f, g, H bitwise "
+            f"equal to the kernel-order plain versions {same}, max |diff| {err:.1e}; W "
+            f"{shape['W']}, EPL {shape['epl']}, {shape['blocks']} blocks of {shape['tile']}")
+        check(all(same) and finite, f"{tag}: edge kernels differ from their plain versions")
+        return {"robot": tag, "N": ep_.N, "d": ep_.dim, "E": ep_.E, "B": Y_.shape[0],
+                "bitwise": True, "W": shape["W"], "epl": shape["epl"]}, (f_k, g_k, h_k), err
+
+    robots = {"ur10": load_ur10, "planar6": lambda: load_planar_chain(6, limits=np.pi / 2),
+              "planar10": lambda: load_planar_chain(10, limits=np.pi / 2),
+              "kuka_iiwa": load_kuka, "tree": load_tree5}
+    shapes, err_max = [], 0.0
+    for tag, load in robots.items():
+        ps_r = load()[1]
+        ep_r = edge_ops.build_edge_problem(*ps_r.masks(), dim=ps_r.dim)
+        T_r = api.random_goals(ps_r, (B_CHECK,), torch.Generator().manual_seed(SEED),
+                               dtype=torch.float32, device=dev)[0]
+        D_r, Y_r = api.make_solver(ps_r, smooth_iters=2).prepare(T_r)
+        Y_r = Y_r.contiguous()
+        Z_r = torch.randn(Y_r.shape, generator=zgen, device=dev)
+        rec, _, err = bitwise(tag, ep_r, Y_r, Z_r, ep_r.edge_values(D_r).contiguous())
+        shapes.append(rec)
+        err_max = max(err_max, err)
+
+    # The UR10 path's Y0 (prepare's, cost O(1)) at B_MAIN. At the Y the
+    # solve returns the cost is ~1e-7, a sum of squared differences of O(1)
+    # squared lengths: f32 cancellation puts any two summation orders ~1e-2
+    # apart in f and ~1e-5 apart in g there, so torch's order is compared
+    # at Y0.
+    Z = torch.randn(Y0.shape, generator=zgen, device=dev)
+    K1.launches = K2.launches = 0
+    rec, (f_k, g_k, h_k), err = bitwise("ur10 path", ep, Y0, Z, dg)
+    launches = (K1.launches, K2.launches)
+    check(launches == (1, 1), "the edge entry points did not launch once each")
+    shapes.append(rec)
+    err_max = max(err_max, err)
+    f_p, g_p = edge_ops.cost_and_egrad(ep, Y0, dg)
+    h_p = edge_ops.ehess(ep, Y0, Z, dg)
+    f_rel = float(((f_k - f_p).abs() / f_p.abs().clamp(min=1e-30)).max())
+    err_g, err_h = float((g_k - g_p).abs().max()), float((h_k - h_p).abs().max())
+    g_scale, h_scale = float(g_p.abs().max()), float(h_p.abs().max())
+    log(f"[7] B={B_MAIN}, against torch's order: f max rel err {f_rel:.3e} (<= 1e-5), g max "
+        f"abs err {err_g:.3e} (<= 1e-4 x {g_scale:.3e}), H max abs err {err_h:.3e} (<= 1e-4 x "
+        f"{h_scale:.3e})")
+    check(f_rel <= 1e-5, "edge cost mismatch")
+    check(err_g <= 1e-4 * g_scale and err_h <= 1e-4 * h_scale, "edge gradient/Hessian mismatch")
+
+    N, d, E = ep.N, ep.dim, ep.E
+    cases = {}
+    for B in (B_MAIN, B_EDGE_BIG):
+        r = B // B_MAIN
+        Yb, Zb, dgb = Y0.repeat(r, 1, 1), Z.repeat(r, 1, 1), dg.repeat(r, 1)
+        cases["cost_grad", B] = ("cost_grad_kernel", lambda Yb=Yb, dgb=dgb: K1(ep, Yb, dgb), False)
+        cases["hess", B] = ("hess_kernel", lambda Yb=Yb, Zb=Zb, dgb=dgb: K2(ep, Yb, Zb, dgb), True)
+    # every call time before the first profiler session of the process
+    timed = {key: {"call_ms": event_ms(fn, 100)} for key, (_, fn, _) in cases.items()}
+    for (name, B), (kern, fn, hess) in cases.items():
+        b = bound(B * (edge_flops(N, d, E) + (E * d if hess else 0)), edge_bytes(N, d, E, B, hess))
+        t = timed[name, B]
+        t.update(device_ms=flushed_kernel_ms(fn, kern, 20), bound_ms=b[0], bound_by=b[1])
+        log(f"[7] {name} at B={B}: device {t['device_ms'] * 1e3:.2f} us (L2 flushed), call "
+            f"{t['call_ms'] * 1e3:.2f} us, bound {b[0] * 1e3:.2f} us ({b[1]}), "
+            f"{t['device_ms'] / b[0]:.2f}x")
+    del cases
+    plain = {"cost_grad": event_ms(lambda: edge_ops.cost_and_egrad_kernel_order(ep, Y0, dg), 5),
+             "hess": event_ms(lambda: edge_ops.ehess_kernel_order(ep, Y0, Z, dg), 5)}
+    shape = edge_ops.edge_kernel_shape(ep, B_MAIN, dg.shape[1], False, dev)
+    log(f"[7] kernel-order plain versions at B={B_MAIN}: cost+grad {plain['cost_grad']:.4f} ms, "
+        f"Hessian {plain['hess']:.4f} ms; launch shape {shape}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    records = []
+    for name, line, n, tol in (
+            ("cost_grad", 302, launches[0], {"f_max_rel": f_rel, "g_max_abs": err_g}),
+            ("hess", 325, launches[1], {"H_max_abs": err_h})):
+        t8, tb = timed[name, B_MAIN], timed[name, B_EDGE_BIG]
+        records.append({
+            "name": f"edge_{name}", "route": "cuda", "source": "graphik_tpu_torch/csrc/edge.cu",
+            "replaces": f"graphik_tpu/ops/edge.py:{line}", "launches": n,
+            "max_abs_err": err_max, "ms": t8["device_ms"], "plain_ms": plain[name],
+            "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"], "library_ms": None,
+            "at": f"UR10, B={B_MAIN}, device time with the L2 flushed",
+            "two_per_warp": shape["two_per_warp"], "blocks_resident": shape["blocks_resident"],
+            "device_ms": {str(B_MAIN): t8["device_ms"], str(B_EDGE_BIG): tb["device_ms"]},
+            "call_ms": {str(B_MAIN): t8["call_ms"], str(B_EDGE_BIG): tb["call_ms"]},
+            "bounds_ms": {str(B_MAIN): t8["bound_ms"], str(B_EDGE_BIG): tb["bound_ms"]},
+            "against_torch_order": tol, "bitwise_shapes": shapes})
+    return records
 
 
 def ptxas_lines():
@@ -1122,35 +1278,8 @@ def main() -> int:
     log(f"[6] {B_SMALL} table goals: success on the card {s_gpu:.4f}, on the CPU {s_cpu:.4f}")
     check(abs(s_gpu - s_cpu) * B_SMALL <= 6, "card and CPU success differ by more than 6 goals")
 
-    # ---- phase 7: the edge cost+grad and Hessian kernels ----
-    # On the Y the UR10 path hands to the solve (prepare's Y0, cost O(1)).
-    # At the Y it returns the cost is ~1e-7, a sum of squared differences
-    # of O(1) squared lengths: f32 cancellation there puts any two
-    # summation orders ~1e-2 apart in f and ~1e-5 apart in g, whatever
-    # the kernel does, so a relative tolerance says nothing at that point.
-    Z = torch.randn(Y0.shape, generator=torch.Generator(device=dev).manual_seed(SEED),
-                    device=dev)
-    edge_ops.cost_and_egrad_cuda.launches = edge_ops.ehess_cuda.launches = 0
-    f_k, g_k = edge_ops.cost_and_egrad_cuda(ep, Y0, dg)
-    h_k = edge_ops.ehess_cuda(ep, Y0, Z, dg)
-    launches_cg, launches_h = edge_ops.cost_and_egrad_cuda.launches, edge_ops.ehess_cuda.launches
-    check(launches_cg == 1 and launches_h == 1, "the edge entry points did not launch")
-    f_p, g_p = edge_ops.cost_and_egrad(ep, Y0, dg)
-    h_p = edge_ops.ehess(ep, Y0, Z, dg)
-    torch.cuda.synchronize()
-    f_rel = float(((f_k - f_p).abs() / f_p.abs().clamp(min=1e-30)).max())
-    err_g, err_h = float((g_k - g_p).abs().max()), float((h_k - h_p).abs().max())
-    g_scale, h_scale = float(g_p.abs().max()), float(h_p.abs().max())
-    log(f"[7] B={B_MAIN}: f max rel err {f_rel:.3e} (<= 1e-5), g max abs err {err_g:.3e} "
-        f"(<= 1e-4 x {g_scale:.3e}), H max abs err {err_h:.3e} (<= 1e-4 x {h_scale:.3e})")
-    check(f_rel <= 1e-5, "edge cost mismatch")
-    check(err_g <= 1e-4 * g_scale and err_h <= 1e-4 * h_scale, "edge gradient/Hessian mismatch")
-    ms_cg = event_ms(lambda: edge_ops.cost_and_egrad_cuda(ep, Y0, dg), 20)
-    ms_cg_p = event_ms(lambda: edge_ops.cost_and_egrad(ep, Y0, dg), 20)
-    ms_h = event_ms(lambda: edge_ops.ehess_cuda(ep, Y0, Z, dg), 20)
-    ms_h_p = event_ms(lambda: edge_ops.ehess(ep, Y0, Z, dg), 20)
-    log(f"[7] cost+grad: kernel {ms_cg:.4f} ms, plain {ms_cg_p:.4f} ms; Hessian: kernel "
-        f"{ms_h:.4f} ms, plain {ms_h_p:.4f} ms")
+    # ---- phase 7: the edge cost+grad (K1) and Hessian (K2) kernels ----
+    edge_records = edge_phase(dev, ep, Y0, dg)
 
     # ---- phase 8: the other robots of the bench ----
     def edge_problem(ps_):
@@ -1336,9 +1465,6 @@ def main() -> int:
                  tr_bytes(ep_t.N, 3, ep_t.E, B_CHECK))
     b_tab = bound(tr_flops(ep_t.N, 3, ep_t.E, k_tab, anchored_nodes=ep_t.a_nsel),
                   tr_bytes(ep_t.N, 3, ep_t.E, B_MAIN))
-    b_edge = bound(B_MAIN * edge_flops(N, d, E), B_MAIN * (2 * N * d + E + 1) * 4)
-    b_hess = bound(B_MAIN * (edge_flops(N, d, E) + E * d),
-                   B_MAIN * (3 * N * d + E) * 4)
     shape_tr = tr_solve.kernel_shape(ep, B_MAIN, d)
     shape_ta = tr_solve.kernel_shape(ep_t, B_MAIN, 3)
     log(f"[kernels] TR launch shapes at B={B_MAIN}: UR10 {shape_tr}; table {shape_ta}")
@@ -1361,16 +1487,7 @@ def main() -> int:
                     "bound_ms": b_tab[0], "bound_by": b_tab[1], "N": ep_t.N, "d": 3,
                     "E": ep_t.E, "A": ep_t.A, "B": B_MAIN, "kernel_shape": shape_ta}]
          + anchored_paths},
-        {"name": "edge_cost_grad", "route": "cuda", "source": "graphik_tpu_torch/csrc/edge.cu",
-         "replaces": "graphik_tpu/ops/edge.py:302", "launches": launches_cg,
-         "max_abs_err": err_g, "ms": ms_cg, "plain_ms": ms_cg_p,
-         "bound_ms": b_edge[0], "bound_by": b_edge[1], "library_ms": None,
-         "at": f"UR10, B={B_MAIN}"},
-        {"name": "edge_hess", "route": "cuda", "source": "graphik_tpu_torch/csrc/edge.cu",
-         "replaces": "graphik_tpu/ops/edge.py:325", "launches": launches_h,
-         "max_abs_err": err_h, "ms": ms_h, "plain_ms": ms_h_p,
-         "bound_ms": b_hess[0], "bound_by": b_hess[1], "library_ms": None,
-         "at": f"UR10, B={B_MAIN}"},
+        *edge_records,
         ring_kernel,
     ]}
     log(f"[11-13] CIDGIK paths: {json.dumps(cidgik_paths)}")

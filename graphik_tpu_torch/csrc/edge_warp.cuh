@@ -3,7 +3,7 @@
 // its compiled edge form: the per-segment tables and the edge cost,
 // gradient and Hessian-vector terms shared by csrc/tr_solve.cu (the TR
 // solve) and csrc/edge.cu (the cost+gradient and Hessian-vector entry
-// points, W = 32).
+// points).
 //
 // * Lane i < N of a segment holds node i's d coordinates of a state vector.
 // * Edge differences C.Y: segment lane l owns edges e = l, l + W, ... (EPL

@@ -49,17 +49,23 @@ _SIGNATURES = {
     ],
     "graphik_edge_cost_grad": [
         _P, _P, _I,                                         # Y, dgoal, dg_stride
-        _P, _P, _P, _P, _P,                                 # ei, ej, epar, rowptr, inc
+        _P, _P, _P, _P,                                     # ei, ej, epar, rowptr
+        _P, _P, _I,                                         # codes, slot, n_codes
         _P, _P,                                             # f, g
         _I, _I, _I, _I,                                     # B, N, D, E
-        _P,                                                 # stream
+        _I, _P,                                             # device, stream
     ],
     "graphik_edge_hess": [
         _P, _P, _P, _I,                                     # Y, Z, dgoal, dg_stride
-        _P, _P, _P, _P, _P,                                 # ei, ej, epar, rowptr, inc
+        _P, _P, _P, _P,                                     # ei, ej, epar, rowptr
+        _P, _P, _I,                                         # codes, slot, n_codes
         _P,                                                 # H
         _I, _I, _I, _I,                                     # B, N, D, E
-        _P,                                                 # stream
+        _I, _P,                                             # device, stream
+    ],
+    "graphik_edge_shape": [
+        _I, _I, _I, _I, _I, _I, _I,                         # B, N, D, E, dg_stride, hess, device
+        _P,                                                 # info (7 int32)
     ],
 }
 

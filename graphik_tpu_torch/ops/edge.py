@@ -11,15 +11,20 @@ over that form. They are the reference math for the TR kernel
     grad  = -2 C^T (s * diff)       scatter-add as a matmul
 
 `cost_and_egrad_cuda` and `ehess_cuda` wrap the hand-written CUDA kernels
-csrc/edge.cu, the counterparts of the JAX package's per-op Pallas kernels
-(cost_and_egrad_pallas, ehess_pallas); their plain versions are
-`cost_and_egrad` and `ehess`. No solve path calls them: the TR kernel
-fuses the same math.
+csrc/edge.cu (K1, K2), the counterparts of the JAX package's per-op Pallas
+kernels (cost_and_egrad_pallas, ehess_pallas). Their exact plain versions
+are `cost_and_egrad_kernel_order` and `ehess_kernel_order`, which sum in
+the kernels' order; `cost_and_egrad` and `ehess` compute the same in
+torch's own. No solve path calls the kernels: the TR kernel fuses the same
+math.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import weakref
+from collections import Counter
 
 import numpy as np
 import torch
@@ -268,6 +273,147 @@ def ehess(ep: EdgeProblem, Y, Z, dgoal_e):
 
 
 # ---------------------------------------------------------------------------
+# Kernel-order plain versions (csrc/edge_warp.cuh's summation order)
+# ---------------------------------------------------------------------------
+#
+# The CUDA kernels sum in a fixed order, and these functions repeat it to
+# the last bit (the build passes -fmad=false): a per-lane partial over the
+# 32-lane layout (lane l holds edges l, l + 32, ...; lane i < N node i),
+# then a 32-lane butterfly; sums over the d coordinates in order; and the
+# scatter C^T w summed per node over its incident edges in ascending edge
+# order. They are the exact plain versions of K1 and K2
+# (`cost_and_egrad_kernel_order`, `ehess_kernel_order`) and the edge terms
+# of the TR kernel's (ops/tr_solve.py::solve_tr_reference).
+
+WARP = 32
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class KernelOrderTables:
+    """An EdgeProblem's edge tables as tensors of one dtype and device:
+    endpoints ei, ej (E,); parameters om, psiL, psiU, Lm, Um (E,); each
+    node's incident edges nbr (N, width), ascending and padded with E (a
+    zero row), with signs sgn (+1 at ei, -1 at ej)."""
+
+    ei: torch.Tensor
+    ej: torch.Tensor
+    om: torch.Tensor
+    psiL: torch.Tensor
+    psiU: torch.Tensor
+    Lm: torch.Tensor
+    Um: torch.Tensor
+    nbr: torch.Tensor
+    sgn: torch.Tensor
+    N: int
+    d: int
+
+
+def kernel_order_tables(ep: EdgeProblem, dtype, device) -> KernelOrderTables:
+    E = ep.E
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x)[:E], dtype=dtype, device=device)
+
+    inc = incidence(ep)
+    width = max(len(x) for x in inc)
+    nbr = torch.full((ep.N, width), E, dtype=torch.long)
+    sgn = torch.ones((ep.N, width), dtype=dtype)
+    for i, lst in enumerate(inc):
+        for q, code in enumerate(lst):
+            nbr[i, q] = code >> 1
+            sgn[i, q] = -1.0 if code & 1 else 1.0
+    return KernelOrderTables(
+        ei=torch.as_tensor(ep.ei, dtype=torch.long, device=device),
+        ej=torch.as_tensor(ep.ej, dtype=torch.long, device=device),
+        om=t(ep.omega), psiL=t(ep.psi_L), psiU=t(ep.psi_U), Lm=t(ep.L_mask), Um=t(ep.U_mask),
+        nbr=nbr.to(device), sgn=sgn.to(device), N=ep.N, d=ep.dim)
+
+
+def lane_sum(x):
+    """(B, <= 32) per-lane partials -> (B,): the 32-lane butterfly (rounds
+    xor 16, 8, 4, 2, 1), lane 0's value."""
+    x = torch.nn.functional.pad(x, (0, WARP - x.shape[-1]))
+    for m in (16, 8, 4, 2, 1):
+        # lane i gains lane i ^ m's value
+        x = x + x.reshape(-1, WARP // (2 * m), 2, m).flip(-2).reshape(-1, WARP)
+    return x[:, 0]
+
+
+def edge_sum(x):
+    """(B, E) -> (B,): per-lane partials over edges l, l + 32, ..., then
+    `lane_sum`."""
+    E = x.shape[-1]
+    epl = -(-E // WARP)
+    x = torch.nn.functional.pad(x, (0, epl * WARP - E)).reshape(-1, epl, WARP)
+    acc = torch.zeros_like(x[:, 0])
+    for j in range(epl):
+        acc = acc + x[:, j]
+    return lane_sum(acc)
+
+
+def dot_d(a, b):
+    """(..., d) x (..., d) -> (...), summed over d in order."""
+    s = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        s = s + a[..., k] * b[..., k]
+    return s
+
+
+def scatter(kt: KernelOrderTables, w, scale):
+    """scale * C^T w: (B, E, d) -> (B, N, d), each node's incident edges
+    summed in ascending order."""
+    w = torch.nn.functional.pad(w, (0, 0, 0, 1))
+    acc = torch.zeros((w.shape[0], kt.N, kt.d), dtype=w.dtype, device=w.device)
+    for q in range(kt.nbr.shape[1]):
+        acc = acc + kt.sgn[:, q, None] * w[:, kt.nbr[:, q], :]
+    return scale * acc
+
+
+def edge_terms(kt: KernelOrderTables, Y, dg):
+    """Edge differences dY (B, E, d) and the terms s0, e1, e2 (B, E);
+    dg: (B, E) goal distances."""
+    dY = Y[:, kt.ei] - Y[:, kt.ej]
+    dist = dot_d(dY, dY)
+    s0 = kt.om * (dg - dist)
+    e1 = kt.Lm * torch.clamp(kt.psiL - dist, min=0.0)
+    e2 = kt.Um * torch.clamp(dist - kt.psiU, min=0.0)
+    return dY, s0, e1, e2
+
+
+def hvp_weights(kt: KernelOrderTables, s0, e1, e2):
+    """The Hessian's per-edge weights: s = s0 + e1 - e2 and the active
+    mask m = omega + L_mask [e1 > 0] + U_mask [e2 > 0]."""
+    s = s0 + e1 - e2
+    m = kt.om + kt.Lm * (e1 > 0).to(s.dtype) + kt.Um * (e2 > 0).to(s.dtype)
+    return s, m
+
+
+def edge_hvp(kt: KernelOrderTables, dY, s, m, Z):
+    """The Euclidean edge Hessian-vector product 2 C^T (m dD dY - s dZ)."""
+    dZ = Z[:, kt.ei] - Z[:, kt.ej]
+    mdD = m * (2.0 * dot_d(dY, dZ))
+    return scatter(kt, mdD[..., None] * dY - s[..., None] * dZ, 2.0)
+
+
+def cost_and_egrad_kernel_order(ep: EdgeProblem, Y, dgoal_e):
+    """K1's plain version: (f, g) as `cost_and_egrad_cuda` computes them,
+    bitwise at float32; edge terms only. Any dtype and device."""
+    kt = kernel_order_tables(ep, Y.dtype, Y.device)
+    dY, s0, e1, e2 = edge_terms(kt, Y, dgoal_e[:, :ep.E].to(Y.dtype))
+    f = edge_sum(s0 * s0 + e1 * e1 + e2 * e2)
+    s = s0 + e1 - e2
+    return f, scatter(kt, s[..., None] * dY, -2.0)
+
+
+def ehess_kernel_order(ep: EdgeProblem, Y, Z, dgoal_e):
+    """K2's plain version: H as `ehess_cuda` computes it, bitwise at
+    float32; edge terms only, no projection. Any dtype and device."""
+    kt = kernel_order_tables(ep, Y.dtype, Y.device)
+    dY, s0, e1, e2 = edge_terms(kt, Y, dgoal_e[:, :ep.E].to(Y.dtype))
+    return edge_hvp(kt, dY, *hvp_weights(kt, s0, e1, e2), Z)
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernels over the edge form (csrc/edge.cu)
 # ---------------------------------------------------------------------------
 
@@ -292,6 +438,67 @@ def kernel_edge_tables(ep: EdgeProblem, device):
     return (as_i32(ep.ei), as_i32(ep.ej),
             torch.as_tensor(epar, dtype=torch.float32, device=device),
             as_i32(rowptr), as_i32(flat))
+
+
+def scatter_slots(ep: EdgeProblem) -> np.ndarray:
+    """Each edge's place in csrc/edge.cu's per-segment scatter buffer, (E,)
+    int32: edge e stays in the W places of its group e // W (the edges one
+    slot of the segment's W lanes writes, W = 16 when N <= 16, else 32), at
+    a residue mod W chosen greedily so that the other edges of its rows of
+    the node-major incidence (the q-th incident edge of every node, which
+    the node lanes read together) seldom share it. Equal residues in one
+    read are shared-memory bank conflicts; the stores of a group never
+    conflict. Where a value sits changes no sum."""
+    W = 16 if ep.N <= 16 else 32
+    rows, edge_rows = {}, [[] for _ in range(ep.E)]
+    for lst in incidence(ep):
+        for q, code in enumerate(lst):
+            rows.setdefault(q, set()).add(code >> 1)
+            edge_rows[code >> 1].append(q)
+    residue = [-1] * ep.E
+    for g in range(-(-ep.E // W)):
+        free = set(range(W))
+        for e in range(g * W, min(ep.E, (g + 1) * W)):
+            taken = Counter(residue[x] for q in edge_rows[e] for x in rows[q] if x != e)
+            residue[e] = min(free, key=lambda r: (taken[r], r))
+            free.remove(residue[e])
+    return np.array([(e // W) * W + residue[e] for e in range(ep.E)], np.int32)
+
+
+# EdgeProblem -> {device: its tables for csrc/edge.cu}; an entry lives as
+# long as its EdgeProblem.
+_TABLES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def edge_kernel_tables(ep: EdgeProblem, device):
+    """csrc/edge.cu's tables as device tensors: ei, ej, the packed
+    parameters and rowptr of `kernel_edge_tables`; the scatter codes (max
+    degree, N) int32, node i's q-th incident edge (ascending) at [q, i]
+    coded as 2 slot + (1 where i is the edge's ej), and past its degree
+    2 W EPL, the scatter buffer's zero place; and `scatter_slots`."""
+    ei, ej, epar, rowptr, _ = kernel_edge_tables(ep, device)
+    slots = scatter_slots(ep)
+    inc = incidence(ep)
+    W = 16 if ep.N <= 16 else 32
+    codes = np.full((max(len(x) for x in inc), ep.N), 2 * W * -(-ep.E // W), np.int32)
+    for i, lst in enumerate(inc):
+        for q, code in enumerate(lst):
+            codes[q, i] = 2 * slots[code >> 1] + (code & 1)
+    return (ei, ej, epar, rowptr, torch.as_tensor(codes, device=device),
+            torch.as_tensor(slots, device=device))
+
+
+def cached_edge_tables(ep: EdgeProblem, device):
+    """`edge_kernel_tables(ep, device)`, built on the first call for this
+    (EdgeProblem, device) and the same tensors on every later one. The
+    tables never change: an EdgeProblem is frozen."""
+    per_device = _TABLES.get(ep)
+    if per_device is None:
+        per_device = _TABLES[ep] = {}
+    tables = per_device.get(device)
+    if tables is None:
+        tables = per_device[device] = edge_kernel_tables(ep, device)
+    return tables
 
 
 def check_kernel_inputs(what: str, ep: EdgeProblem, Ys, dgoal_e):
@@ -322,14 +529,83 @@ def _no_anchors(ep: EdgeProblem):
                          "cost_and_egrad / ehess")
 
 
+def _check_aligned(what: str, ts):
+    # The bulk copies of csrc/edge.cu read 16-byte aligned rows; the caching
+    # allocator aligns every tensor it allocates, a view at an offset may
+    # not be.
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what} takes 16-byte aligned tensors (a view at an offset is not: "
+                         f"pass a copy)")
+
+
+# Warps a block and stages of instance slabs of csrc/edge.cu (kEdgeWarps,
+# kStages), and the floats of its edge tables (csrc/edge_warp.cuh
+# EdgeTables: 545 ints and 640 floats), rounded up to 4.
+EDGE_WARPS = 8
+EDGE_STAGES = 2
+_TABLE_FLOATS = 1188
+
+
+def edge_launch_plan(N: int, d: int, E: int, dg_stride: int, B: int, hess: bool) -> dict:
+    """How csrc/edge.cu lays out K1 (hess False) or K2 for B instances:
+    the segment width W (16, two instances a warp, when N <= 16, else 32),
+    edges per lane EPL = ceil(E / W), instances a tile (8 warps of 32 / W),
+    tiles, and the dynamic shared memory a block takes in bytes: two stages
+    of a tile's Y, Z for K2 and goal-distance rows, then two output slabs
+    and the warps' scatter buffers (a segment's [d][W EPL + 1], padded to
+    16 mod 32 floats at W = 16), or the edge tables if larger, which sit
+    there before the first tile; each piece rounded up to 4 floats. The
+    kernel launches min(tiles, blocks resident) blocks."""
+    W = 16 if N <= 16 else 32
+    epl = -(-E // W)
+    tile = EDGE_WARPS * (32 // W)
+    y = -(-tile * N * d // 4) * 4
+    stage = (2 if hess else 1) * y + -(-tile * dg_stride // 4) * 4
+    seg = d * (W * epl + 1) + ((48 - d * (W * epl + 1) % 32) % 32 if W == 16 else 0)
+    work = 2 * y + EDGE_WARPS * (32 // W) * seg
+    floats = EDGE_STAGES * stage + max(work, _TABLE_FLOATS)
+    return {"W": W, "epl": epl, "two_per_warp": W == 16, "tile": tile,
+            "tiles": -(-B // tile), "smem_bytes": 4 * floats}
+
+
+def edge_kernel_shape(ep: EdgeProblem, B: int, dg_stride: int, hess: bool, device=None) -> dict:
+    """The launch shape csrc/edge.cu reports for these sizes on the card:
+    `edge_launch_plan`'s fields as the C side computes them, the blocks
+    resident on the card and the blocks launched. Needs the card (it builds
+    the library)."""
+    from graphik_tpu_torch.ops._build import load_library
+
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    info = (ctypes.c_int * 7)()
+    rc = load_library().graphik_edge_shape(B, ep.N, ep.dim, ep.E, dg_stride, int(hess), index,
+                                           info)
+    if rc != 0:
+        raise RuntimeError(f"edge kernel shape query failed: cudaError {rc}")
+    return {"W": info[0], "epl": info[1], "two_per_warp": info[0] == 16, "tile": info[2],
+            "tiles": info[3], "smem_bytes": info[4], "blocks_resident": info[5],
+            "blocks": info[6]}
+
+
+def _launch(what, fn, args, device):
+    # the current stream's handle as torch's own launchers read it: ~0.2 us,
+    # where torch.cuda.current_stream(device).cuda_stream builds a Stream
+    # object (~5 us on the card's host)
+    rc = fn(*args, device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
 def cost_and_egrad_cuda(ep: EdgeProblem, Y, dgoal_e):
-    """Launch csrc/edge.cu's cost+gradient kernel: Y (B, N, d), dgoal_e
-    (B, E) or (B, Ep), contiguous float32 CUDA tensors -> (f (B,),
-    g (B, N, d)). Edge terms only: an EdgeProblem with anchors (A > 0)
-    raises, where JAX's cost_and_egrad_pallas drops them silently. Counts
-    its launches in `cost_and_egrad_cuda.launches`."""
+    """Launch csrc/edge.cu's cost+gradient kernel (K1): Y (B, N, d),
+    dgoal_e (B, E) or (B, Ep), contiguous, 16-byte aligned float32 CUDA
+    tensors -> (f (B,), g (B, N, d)). Edge terms only: an EdgeProblem with
+    anchors (A > 0) raises, where JAX's cost_and_egrad_pallas drops them
+    silently. The device tables are built once per (EdgeProblem, device).
+    Counts its launches in `cost_and_egrad_cuda.launches`."""
     _no_anchors(ep)
     check_kernel_inputs("the edge cost+grad kernel", ep, (Y,), dgoal_e)
+    _check_aligned("the edge cost+grad kernel", (Y, dgoal_e))
     B, N, d = Y.shape
     f = torch.empty(B, dtype=torch.float32, device=Y.device)
     g = torch.empty_like(Y)
@@ -337,15 +613,10 @@ def cost_and_egrad_cuda(ep: EdgeProblem, Y, dgoal_e):
         return f, g
     from graphik_tpu_torch.ops._build import load_library
 
-    lib = load_library()
-    ei, ej, epar, rowptr, inc = kernel_edge_tables(ep, Y.device)
-    with torch.cuda.device(Y.device):  # the launch goes to the current device
-        rc = lib.graphik_edge_cost_grad(
-            Y.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1], ei.data_ptr(), ej.data_ptr(),
-            epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(), f.data_ptr(), g.data_ptr(),
-            B, N, d, ep.E, torch.cuda.current_stream(Y.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"edge cost+grad kernel launch failed: cudaError {rc}")
+    tables = cached_edge_tables(ep, Y.device)
+    _launch("edge cost+grad kernel", load_library().graphik_edge_cost_grad,
+            (Y.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1], *[t.data_ptr() for t in tables],
+             tables[4].numel(), f.data_ptr(), g.data_ptr(), B, N, d, ep.E), Y.device)
     cost_and_egrad_cuda.launches += 1
     return f, g
 
@@ -354,28 +625,25 @@ cost_and_egrad_cuda.launches = 0
 
 
 def ehess_cuda(ep: EdgeProblem, Y, Z, dgoal_e):
-    """Launch csrc/edge.cu's Hessian-vector kernel: the Euclidean
+    """Launch csrc/edge.cu's Hessian-vector kernel (K2): the Euclidean
     2 C^T (m dD dY - s dZ), no projection, for Y, Z (B, N, d) and dgoal_e
-    (B, E) or (B, Ep), contiguous float32 CUDA tensors. Edge terms only:
-    anchors (A > 0) raise, as in `cost_and_egrad_cuda`. Counts its launches
-    in `ehess_cuda.launches`."""
+    (B, E) or (B, Ep), contiguous, 16-byte aligned float32 CUDA tensors.
+    Edge terms only: anchors (A > 0) raise, as in `cost_and_egrad_cuda`.
+    Counts its launches in `ehess_cuda.launches`."""
     _no_anchors(ep)
     check_kernel_inputs("the edge Hessian kernel", ep, (Y, Z), dgoal_e)
+    _check_aligned("the edge Hessian kernel", (Y, Z, dgoal_e))
     B, N, d = Y.shape
     H = torch.empty_like(Y)
     if B == 0:
         return H
     from graphik_tpu_torch.ops._build import load_library
 
-    lib = load_library()
-    ei, ej, epar, rowptr, inc = kernel_edge_tables(ep, Y.device)
-    with torch.cuda.device(Y.device):
-        rc = lib.graphik_edge_hess(
-            Y.data_ptr(), Z.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1], ei.data_ptr(),
-            ej.data_ptr(), epar.data_ptr(), rowptr.data_ptr(), inc.data_ptr(), H.data_ptr(),
-            B, N, d, ep.E, torch.cuda.current_stream(Y.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"edge Hessian kernel launch failed: cudaError {rc}")
+    tables = cached_edge_tables(ep, Y.device)
+    _launch("edge Hessian kernel", load_library().graphik_edge_hess,
+            (Y.data_ptr(), Z.data_ptr(), dgoal_e.data_ptr(), dgoal_e.shape[1],
+             *[t.data_ptr() for t in tables], tables[4].numel(), H.data_ptr(), B, N, d, ep.E),
+            Y.device)
     ehess_cuda.launches += 1
     return H
 

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from graphik_tpu_torch.ops.edge import (
-    EdgeProblem, check_kernel_inputs, incidence, kernel_edge_tables)
+    WARP as _WARP, EdgeProblem, check_kernel_inputs, dot_d, edge_hvp, edge_sum, edge_terms,
+    hvp_weights, kernel_edge_tables, kernel_order_tables, lane_sum, scatter)
 
 # tCG stop reasons (graphik_tpu/ops/tr_pallas.py:41-44)
 _NEGATIVE_CURVATURE = 0
@@ -39,10 +40,8 @@ _EXCEEDED_TR = 1
 _REACHED_TARGET = 2
 _MAX_INNER_ITER = 4
 
-# Anchor rows the kernel build covers (csrc/tr_solve.cu kMaxA), and the
-# warp width its reductions run over.
+# Anchor rows the kernel build covers (csrc/tr_solve.cu kMaxA).
 _MAX_A = 1024
-_WARP = 32
 
 
 def _defaults(N, d, maxinner, mingradnorm, Delta_bar, Delta0, dtype):
@@ -93,61 +92,18 @@ def solve_tr_reference(
         N, d, maxinner, mingradnorm, Delta_bar, Delta0, dt)
     eps = torch.finfo(dt).eps
     E = ep.E
-    epl = -(-E // _WARP)  # edges per lane
     dg = dgoal_e[:, :E].to(dt)
-
-    def t(x):
-        return torch.as_tensor(np.asarray(x)[:E], dtype=dt, device=dev)
-
-    om, psiL, psiU, Lm, Um = (t(x) for x in (ep.omega, ep.psi_L, ep.psi_U, ep.L_mask, ep.U_mask))
-    ei = torch.as_tensor(ep.ei, dtype=torch.long, device=dev)
-    ej = torch.as_tensor(ep.ej, dtype=torch.long, device=dev)
-    # Node -> incident edges with signs, ascending edge order, padded with
-    # edge E (a zero row): the kernel's CSR as a dense table.
-    inc = incidence(ep)
-    width = max(len(x) for x in inc)
-    nbr = torch.full((N, width), E, dtype=torch.long)
-    sgn = torch.ones((N, width), dtype=dt)
-    for i, lst in enumerate(inc):
-        for q, code in enumerate(lst):
-            nbr[i, q] = code >> 1
-            sgn[i, q] = -1.0 if code & 1 else 1.0
-    nbr, sgn = nbr.to(dev), sgn.to(dev)
-    butterfly = [torch.arange(_WARP, device=dev) ^ m for m in (16, 8, 4, 2, 1)]
-
-    # The reductions follow csrc/tr_solve.cu's order so that the kernel and
-    # this version agree to the last bit: a warp-butterfly sum over 32
-    # per-lane partials (lane i < N holds node i; lane l holds edges
-    # l, l + 32, ...), sequential sums over the d coordinates, and the
-    # scatter C^T w summed per node in ascending edge order.
-    def lane_sum(x):  # (B, <=32) per-lane partials -> (B,)
-        x = torch.nn.functional.pad(x, (0, _WARP - x.shape[-1]))
-        for perm in butterfly:
-            x = x + x[:, perm]
-        return x[:, 0]
-
-    def edge_sum(x):  # (B, E) -> (B,)
-        x = torch.nn.functional.pad(x, (0, epl * _WARP - E)).reshape(-1, epl, _WARP)
-        acc = torch.zeros_like(x[:, 0])
-        for j in range(epl):
-            acc = acc + x[:, j]
-        return lane_sum(acc)
-
-    def dot_d(a, b):  # (..., d) x (..., d) -> (...)
-        s = a[..., 0] * b[..., 0]
-        for k in range(1, d):
-            s = s + a[..., k] * b[..., k]
-        return s
+    # The edge terms, sums and scatter are ops/edge.py's kernel-order plain
+    # functions, which follow csrc/edge_warp.cuh's order so that the kernel
+    # and this version agree to the last bit: a warp-butterfly sum over 32
+    # per-lane partials (lane i < N holds node i; lane l holds edges l,
+    # l + 32, ...), sequential sums over the d coordinates, and the scatter
+    # C^T w summed per node in ascending edge order.
+    kt = kernel_order_tables(ep, dt, dev)
+    om, psiL, psiU = kt.om, kt.psiL, kt.psiU
 
     def inner(a, b):
         return lane_sum(dot_d(a, b))
-
-    def scatter(w, scale):  # scale * C^T w: (B, E, d) -> (B, N, d)
-        w = torch.nn.functional.pad(w, (0, 0, 0, 1))
-        acc = torch.zeros((w.shape[0], N, d), dtype=dt, device=dev)
-        for q in range(width):
-            acc = acc + sgn[:, q, None] * w[:, nbr[:, q], :]
-        return scale * acc
 
     def col(x):  # (B,) lane scalar -> broadcastable over (B, N, d)
         return x[:, None, None]
@@ -190,24 +146,16 @@ def solve_tr_reference(
         def group_sum(x):  # (B, G, T, 32) -> (B, G): one butterfly per group
             return torch.stack([lane_sum(lane_partials(x, (g,))) for g in range(G)], dim=1)
 
-    def edge_terms(Y):
-        dY = Y[:, ei] - Y[:, ej]
-        dist = dot_d(dY, dY)
-        s0 = om * (dg - dist)
-        e1 = Lm * torch.clamp(psiL - dist, min=0.0)
-        e2 = Um * torch.clamp(dist - psiU, min=0.0)
-        return dY, s0, e1, e2
-
     if res_tol > 0.0:
         # per-lane floor of the relative residual: the mean equality-edge
         # squared length
         r_floor = (edge_sum(om * dg) / torch.clamp(edge_sum(om.expand_as(dg)), min=1.0))[:, None]
 
     def cost_and_grad(Y):
-        dY, s0, e1, e2 = edge_terms(Y)
+        dY, s0, e1, e2 = edge_terms(kt, Y, dg)
         f = edge_sum(s0 * s0 + e1 * e1 + e2 * e2)
         s = s0 + e1 - e2
-        g = scatter(s[..., None] * dY, -2.0)
+        g = scatter(kt, s[..., None] * dY, -2.0)
         if res_tol > 0.0:
             r = s0.abs() / torch.maximum(dg, r_floor)
             r = torch.maximum(r, e1 / torch.maximum(psiL, r_floor))
@@ -230,9 +178,8 @@ def solve_tr_reference(
         return f, g, rmax
 
     def make_hvp(Y):
-        dY, s0, e1, e2 = edge_terms(Y)
-        s = s0 + e1 - e2
-        m = om + Lm * (e1 > 0).to(dt) + Um * (e2 > 0).to(dt)
+        dY, s0, e1, e2 = edge_terms(kt, Y, dg)
+        s, m = hvp_weights(kt, s0, e1, e2)
 
         def gram(i, j):  # entry (i, j) of Y^T Y, (B,)
             return lane_sum(Y[..., i] * Y[..., j])
@@ -256,9 +203,7 @@ def solve_tr_reference(
             sig = group_sum(a1 - a2)
 
         def hvp(Z):
-            dZ = Z[:, ei] - Z[:, ej]
-            mdD = m * (2.0 * dot_d(dY, dZ))
-            H = scatter(mdD[..., None] * dY - s[..., None] * dZ, 2.0)
+            H = edge_hvp(kt, dY, s, m, Z)
             if A:
                 Zu = Z[:, anode]
                 Kz = []

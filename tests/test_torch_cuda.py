@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain torch versions, on the card: the
 TR kernel (anchor-free and anchored) and the edge cost+grad / Hessian
-kernels.
+kernels (bitwise against their kernel-order plain versions, at every robot
+shape and segment width, and within a tolerance of torch's own order).
 
 Every test here needs an NVIDIA GPU (and nvcc for the first build) and
 skips itself elsewhere. The file imports no JAX, so it also runs on a
@@ -262,6 +263,106 @@ def test_edge_kernels_match_plain(ur10_inputs):
     torch.testing.assert_close(f, fp, rtol=1e-5, atol=0)
     assert float((g - gp).abs().max()) <= 1e-4 * float(gp.abs().max())
     assert float((H - Hp).abs().max()) <= 1e-4 * float(Hp.abs().max())
+
+
+# Every segment width and edges-per-lane count the robots use, and the
+# extremes the build covers: the bench's robots (W = 16: UR10, planar6,
+# planar10, the tree; W = 32: KUKA iiwa, whose shape LWA4D shares), then
+# synthetic (N, d, E) for EPL 1, 3, 6 and 8 at W = 16 and 1-4 at W = 32.
+EDGE_CASES = ["ur10", "planar6", "planar10", "kuka_iiwa", "tree", (10, 2, 12), (12, 3, 40),
+              (14, 2, 90), (16, 3, 120), (20, 3, 30), (24, 2, 50), (24, 2, 70), (32, 3, 128)]
+
+
+def _edge_case(case, B, device):
+    """An EdgeProblem, Y and dg (B, Ep) for the edge kernels: a robot's
+    compiled problem on goals prepared on the card, or a synthetic one."""
+    if isinstance(case, tuple):
+        return _synthetic(*case, seed=sum(case) + B, device=device, B=B)
+    ps = load_ur10()[1] if case == "ur10" else _bench_structure(case)
+    omega, psi_L, psi_U = ps.masks()
+    ep = edge_ops.build_edge_problem(omega, psi_L, psi_U, dim=ps.dim)
+    T_goal, _ = api.random_goals(ps, (B,), torch.Generator().manual_seed(B + ep.E),
+                                 dtype=torch.float32, device=device)
+    D_goal, Y0 = api.make_solver(ps, smooth_iters=2).prepare(T_goal)
+    return ep, Y0.contiguous(), ep.edge_values(D_goal).contiguous()
+
+
+@pytest.mark.parametrize("B", [1, 33, 8191])
+@pytest.mark.parametrize("case", EDGE_CASES, ids=str)
+def test_edge_kernels_bitwise(cuda, case, B):
+    """K1 / K2 bitwise equal to their kernel-order plain versions. B = 1 and
+    33 leave segments of a tile idle; 8191 ends in a tile that is not full
+    (plain loads), after full tiles (bulk copies). Goal distances with the
+    padded stride Ep and, where it differs, with stride E."""
+    ep, Y, dg = _edge_case(case, B, cuda)
+    Z = torch.randn(Y.shape, generator=torch.Generator(device=cuda).manual_seed(B), device=cuda)
+    before = (edge_ops.cost_and_egrad_cuda.launches, edge_ops.ehess_cuda.launches)
+    for dg_ in {ep.Ep: dg, ep.E: dg[:, :ep.E].contiguous()}.values():
+        f, g = edge_ops.cost_and_egrad_cuda(ep, Y, dg_)
+        H = edge_ops.ehess_cuda(ep, Y, Z, dg_)
+        fp, gp = edge_ops.cost_and_egrad_kernel_order(ep, Y, dg_)
+        Hp = edge_ops.ehess_kernel_order(ep, Y, Z, dg_)
+        assert torch.equal(f, fp) and torch.equal(g, gp) and torch.equal(H, Hp)
+        assert bool(torch.isfinite(f).all() and torch.isfinite(g).all() and torch.isfinite(H).all())
+    n = 1 if ep.E == ep.Ep else 2
+    assert (edge_ops.cost_and_egrad_cuda.launches, edge_ops.ehess_cuda.launches) == (
+        before[0] + n, before[1] + n)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES[:5])
+def test_edge_kernel_shape_matches_plan(cuda, case):
+    """The C side's launch shape is edge_launch_plan's, with a grid of at
+    most the resident blocks; two instances a warp for N <= 16."""
+    ep = _edge_case(case, 1, cuda)[0]
+    for hess, B in ((False, 8192), (True, 8192), (False, 131072), (True, 1)):
+        shape = edge_ops.edge_kernel_shape(ep, B, ep.Ep, hess)
+        plan = edge_ops.edge_launch_plan(ep.N, ep.dim, ep.E, ep.Ep, B, hess)
+        assert {k: shape[k] for k in plan} == plan
+        assert shape["blocks"] == min(plan["tiles"], shape["blocks_resident"])
+        assert shape["blocks_resident"] >= 132
+        assert shape["two_per_warp"] == (ep.N <= 16)
+
+
+def test_edge_tables_cached_on_card(ur10_inputs):
+    """The wrappers' device tables are built once: the same tensors (data
+    pointers) on every call, equal to a fresh build."""
+    ep, Y0, dg = ur10_inputs
+    edge_ops.cost_and_egrad_cuda(ep, Y0, dg)
+    first = edge_ops.cached_edge_tables(ep, Y0.device)
+    edge_ops.ehess_cuda(ep, Y0, Y0, dg)
+    edge_ops.cost_and_egrad_cuda(ep, Y0, dg)
+    again = edge_ops.cached_edge_tables(ep, Y0.device)
+    assert [t.data_ptr() for t in first] == [t.data_ptr() for t in again]
+    for a, b in zip(first, edge_ops.edge_kernel_tables(ep, Y0.device)):
+        assert torch.equal(a, b)
+
+
+def test_edge_kernels_not_on_the_ur10_path(cuda):
+    """No path calls K1 or K2: the UR10 solver leaves their counters."""
+    _, ps = load_ur10()
+    T_goal, _ = api.random_goals(ps, (256,), torch.Generator().manual_seed(10),
+                                 dtype=torch.float32, device=cuda)
+    solver = api.make_solver(ps, TRParams.production(maxiter=100, maxinner=24),
+                             polish_params=LocalParams(maxiter=10, tol_grad=1e-8),
+                             smooth_iters=2)
+    before = (edge_ops.cost_and_egrad_cuda.launches, edge_ops.ehess_cuda.launches,
+              tr_solve.solve_tr_cuda.launches)
+    solver(T_goal)
+    assert (edge_ops.cost_and_egrad_cuda.launches, edge_ops.ehess_cuda.launches,
+            tr_solve.solve_tr_cuda.launches) == (before[0], before[1], before[2] + 1)
+
+
+def test_edge_kernels_refuse_misaligned_views(ur10_inputs):
+    """The bulk copies need 16-byte aligned rows: a view 4 bytes into its
+    storage raises."""
+    ep, Y0, dg = ur10_inputs
+    buf = torch.empty(Y0.numel() + 1, device=Y0.device)
+    Yv = buf[1:].view(Y0.shape)
+    Yv.copy_(Y0)
+    with pytest.raises(ValueError, match="aligned"):
+        edge_ops.cost_and_egrad_cuda(ep, Yv, dg)
+    with pytest.raises(ValueError, match="aligned"):
+        edge_ops.ehess_cuda(ep, Y0, Yv, dg)
 
 
 @pytest.mark.parametrize("table", [False, True])
