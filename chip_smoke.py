@@ -113,14 +113,27 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      success equal), one TR launch a shard, walls beside the unsharded
      one's; parallel.distributed.solve_ik_global at world size 1 over NCCL
      (its metrics equal to summarize of its own solve); and
-     dryrun_multigpu over every card.
+     dryrun_multigpu over every card;
+ 17. the trust region's "dense" and "edge" backends (`tr_backends_phase`;
+     eager PyTorch, no hand-written kernel launched on any of them):
+     make_solver on UR10 at float64 (its "kernel" runs "dense") at
+     B = 8192 with the UR10 path's parameters, one warm and 2 timed calls
+     with per-stage walls, success >= 0.85, float64 finite outputs, the
+     solve's host reads, launches an iteration and device-busy share from
+     one profiled solve; 64 goals on the card against the CPU (one
+     iteration from the same Y0: inner steps equal, Y within 1e-12; then
+     the whole solver: per-goal success equal on >= 61); the table at
+     float64 on "dense", B = 4096, production(250, 32): success >= 0.78,
+     every successful lane clear of every sphere (radius - 1e-3); planar10
+     at float32 on "edge", B = 1024: success within 0.03 of the kernel
+     path's on the same goals.
 
 A floor is the lower end of the JAX package's 95% Wilson interval on that
 configuration's 1000 goals (tools/torch_parity.py jax --config <name>), less
 0.02.
 
-The records of phases 11-14 and 16 are logged as JSON lines before the total.
-The last lines are the kernels' JSON record (with each kernel's bound:
+The records of phases 11-14, 16 and 17 are logged as JSON lines before the
+total. The last lines are the kernels' JSON record (with each kernel's bound:
 the larger of its flops over the f32 peak and its bytes over the memory
 rate, counted from the shapes and this run's iteration counts), the
 card's name and power limit, and {"ok": true, "device": {...}}. Without a
@@ -207,6 +220,30 @@ CG_TRAJ64 = dict(maxiter=20, plateau_every=4, plateau_rtol=0.08, minstepsize=1e-
 CG_TRAJ32 = dict(maxiter=5)
 CG_TOL64, CG_TOL32 = 1e-7, 1e-4
 CG_CARD_CPU_GOALS = 9
+# The trust region's XLA backends (TRParams.backend), eager PyTorch: UR10 at
+# float64 ("kernel" runs "dense" there, as the JAX package routes float64),
+# the table at float64 on "dense", planar10 at float32 on "edge", each at its
+# bench parameters. The batches make each call's success a firm test of its
+# floor: UR10's rate is ~0.864 (phase 3), so at B = 1024 one call's success
+# has a standard deviation of 0.0107 and falls below 0.85 about one call in
+# ten; at 8192, 0.0038 (as phase 3). The table's ~0.80 has 0.025 at
+# B = 256, under 0.78 one call in five; 0.0063 at 4096. The path is
+# launch-bound, so the larger batches cost little more time.
+# The card against the CPU on 64 UR10 goals at float64: one iteration from
+# the same Y0 gives equal inner steps per lane and Y within 1e-12 (moving
+# each entry of Y0 by about an ulp moves Y by at most 1.1e-15 after one
+# iteration on 256 goals, but by up to 2.9e-3 after five, where the
+# inner-step counts part too: tools/tr_f64_spread.py). Then the whole solver
+# (each side prepares its own Y0): per-goal success equal on at least 61 of
+# the 64. An ulp's move of Y0 alone changes the success of 5 of 768 goals on
+# the CPU (tools/tr_f64_spread.py --finish, seeds 0-11), and the card
+# differed from the CPU on 2 of 256 (tools/torch_f64_card_cpu.py, seeds
+# 0-3) and on 1 of 64 in each of two runs of this phase; at ~0.8% a goal,
+# 2 or more of 64 differ in ~9% of runs and 4 or more in 0.2%.
+# planar10's "edge" success within 0.03 of the kernel path's on the same
+# goals.
+B_F64, B_F64_TABLE, B_EDGE = 8192, 4096, 1024
+F64_TOL, F64_SAME_GOALS, EDGE_GAP = 1e-12, 61, 0.03
 # The H100 SXM's published peaks: f32 outside the tensor cores, and HBM3.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -1030,6 +1067,162 @@ def sharded_phase(dev, gen, ps, params, polish):
     return record
 
 
+def tr_backends_phase(dev, gen, ps, ps_t, polish):
+    """Phase 17: the trust region's "dense" and "edge" backends on the card
+    (eager PyTorch, no hand-written kernel). Returns the phase's record."""
+    import torch
+
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.ops import edge as edge_ops
+    from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda
+    from graphik_tpu_torch.robots.library import load_planar_chain
+    from graphik_tpu_torch.solvers import riemannian
+    from graphik_tpu_torch.solvers.riemannian import TRParams
+
+    t_phase = time.perf_counter()
+    counters = (solve_tr_cuda, edge_ops.cost_and_egrad_cuda, edge_ops.ehess_cuda)
+    cpu = torch.device("cpu")
+
+    def zero_counts():
+        for f in counters:
+            f.launches = 0
+        riemannian.solve.host_reads = 0
+
+    def no_kernel(tag):
+        hand = sum(f.launches for f in counters)
+        log(f"[17] {tag}: hand-written kernel launches: {hand}")
+        check(hand == 0, f"{tag}: a hand-written kernel was launched")
+
+    def goals(ps_, B, dtype, device=dev):
+        return api.random_goals(ps_, (B,), gen, dtype=dtype, device=device)[0]
+
+    def hits(o):
+        return (o["e_pos"] < 1e-3) & (o["e_rot"] < np.deg2rad(1.0)) & o["success"]
+
+    def checked(tag, o, B, dtype):
+        for k in ("q", "Y", "e_pos", "e_rot", "cost", "gradnorm", "iterations"):
+            check(o[k].shape[0] == B and bool(torch.isfinite(o[k].double()).all()),
+                  f"{tag}: {k} has the wrong shape or is not finite")
+        for k in ("q", "Y", "e_pos", "cost"):
+            check(o[k].dtype == dtype, f"{tag}: {k} is {o[k].dtype}")
+        return api.summarize(o)
+
+    def walls(tag, i, tp, ts, tf, summ, B):
+        wall = tp + ts + tf
+        log(f"[17] {tag} call {i}: prepare {tp * 1e3:.1f} ms, solve {ts * 1e3:.1f} ms, finish "
+            f"{tf * 1e3:.1f} ms, total {wall * 1e3:.1f} ms, {B / wall:.1f} solves/s; success "
+            f"{summ['success_rate']:.4f}, median e_pos {summ['median_pos_err']:.3e} m, mean "
+            f"iterations {summ['mean_iterations']:.2f}")
+        return {"prepare_ms": tp * 1e3, "solve_ms": ts * 1e3, "finish_ms": tf * 1e3,
+                "solves_per_s": B / wall, "success": summ["success_rate"]}
+
+    # (a) UR10 at float64
+    tag = "ur10_f64"
+    prod = TRParams.production(maxiter=100, maxinner=24)
+    solver = api.make_solver(ps, params=prod, polish_params=polish, smooth_iters=2)
+    log(f"[17] {tag}: UR10, float64, B = {B_F64}; {prod}")
+    solver(goals(ps, B_F64, torch.float64))  # warm call
+    sync(dev)
+    zero_counts()
+    calls = []
+    for i in range(2):
+        tp, ts, tf, _, o = staged(solver, goals(ps, B_F64, torch.float64))
+        summ = checked(tag, o, B_F64, torch.float64)
+        calls.append(walls(tag, i, tp, ts, tf, summ, B_F64))
+        check(summ["success_rate"] >= 0.85, f"{tag}: success below 0.85")
+    no_kernel(tag)
+    D_goal, Y0 = solver.prepare(goals(ps, B_F64, torch.float64))
+    riemannian.solve.host_reads = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    sol = solver.solve(Y0, D_goal)
+    sync(dev)
+    t_solve = time.perf_counter() - t0
+    reads = riemannian.solve.host_reads
+    k_s, c_s, busy = profiled(lambda: solver.solve(Y0, D_goal), dev)
+    n_it = int(sol["iterations"].max())  # the outer iterations the batch ran
+    steps = float(sol["num_inner"].double().mean())
+    log(f"[17] {tag} solve alone: {t_solve * 1e3:.1f} ms, {n_it} iterations (mean "
+        f"{float(sol['iterations'].double().mean()):.1f}, inner steps a lane {steps:.1f}), "
+        f"{reads} host reads; profiled: {k_s} kernel launches + {c_s} copies/sets "
+        f"({k_s / n_it:.1f} launches an iteration), device busy {busy:.1f} ms = "
+        f"{busy / (t_solve * 1e3):.3f} of the solve wall")
+    rec = {"B": B_F64, "calls": calls, "solve_ms": t_solve * 1e3, "iterations": n_it,
+           "host_reads": reads, "launches_solve": k_s, "launches_per_iteration": k_s / n_it,
+           "busy_solve": busy / (t_solve * 1e3)}
+
+    # (b) the same solver on 64 goals, on the card and on the CPU
+    log(f"[17] {tag}: took {time.perf_counter() - t_phase:.1f} s")
+    t_b = time.perf_counter()
+    T64 = goals(ps, 64, torch.float64, device=cpu)
+    D64, Y64 = solver.prepare(T64)
+    one = TRParams.production(maxiter=1, maxinner=24)
+    o_g, o_c = (riemannian.solve(Y64.to(d_), D64.to(d_), solver.omega, solver.psi_L,
+                                 solver.psi_U, params=one) for d_ in (dev, cpu))
+    same = bool(torch.equal(o_g["num_inner"].cpu(), o_c["num_inner"]))
+    d_Y = float((o_g["Y"].cpu() - o_c["Y"]).abs().max())
+    log(f"[17] {tag} 64 goals, one iteration from the same Y0 on {dev.type} and the CPU: "
+        f"inner steps equal {same}, max |d Y| {d_Y:.3e} (<= {F64_TOL})")
+    check(same and d_Y <= F64_TOL, f"{tag}: the card's trajectory leaves the CPU's")
+    out_g, out_c = solver(T64.to(dev)), solver(T64)
+    check(out_c["Y"].device.type == "cpu", f"{tag}: the CPU call ran on {out_c['Y'].device}")
+    h_g, h_c = hits(out_g).cpu(), hits(out_c)
+    n_same = int((h_g == h_c).sum())
+    for lane in torch.nonzero(h_g != h_c).flatten().tolist():
+        log(f"[17] {tag} goal {lane}: success on the card {bool(h_g[lane])}, on the CPU "
+            f"{bool(h_c[lane])}; cost {float(out_g['cost'][lane]):.3e} / "
+            f"{float(out_c['cost'][lane]):.3e}, e_pos {float(out_g['e_pos'][lane]):.3e} / "
+            f"{float(out_c['e_pos'][lane]):.3e}")
+    log(f"[17] {tag} 64 goals: per-goal success equal on {n_same} (>= {F64_SAME_GOALS}); "
+        f"successes {int(h_g.sum())} on the card, {int(h_c.sum())} on the CPU")
+    check(n_same >= F64_SAME_GOALS, f"{tag}: card and CPU success differ per goal")
+    log(f"[17] {tag}: 64-goal comparison took {time.perf_counter() - t_b:.1f} s")
+    rec["card_vs_cpu"] = {"d_Y_one_iteration": d_Y, "goals_same": n_same,
+                          "successes": [int(h_g.sum()), int(h_c.sum())]}
+
+    # (c) the table at float64 on "dense"
+    tag = "ur10_table_f64"
+    tparams = TRParams.production(maxiter=250, maxinner=32)
+    solver_t = api.make_solver(ps_t, params=tparams, polish_params=polish, smooth_iters=2)
+    zero_counts()
+    tp, ts, tf, _, o = staged(solver_t, goals(ps_t, B_F64_TABLE, torch.float64))
+    no_kernel(tag)
+    summ = checked(tag, o, B_F64_TABLE, torch.float64)
+    rec_t = walls(tag, 0, tp, ts, tf, summ, B_F64_TABLE)
+    check(summ["success_rate"] >= TABLE_SUCCESS_MIN, f"{tag}: success below {TABLE_SUCCESS_MIN}")
+    centers = torch.tensor(np.stack([c for c, _ in ps_t.obstacles]), dtype=torch.float64,
+                           device=dev)
+    radii = torch.tensor([r for _, r in ps_t.obstacles], dtype=torch.float64, device=dev)
+    p = ps_t.realization(o["q"])[:, 1:ps_t.n + 1]
+    clear = torch.linalg.norm(p[:, :, None, :] - centers, dim=-1) - radii
+    worst = float(clear[o["success"]].min())
+    log(f"[17] {tag}: least clearance over successful lanes {worst:.3e} m (>= -1e-3); "
+        f"{riemannian.solve.host_reads} host reads")
+    check(worst >= -1e-3, f"{tag}: a successful lane enters an obstacle")
+    rec_t.update(B=B_F64_TABLE, clearance=worst)
+
+    # (d) planar10 on "edge", float32, against the kernel path on the same goals
+    tag = "planar10_edge"
+    _, ps_p = load_planar_chain(10, limits=np.pi / 2)
+    solvers = {b: api.make_solver(ps_p, params=TRParams.production(maxiter=100, maxinner=24,
+                                                                  backend=b),
+                                  polish_params=polish, smooth_iters=2)
+               for b in ("edge", "kernel")}
+    T_p = goals(ps_p, B_EDGE, torch.float32)
+    zero_counts()
+    tp, ts, tf, _, o_e = staged(solvers["edge"], T_p)
+    no_kernel(tag)
+    s_e = checked(tag, o_e, B_EDGE, torch.float32)
+    rec_e = walls(tag, 0, tp, ts, tf, s_e, B_EDGE)
+    s_k = api.summarize(solvers["kernel"](T_p))["success_rate"]
+    log(f"[17] {tag}: success {s_e['success_rate']:.4f}, the kernel path's on the same goals "
+        f"{s_k:.4f} (|d| <= {EDGE_GAP})")
+    check(abs(s_e["success_rate"] - s_k) <= EDGE_GAP, f"{tag}: success apart from the kernel's")
+    rec_e.update(B=B_EDGE, kernel_success=s_k)
+    log(f"[17] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"ur10_f64": rec, "ur10_table_f64": rec_t, "planar10_edge": rec_e}
+
+
 def main() -> int:
     import torch
 
@@ -1455,6 +1648,8 @@ def main() -> int:
     # ---- phase 16: the data-parallel solve on the card ----
     sharded_path = sharded_phase(dev, gen, ps, prod, polish)
     log(f"[16] phases 15 and 16 took {time.perf_counter() - t_new:.1f} s")
+    # ---- phase 17: the trust region's "dense" and "edge" backends ----
+    backend_paths = tr_backends_phase(dev, gen, ps, ps_t, polish)
 
     # Bounds: counted from the shapes and, for the TR kernels, from the
     # iteration counts of the runs that were timed. No single PyTorch call
@@ -1493,6 +1688,7 @@ def main() -> int:
     log(f"[11-13] CIDGIK paths: {json.dumps(cidgik_paths)}")
     log(f"[14] CG path: {json.dumps(cg_path)}")
     log(f"[16] sharded paths: {json.dumps(sharded_path)}")
+    log(f"[17] TR backend paths: {json.dumps(backend_paths)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(f"card: {smi}")

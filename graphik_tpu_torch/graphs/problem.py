@@ -291,16 +291,18 @@ class ProblemStructure:
     # ------------------------------------------------------------------
     # instance assembly (tensors on the goals' device)
     # ------------------------------------------------------------------
-    def goal_positions(self, T_goal):
+    def goal_positions(self, T_goal, dtype=None):
         """Node positions implied by end-effector goal pose(s).
 
-        T_goal: (..., hd, hd) single-ee or (..., n_ee, hd, hd).
+        T_goal: (..., hd, hd) single-ee or (..., n_ee, hd, hd), cast to
+        `dtype` when one is given.
         Returns (..., N, dim) positions (zeros at unpositioned nodes): fixed
         nodes + goal anchors. A planar goal anchors the end effector and its
         parent, one link length back along the goal's x axis.
         """
         tpl = self.template
         dim = self.dim
+        T_goal = torch.as_tensor(T_goal, dtype=dtype)
         n_ee = len(tpl.ee)
         if T_goal.shape[-3:-2] != (n_ee,) or T_goal.ndim < 3:
             T_goal = T_goal[..., None, :, :]  # single-ee convenience

@@ -231,7 +231,7 @@ def residual_max(ep: EdgeProblem, Y, dgoal_e):
     equality-edge scale."""
     _, _, s0, e1, e2 = _edge_terms(ep, Y, dgoal_e)
     om = _t(ep.omega, Y)
-    eq_cnt = max(float(np.sum(ep.omega)), 1.0)
+    eq_cnt = max(float(ep.omega.sum()), 1.0)
     fl = ((om * dgoal_e).sum(dim=-1) / eq_cnt)[..., None]
     r = s0.abs() / torch.maximum(dgoal_e, fl)
     r = torch.maximum(r, e1 / torch.maximum(_t(ep.psi_L, Y), fl))
@@ -249,27 +249,50 @@ def residual_max(ep: EdgeProblem, Y, dgoal_e):
 
 def ehess(ep: EdgeProblem, Y, Z, dgoal_e):
     """Euclidean Hessian-vector product 2 C^T (m dD dY - s dZ)."""
+    return hessian_at(ep, Y, dgoal_e)(Z)
+
+
+def hessian_at(ep: EdgeProblem, Y, dgoal_e):
+    """Z -> ehess(ep, Y, Z, dgoal_e), with the terms that depend on Y alone
+    computed once."""
     diff, _, s0, e1, e2 = _edge_terms(ep, Y, dgoal_e)
     C = _t(ep.C, Y)
-    diffZ = torch.einsum("en,...nd->...ed", C, Z)
-    dD = 2.0 * (diff * diffZ).sum(dim=-1)
     s = s0 + e1 - e2
     m = (_t(ep.omega, Y)
          + _t(ep.L_mask, Y) * (e1 > 0).to(Y.dtype)
          + _t(ep.U_mask, Y) * (e2 > 0).to(Y.dtype))
-    h_e = (m * dD)[..., None] * diff - s[..., None] * diffZ
-    H = 2.0 * torch.einsum("en,...ed->...nd", C, h_e)
     if ep.A:
         adiff, a1, a2 = _anchor_terms(ep, Y)
         P = _t(ep.aP, Y)
-        adiffZ = torch.einsum("an,...nd->...ad", P, Z)
-        adD = 2.0 * (adiff * adiffZ).sum(dim=-1)
         sa = a1 - a2
         ma = (_t(ep.aL_mask, Y) * (a1 > 0).to(Y.dtype)
               + _t(ep.aU_mask, Y) * (a2 > 0).to(Y.dtype))
-        h_a = (ma * adD)[..., None] * adiff - sa[..., None] * adiffZ
-        H = H + 2.0 * torch.einsum("an,...ad->...nd", P, h_a)
-    return H
+
+    def hvp(Z):
+        diffZ = torch.einsum("en,...nd->...ed", C, Z)
+        dD = 2.0 * (diff * diffZ).sum(dim=-1)
+        h_e = (m * dD)[..., None] * diff - s[..., None] * diffZ
+        H = 2.0 * torch.einsum("en,...ed->...nd", C, h_e)
+        if ep.A:
+            adiffZ = torch.einsum("an,...nd->...ad", P, Z)
+            adD = 2.0 * (adiff * adiffZ).sum(dim=-1)
+            h_a = (ma * adD)[..., None] * adiff - sa[..., None] * adiffZ
+            H = H + 2.0 * torch.einsum("an,...ad->...nd", P, h_a)
+        return H
+
+    return hvp
+
+
+_ARRAYS = ("C", "omega", "psi_L", "psi_U", "L_mask", "U_mask",
+           "aP", "acenters", "apsi_L", "apsi_U", "aL_mask", "aU_mask")
+
+
+def on_device(ep: EdgeProblem, dtype, device) -> EdgeProblem:
+    """ep with the arrays the plain functions above read as tensors of
+    `dtype` on `device`: those functions then copy nothing from the host at
+    each call. The results are the same."""
+    return dataclasses.replace(ep, **{k: torch.as_tensor(getattr(ep, k), dtype=dtype, device=device)
+                                      for k in _ARRAYS})
 
 
 # ---------------------------------------------------------------------------

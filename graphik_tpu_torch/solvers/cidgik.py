@@ -968,10 +968,11 @@ def _on_device(x, dtype, device):
     return x if dtype is None else x.to(dtype)
 
 
-def nearest_point_cost_matrix(comp: CidgikCompiled, targets):
+def nearest_point_cost_matrix(comp: CidgikCompiled, targets, dtype=None):
     """Linear cost C with tr(C Z) = sum_u (G_uu - 2 p_u^T x_u): up to a
     constant, the nearest-point objective sum_u ||x_u - p_u||^2.
-    targets: (..., n_free, d)."""
+    targets: (..., n_free, d), cast to `dtype` when one is given."""
+    targets = torch.as_tensor(targets, dtype=dtype)
     d, nf = comp.d, comp.n_free
     batch = targets.shape[:-2]
     C = torch.zeros(batch + (comp.s, comp.s), dtype=targets.dtype, device=targets.device)

@@ -103,19 +103,33 @@ def cost_and_egrad(Y, D_goal, omega, psi_L, psi_U, L_mask, U_mask, anchors=None,
 
 def ehess(Y, Z, D_goal, omega, psi_L, psi_U, L_mask, U_mask, anchors=None):
     """The Euclidean Hessian of f at Y applied to Z (..., N, d)."""
+    return hessian_at(Y, D_goal, omega, psi_L, psi_U, L_mask, U_mask, anchors)(Z)
+
+
+def hessian_at(Y, D_goal, omega, psi_L, psi_U, L_mask, U_mask, anchors=None):
+    """Z -> ehess(Y, Z, ...), with the terms that depend on Y alone computed
+    once (a truncated-CG solve applies one Hessian many times)."""
     _, S0, E1, E2 = residuals(Y, D_goal, omega, psi_L, psi_U, L_mask, U_mask)
-    G_dot = Y @ Z.transpose(-1, -2)
-    dD = distance_matrix_from_gram(G_dot + G_dot.transpose(-1, -2))
     M = _t(omega, Y) + _t(L_mask, Y) * (E1 > 0) + _t(U_mask, Y) * (E2 > 0)
-    H = 2.0 * (_adj_mv(-M * dD, Y) + _adj_mv(S0 + E1 - E2, Z))
+    S = S0 + E1 - E2
     if anchors is not None:
+        idx = _idx(anchors["idx"], Y)
         adiff, a1, a2 = _anchor_residuals(Y, anchors)
-        adiffZ = Z[..., _idx(anchors["idx"], Y), :]
-        adD = 2.0 * (adiff * adiffZ).sum(-1)
         ma = _t(anchors["L_mask"], Y) * (a1 > 0) + _t(anchors["U_mask"], Y) * (a2 > 0)
-        H = H + 2.0 * _anchor_scatter(
-            Y, anchors["idx"], (ma * adD)[..., None] * adiff - (a1 - a2)[..., None] * adiffZ)
-    return H
+        sa = a1 - a2
+
+    def hvp(Z):
+        G_dot = Y @ Z.transpose(-1, -2)
+        dD = distance_matrix_from_gram(G_dot + G_dot.transpose(-1, -2))
+        H = 2.0 * (_adj_mv(-M * dD, Y) + _adj_mv(S, Z))
+        if anchors is not None:
+            adiffZ = Z[..., idx, :]
+            adD = 2.0 * (adiff * adiffZ).sum(-1)
+            H = H + 2.0 * _anchor_scatter(
+                Y, idx, (ma * adD)[..., None] * adiff - sa[..., None] * adiffZ)
+        return H
+
+    return hvp
 
 
 def residual_max(Y, D_goal, omega, psi_L, psi_U, L_mask, U_mask, anchors=None):

@@ -4,11 +4,13 @@ Port of graphik_tpu/solvers/riemannian.py. A point is Y in R^{N x d}
 representing the Gram matrix Y Y^T; the horizontal projection solves a
 Lyapunov system reduced to d(d-1)/2 unknowns; the retraction is Y + U.
 
-* Trust region (`solve`, TRParams): runs on the compiled edge form - the
-  CUDA kernel for f32 CUDA tensors, the plain torch version of the same
-  loop on the CPU (ops/tr_solve.py). The JAX package's "dense" and "edge"
-  XLA backends compute the same algorithm and are the parity oracles in the
-  tests.
+* Trust region (`solve`, TRParams): backend "kernel" runs on the compiled
+  edge form - the CUDA kernel for f32 CUDA tensors, the plain torch version
+  of the same loop on the CPU (ops/tr_solve.py); "dense" and "edge" (the
+  JAX package's XLA backends) run an eager batched loop (`_tr_batch`) over
+  the dense masked costs (solvers/costs.py) or the edge form (ops/edge.py),
+  on any device and dtype. Float64 solves run "dense", as in the JAX
+  package.
 * Conjugate gradient (`solve_cg`, CGParams): Hager-Zhang CG with an
   adaptive Armijo line search, eager batched torch over the dense masked
   costs (solvers/costs.py) or the edge form (ops/edge.py); no kernel.
@@ -39,6 +41,12 @@ class TRParams:
     reference's maxiter/gradnorm-only stopping); `production()` opts in.
     res_tol: stop a lane once its max relative edge residual drops below
     res_tol (0 disables).
+    backend: "kernel" (the JAX package's "pallas": the fused solve of
+    ops/tr_solve.py; float64 inputs run "dense"), "dense" or "edge" (see
+    `solve`).
+    check_model_decrease: the reference's model-increase exit of the tCG
+    (it returns the previous eta); "dense" and "edge" honour it, "kernel"
+    ignores it, as the JAX package's Pallas kernel does.
     """
 
     maxiter: int = 3000
@@ -55,6 +63,8 @@ class TRParams:
     plateau_rtol: float = 1e-4
     plateau_atol: float = 0.0
     res_tol: float = 0.0
+    check_model_decrease: bool = False
+    backend: str = "kernel"
 
     @classmethod
     def production(cls, **overrides) -> "TRParams":
@@ -107,19 +117,24 @@ def manifold_proj(Y, Z):
 
     Solves X Om + Om X = C with X = Y^T Y, C = Y^T Z - Z^T Y, and returns
     Z - Y Om. Om is antisymmetric, so the system has d(d-1)/2 unknowns: a
-    scalar for d = 2, a 3x3 SPD solve for d = 3. A small Tikhonov shift
-    keeps it finite when Y is (nearly) rank deficient.
+    scalar for d = 2, a 3x3 SPD solve for d = 3. For d > 3 it solves the
+    whole d^2 x d^2 SPD system, as the JAX package does. A small Tikhonov
+    shift keeps it finite when Y is (nearly) rank deficient.
     """
+    return projector(Y)(Z)
+
+
+def projector(Y):
+    """Z -> manifold_proj(Y, Z), with the factor of the system, which
+    depends on Y alone, computed once."""
     d = Y.shape[-1]
-    X = Y.transpose(-1, -2) @ Y
-    YtZ = Y.transpose(-1, -2) @ Z
-    C = YtZ - YtZ.transpose(-1, -2)
+    Yt = Y.transpose(-1, -2)
+    X = Yt @ Y
     reg = 10 * torch.finfo(Y.dtype).eps * (
         torch.diagonal(X, dim1=-2, dim2=-1).sum(-1) + 1e-30)
     zero = torch.zeros_like(reg)
     if d == 2:
-        a = C[..., 0, 1] / (X[..., 0, 0] + X[..., 1, 1] + reg)
-        Om = torch.stack([torch.stack([zero, a], -1), torch.stack([-a, zero], -1)], -2)
+        den = X[..., 0, 0] + X[..., 1, 1] + reg
     elif d == 3:
         # Basis (a, b, c) -> Om = [[0, a, b], [-a, 0, c], [-b, -c, 0]];
         # M = [[X11+X22, X23, -X13], [X23, X11+X33, X12], [-X13, X12, X22+X33]].
@@ -130,17 +145,79 @@ def manifold_proj(Y, Z):
             torch.stack([x23, x11 + x33 + reg, x12], -1),
             torch.stack([-x13, x12, x22 + x33 + reg], -1),
         ], -2)
-        rhs = torch.stack([C[..., 0, 1], C[..., 0, 2], C[..., 1, 2]], -1)
-        abc = torch.cholesky_solve(rhs[..., None], torch.linalg.cholesky(M))[..., 0]
-        a, b, c = abc[..., 0], abc[..., 1], abc[..., 2]
-        Om = torch.stack([
-            torch.stack([zero, a, b], -1),
-            torch.stack([-a, zero, c], -1),
-            torch.stack([-b, -c, zero], -1),
-        ], -2)
+        L = torch.linalg.cholesky(M)
     else:
-        raise NotImplementedError(f"manifold_proj for d={d}")
-    return Z - Y @ Om
+        # A[(ij),(kl)] = X[i,k] delta[j,l] + delta[i,k] X[j,l] (row-major vec)
+        eye = torch.eye(d, dtype=Y.dtype, device=Y.device)
+        A = (X[..., :, None, :, None] * eye[None, :, None, :]
+             + eye[:, None, :, None] * X[..., None, :, None, :]).reshape(X.shape[:-2] + (d * d, d * d))
+        A = A + reg[..., None, None] * torch.eye(d * d, dtype=Y.dtype, device=Y.device)
+        L = torch.linalg.cholesky(A)
+
+    def proj(Z):
+        YtZ = Yt @ Z
+        C = YtZ - YtZ.transpose(-1, -2)
+        if d == 2:
+            a = C[..., 0, 1] / den
+            Om = torch.stack([torch.stack([zero, a], -1), torch.stack([-a, zero], -1)], -2)
+        elif d == 3:
+            rhs = torch.stack([C[..., 0, 1], C[..., 0, 2], C[..., 1, 2]], -1)
+            abc = torch.cholesky_solve(rhs[..., None], L)[..., 0]
+            a, b, c = abc[..., 0], abc[..., 1], abc[..., 2]
+            Om = torch.stack([
+                torch.stack([zero, a, b], -1),
+                torch.stack([-a, zero, c], -1),
+                torch.stack([-b, -c, zero], -1),
+            ], -2)
+        else:
+            vec = C.reshape(C.shape[:-2] + (d * d, 1))
+            Om = torch.cholesky_solve(vec, L).reshape(C.shape)
+        return Z - Y @ Om
+
+    return proj
+
+
+def _masks(omega, psi_L, psi_U, N):
+    """Host float64 (omega, psi_L, psi_U); psi None means no limits."""
+    omega = np.asarray(omega, np.float64)
+    if psi_L is None:
+        return omega, np.zeros((N, N)), np.zeros((N, N))
+    return omega, np.asarray(psi_L, np.float64), np.asarray(psi_U, np.float64)
+
+
+class _Costs(collections.namedtuple("_Costs", "cost grad hessian_at residual_max")):
+    """A backend's cost, Euclidean gradient, Y -> (Z -> Hessian at Y applied
+    to Z) and max relative residual, each over (B, N, d) points."""
+
+
+def _costs(backend, D, masks, d, anchors):
+    """The cost functions of `backend` on the goals D (B, N, N): "dense",
+    the masked (N, N) algebra of solvers/costs.py, or "edge", the compiled
+    edge form of ops/edge.py. The masks and anchors go to D's device once."""
+    dt, dev = D.dtype, D.device
+    if backend == "edge":
+        ep = edge_ops.on_device(edge_ops.build_edge_problem(*masks, dim=d, anchors=anchors),
+                                dt, dev)
+        dg_e = ep.edge_values(D)
+        return _Costs(lambda Y: edge_ops.cost(ep, Y, dg_e),
+                      lambda Y: edge_ops.egrad(ep, Y, dg_e),
+                      lambda Y: edge_ops.hessian_at(ep, Y, dg_e),
+                      lambda Y: edge_ops.residual_max(ep, Y, dg_e))
+    if backend == "dense":
+        def dev_t(x):
+            return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+        L_mask, U_mask = costs.make_masks(*masks)
+        dm = tuple(dev_t(m) for m in masks + (L_mask, U_mask))
+        anc = None
+        if anchors is not None:
+            anc = {k: dev_t(anchors[k]) for k in ("centers", "psi_L", "psi_U", "L_mask", "U_mask")}
+            anc["idx"] = torch.as_tensor(np.asarray(anchors["idx"]), dtype=torch.long, device=dev)
+        return _Costs(lambda Y: costs.cost(Y, D, *dm, anc),
+                      lambda Y: costs.egrad(Y, D, *dm, anc),
+                      lambda Y: costs.hessian_at(Y, D, *dm, anc),
+                      lambda Y: costs.residual_max(Y, D, *dm, anc))
+    raise ValueError(f"unknown backend {backend!r}")
 
 
 def solve(
@@ -160,40 +237,46 @@ def solve(
     of ProblemStructure.reduced_spec()) - hinge terms between rows of Y and
     constant points, the obstacle reduction. Returns dict of per-instance
     results (Y, cost, gradnorm, iterations, num_inner).
+
+    params.backend "kernel" runs ops/tr_solve.py::solve_tr on float32 (the
+    CUDA kernel for CUDA tensors, its plain version for CPU tensors) and
+    "dense" on float64, on every device, as the JAX package routes its
+    float64 solves. "dense" and "edge" run `_tr_batch`.
     """
     N, d = Y0.shape[-2], Y0.shape[-1]
-    omega_host = np.asarray(omega, np.float64)
-    if psi_L is None:
-        psi_L_host = psi_U_host = np.zeros((N, N))
-    else:
-        psi_L_host = np.asarray(psi_L, np.float64)
-        psi_U_host = np.asarray(psi_U, np.float64)
-    ep = edge_ops.build_edge_problem(omega_host, psi_L_host, psi_U_host, dim=d,
-                                     anchors=anchors)
-
+    masks = _masks(omega, psi_L, psi_U, N)
     batch = Y0.shape[:-2]
     Yf = Y0.reshape((-1, N, d)).contiguous()
     D = D_goal.to(Y0.dtype).expand(batch + (N, N)).reshape((-1, N, N))
-    dg_e = ep.edge_values(D).contiguous()
     p = params
-    out = solve_tr(
-        ep, Yf, dg_e,
-        maxiter=p.maxiter,
-        maxinner=p.maxinner,
-        mingradnorm=p.mingradnorm,
-        kappa=p.kappa,
-        theta=p.theta,
-        rho_prime=p.rho_prime,
-        rho_regularization=p.rho_regularization,
-        Delta_bar=p.Delta_bar,
-        Delta0=p.Delta0,
-        mininner=p.mininner,
-        plateau_every=p.plateau_every,
-        plateau_rtol=p.plateau_rtol,
-        plateau_atol=p.plateau_atol,
-        res_tol=p.res_tol,
-    )
+    backend = p.backend
+    if backend == "kernel" and Y0.dtype == torch.float64:
+        backend = "dense"
+    if backend == "kernel":
+        ep = edge_ops.build_edge_problem(*masks, dim=d, anchors=anchors)
+        out = solve_tr(
+            ep, Yf, ep.edge_values(D).contiguous(),
+            maxiter=p.maxiter,
+            maxinner=p.maxinner,
+            mingradnorm=p.mingradnorm,
+            kappa=p.kappa,
+            theta=p.theta,
+            rho_prime=p.rho_prime,
+            rho_regularization=p.rho_regularization,
+            Delta_bar=p.Delta_bar,
+            Delta0=p.Delta0,
+            mininner=p.mininner,
+            plateau_every=p.plateau_every,
+            plateau_rtol=p.plateau_rtol,
+            plateau_atol=p.plateau_atol,
+            res_tol=p.res_tol,
+        )
+    else:
+        out = _tr_batch(Yf, _costs(backend, D, masks, d, anchors), p)
     return {k: v.reshape(batch + v.shape[1:]) for k, v in out.items()}
+
+
+solve.host_reads = 0
 
 
 def generate_initialization(lb, ub, omega, dim, generator=None, frac=None):
@@ -220,11 +303,167 @@ def generate_initialization(lb, ub, omega, dim, generator=None, frac=None):
 # line searches whose slowest lane sets how many evaluations the next one
 # runs before its first host read
 LS_WINDOW = 16
+# inner steps between two host reads of a truncated-CG loop
+TR_READ_EVERY = 4
 
 
 def _inner(a, b):
     """Per-lane Frobenius inner product of (B, N, d) tensors."""
     return (a * b).sum(dim=(-2, -1))
+
+
+def _lane(v):
+    """(B,) lane scalar -> broadcastable over (B, N, d)."""
+    return v[:, None, None]
+
+
+def _host_any(flags):
+    """Whether any of the device flags is set, read on the host; each read
+    adds one to `solve.host_reads`."""
+    solve.host_reads += 1
+    return bool(flags.any())
+
+
+def _tcg_batch(hvp, grad, Delta, active, p: TRParams, maxinner: int):
+    """Steihaug-Toint truncated CG on a batch of lanes, each with the JAX
+    package's per-instance trajectory (its `_tcg`). Only `active` lanes
+    step; each stops on its own condition - boundary (negative curvature,
+    the trust region, or a non-finite alpha or e_Pe) before model increase
+    before the residual target - and then keeps its state. Reads whether any
+    lane still steps every TR_READ_EVERY steps; extra steps change nothing.
+
+    Returns (eta, Heta, inner steps per lane (int32), boundary exit per lane).
+    """
+    r = grad
+    r_r0 = _inner(r, r)
+    norm_r0 = torch.sqrt(r_r0)
+    target = norm_r0 * torch.clamp(norm_r0 ** p.theta, max=p.kappa)
+    eta = torch.zeros_like(grad)
+    Heta = torch.zeros_like(grad)
+    delta = -r
+    e_Pe = torch.zeros_like(r_r0)
+    e_Pd = torch.zeros_like(r_r0)
+    d_Pd = r_r0
+    z_r = r_r0
+    model = torch.zeros_like(r_r0)
+    boundary = torch.zeros_like(active)
+    steps = torch.zeros(active.shape, dtype=torch.int32, device=grad.device)
+    Dsq = Delta * Delta
+    for j in range(maxinner):
+        if j % TR_READ_EVERY == 0 and j and not _host_any(active):
+            break
+        Hd = hvp(delta)
+        d_Hd = _inner(delta, Hd)
+        alpha = z_r / d_Hd
+        e_Pe_new = e_Pe + 2.0 * alpha * e_Pd + alpha * alpha * d_Pd
+        hit = (d_Hd <= 0) | (e_Pe_new >= Dsq) | ~torch.isfinite(alpha) | ~torch.isfinite(e_Pe_new)
+        disc = torch.clamp(e_Pd * e_Pd + d_Pd * (Dsq - e_Pe), min=0.0)
+        tau = (-e_Pd + torch.sqrt(disc)) / d_Pd
+
+        new_eta = eta + _lane(alpha) * delta
+        new_Heta = Heta + _lane(alpha) * Hd
+        if p.check_model_decrease:
+            new_model = _inner(new_eta, grad) + 0.5 * _inner(new_eta, new_Heta)
+            # a NaN model counts as increased: exit with the previous eta
+            increased = ~hit & ~(new_model < model)
+        else:
+            new_model = model
+            increased = torch.zeros_like(hit)
+        r_new = r + _lane(alpha) * Hd
+        r_r = _inner(r_new, r_new)
+        reached = ~hit & ~increased & (j >= p.mininner) & (torch.sqrt(r_r) <= target)
+        beta = r_r / z_r
+
+        # boundary exit > model increase (the previous eta) > target > step
+        eta_out = torch.where(_lane(hit), eta + _lane(tau) * delta,
+                              torch.where(_lane(increased), eta, new_eta))
+        Heta_out = torch.where(_lane(hit), Heta + _lane(tau) * Hd,
+                               torch.where(_lane(increased), Heta, new_Heta))
+        eta = torch.where(_lane(active), eta_out, eta)
+        Heta = torch.where(_lane(active), Heta_out, Heta)
+        boundary = boundary | (active & hit)
+        steps = steps + active.to(torch.int32)
+        cont = active & ~(hit | increased | reached)
+        r = torch.where(_lane(cont), r_new, r)
+        delta = torch.where(_lane(cont), -r_new + _lane(beta) * delta, delta)
+        e_Pe = torch.where(cont, e_Pe_new, e_Pe)
+        e_Pd = torch.where(cont, beta * (e_Pd + alpha * d_Pd), e_Pd)
+        d_Pd = torch.where(cont, r_r + beta * beta * d_Pd, d_Pd)
+        z_r = torch.where(cont, r_r, z_r)
+        model = torch.where(cont, new_model, model)
+        active = cont
+    return eta, Heta, steps, boundary
+
+
+def _tr_batch(Y0, f: _Costs, p: TRParams):
+    """Riemannian trust region on a batch of lanes (B, N, d), each with the
+    JAX package's per-instance trajectory (its vmapped `_solve_single`): a
+    finished lane keeps its state; rho carries the regularisation; the
+    radius shrinks by 4 and grows by 2 up to Delta_bar; a lane stops on
+    gradnorm, maxiter, res_tol (the initial point too) and the cost
+    plateau. The flags stay on the device: the loop reads whether any lane
+    still runs once an iteration, and its tCG every TR_READ_EVERY steps.
+
+    Returns dict(Y, cost, gradnorm, iterations, num_inner), as solve_tr.
+    """
+    B, N, d = Y0.shape
+    dt, dev = Y0.dtype, Y0.device
+    eps = torch.finfo(dt).eps
+    maxinner = p.maxinner if p.maxinner is not None else N * d
+    Delta_bar = p.Delta_bar if p.Delta_bar is not None else 10.0 + d
+    Delta0 = p.Delta0 if p.Delta0 is not None else Delta_bar / 8.0
+    mingradnorm = p.mingradnorm
+    if mingradnorm is None:
+        mingradnorm = 0.5e-9 if dt == torch.float64 else 2e-6
+    use_res = p.res_tol > 0.0
+
+    Y, fx, grad = Y0, f.cost(Y0), f.grad(Y0)
+    norm_grad = torch.sqrt(_inner(grad, grad))
+    Delta = torch.full_like(fx, Delta0)
+    rmax = f.residual_max(Y0) if use_res else None
+    done = rmax < p.res_tol if use_res else torch.zeros(B, dtype=torch.bool, device=dev)
+    k = torch.zeros(B, dtype=torch.int32, device=dev)
+    num_inner = torch.zeros(B, dtype=torch.int32, device=dev)
+    fx_ref = fx
+    it = 0
+    while _host_any(~done):
+        running = ~done
+        proj, hess = projector(Y), f.hessian_at(Y)
+        eta, Heta, steps, boundary = _tcg_batch(lambda v: proj(hess(v)), grad, Delta, running,
+                                                p, maxinner)
+        Y_prop = Y + eta
+        fx_prop = f.cost(Y_prop)
+
+        rho_reg = torch.clamp(fx.abs(), min=1.0) * eps * p.rho_regularization
+        rhonum = fx - fx_prop + rho_reg
+        rhoden = -_inner(grad, eta) - 0.5 * _inner(eta, Heta) + rho_reg
+        model_decreased = rhoden >= 0
+        rho = rhonum / rhoden
+        shrink = (rho < 0.25) | ~model_decreased | torch.isnan(rho)
+        grow = ~shrink & (rho > 0.75) & boundary
+        Delta_new = torch.where(shrink, Delta / 4.0,
+                                torch.where(grow, torch.clamp(2.0 * Delta, max=Delta_bar), Delta))
+
+        accept = running & model_decreased & (rho > p.rho_prime)
+        Y = torch.where(_lane(accept), Y_prop, Y)
+        fx = torch.where(accept, fx_prop, fx)
+        grad = torch.where(_lane(accept), f.grad(Y_prop), grad)
+        norm_grad = torch.where(accept, torch.sqrt(_inner(grad, grad)), norm_grad)
+        Delta = torch.where(running, Delta_new, Delta)
+        k = k + running.to(torch.int32)
+        num_inner = num_inner + steps
+        it += 1
+        stop = (norm_grad < mingradnorm) | (k >= p.maxiter)
+        if use_res:
+            rmax = torch.where(accept, f.residual_max(Y_prop), rmax)
+            stop = stop | (rmax < p.res_tol)
+        if p.plateau_every and it % p.plateau_every == 0:
+            # a running lane has taken `it` steps, as many as the batch
+            stop = stop | ((fx_ref - fx) <= p.plateau_rtol * fx + p.plateau_atol)
+            fx_ref = torch.where(running, fx, fx_ref)
+        done = done | (running & stop)
+
+    return {"Y": Y, "cost": fx, "gradnorm": norm_grad, "iterations": k, "num_inner": num_inner}
 
 
 def _cg_batch(Y0, cost_fn, grad_fn, p: CGParams):
@@ -370,47 +609,11 @@ def solve_cg(
     JAX package fills the key with zeros too.
     """
     N, d = Y0.shape[-2], Y0.shape[-1]
-    dt, dev = Y0.dtype, Y0.device
-    omega_host = np.asarray(omega, np.float64)
-    if psi_L is None:
-        psi_L_host = psi_U_host = np.zeros((N, N))
-    else:
-        psi_L_host = np.asarray(psi_L, np.float64)
-        psi_U_host = np.asarray(psi_U, np.float64)
     batch = Y0.shape[:-2]
     Yf = Y0.reshape((-1, N, d))
-    D = D_goal.to(dt).expand(batch + (N, N)).reshape((-1, N, N))
-
-    if params.backend == "edge":
-        ep = edge_ops.build_edge_problem(omega_host, psi_L_host, psi_U_host, dim=d,
-                                         anchors=anchors)
-        dg_e = ep.edge_values(D)
-
-        def cost_fn(Y):
-            return edge_ops.cost(ep, Y, dg_e)
-
-        def grad_fn(Y):
-            return edge_ops.egrad(ep, Y, dg_e)
-    elif params.backend == "dense":
-        def dev_t(x):
-            return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
-
-        L_mask, U_mask = costs.make_masks(omega_host, psi_L_host, psi_U_host)
-        masks = tuple(dev_t(m) for m in (omega_host, psi_L_host, psi_U_host, L_mask, U_mask))
-        anc = None
-        if anchors is not None:  # on the device once, not at every evaluation
-            anc = {k: dev_t(anchors[k]) for k in ("centers", "psi_L", "psi_U", "L_mask", "U_mask")}
-            anc["idx"] = torch.as_tensor(np.asarray(anchors["idx"]), dtype=torch.long, device=dev)
-
-        def cost_fn(Y):
-            return costs.cost(Y, D, *masks, anc)
-
-        def grad_fn(Y):
-            return costs.egrad(Y, D, *masks, anc)
-    else:
-        raise ValueError(f"unknown CG backend {params.backend!r}")
-
-    out = _cg_batch(Yf, cost_fn, grad_fn, params)
+    D = D_goal.to(Y0.dtype).expand(batch + (N, N)).reshape((-1, N, N))
+    f = _costs(params.backend, D, _masks(omega, psi_L, psi_U, N), d, anchors)
+    out = _cg_batch(Yf, f.cost, f.grad, params)
     return {k: v.reshape(batch + v.shape[1:]) for k, v in out.items()}
 
 

@@ -557,3 +557,57 @@ def test_sharded_solve_on_card(cuda):
     assert out_s["q"].shape == (1001, 6) and out_s["q"].device.type == "cuda"
     torch.testing.assert_close(out_s["q"], out_l["q"], rtol=1e-3, atol=1e-4)
     assert torch.equal(out_s["success"], out_l["success"])
+
+
+def _hand_launches():
+    return (tr_solve.solve_tr_cuda.launches + edge_ops.cost_and_egrad_cuda.launches
+            + edge_ops.ehess_cuda.launches)
+
+
+def test_dense_f64_card_matches_cpu(cuda):
+    """The TR's "dense" backend at float64 (where "kernel" sends float64) on
+    16 UR10 goals: from the same Y0, one iteration on the card and on the
+    CPU gives equal inner steps per lane and Y within 1e-12 (chip_smoke.py
+    phase 17's bound, with its derivation); the whole make_solver at
+    float64 on the card launches no hand-written kernel and returns
+    float64."""
+    from graphik_tpu_torch.solvers import riemannian
+
+    _, ps = load_ur10()
+    solver = api.make_solver(ps, TRParams.production(maxiter=100, maxinner=24),
+                             polish_params=LocalParams(maxiter=10, tol_grad=1e-8), smooth_iters=2)
+    T = api.random_goals(ps, (16,), torch.Generator().manual_seed(12), device="cpu")[0]
+    D, Y0 = solver.prepare(T)
+    one = TRParams.production(maxiter=1, maxinner=24)
+    o_g, o_c = (riemannian.solve(Y0.to(d_), D.to(d_), solver.omega, solver.psi_L, solver.psi_U,
+                                 params=one) for d_ in (cuda, torch.device("cpu")))
+    assert torch.equal(o_g["num_inner"].cpu(), o_c["num_inner"])
+    assert float((o_g["Y"].cpu() - o_c["Y"]).abs().max()) <= 1e-12
+    before = _hand_launches()
+    out = solver(T.to(cuda))
+    assert _hand_launches() == before
+    assert out["q"].dtype == torch.float64 and out["Y"].device.type == "cuda"
+    assert bool(torch.isfinite(out["q"]).all())
+
+
+def test_edge_f32_card_matches_cpu(cuda):
+    """The TR's "edge" backend at float32 on 16 planar10 goals: one step on
+    the card and on the CPU from the same Y0 gives equal inner steps and Y
+    within 1e-4 (the one-step bound of the TR kernel's tests), and no
+    hand-written kernel is launched."""
+    from graphik_tpu_torch.robots.library import load_planar_chain
+    from graphik_tpu_torch.solvers import riemannian
+
+    _, ps = load_planar_chain(10, limits=np.pi / 2)
+    solver = api.make_solver(ps, TRParams.production(maxiter=100, maxinner=24, backend="edge"),
+                             smooth_iters=2)
+    T = api.random_goals(ps, (16,), torch.Generator().manual_seed(13), dtype=torch.float32,
+                         device="cpu")[0]
+    D, Y0 = solver.prepare(T)
+    one = TRParams(maxiter=1, maxinner=24, backend="edge")
+    before = _hand_launches()
+    o_g, o_c = (riemannian.solve(Y0.to(d_), D.to(d_), solver.omega, solver.psi_L, solver.psi_U,
+                                 params=one) for d_ in (cuda, torch.device("cpu")))
+    assert _hand_launches() == before
+    assert torch.equal(o_g["num_inner"].cpu(), o_c["num_inner"])
+    assert float((o_g["Y"].cpu() - o_c["Y"]).abs().max()) <= 1e-4

@@ -249,16 +249,23 @@ def test_synthetic_anchors_are_active():
     assert bool((a1 > 0).any()) and bool((a2 > 0).any())
 
 
+@pytest.mark.parametrize("route", ["reference", "dense"])
 @pytest.mark.parametrize("name", ["obs3", "synthetic"])
-def test_anchored_tr_f64_against_dense(name):
-    """At float64 the anchored plain version follows the JAX dense solver
-    lane for lane up to the 5-iteration horizon of the f64 parity tests."""
+def test_anchored_tr_f64_against_dense(name, route):
+    """At float64 the anchored port - the plain kernel-order version called
+    directly ("reference"), or riemannian.solve's "dense" backend - follows
+    the JAX dense solver lane for lane up to the 5-iteration horizon of the
+    f64 parity tests."""
     masks, spec, Y0, D = _anchored_problem(name)
     p = dict(maxiter=5, **PROD)
     ref = jriem.solve(jnp.asarray(Y0, jnp.float64), jnp.asarray(D, jnp.float64), *masks,
                       params=jriem.TRParams(backend="dense", **p), anchors=spec)
-    out = triem.solve(torch.from_numpy(Y0).double(), torch.from_numpy(D).double(), *masks,
-                      params=triem.TRParams(**p), anchors=spec)
+    Y, Dg = torch.from_numpy(Y0).double(), torch.from_numpy(D).double()
+    if route == "reference":
+        ep = tedge.build_edge_problem(*masks, dim=3, anchors=spec)
+        out = tr_solve.solve_tr_reference(ep, Y, ep.edge_values(Dg), **p)
+    else:
+        out = triem.solve(Y, Dg, *masks, params=triem.TRParams(backend=route, **p), anchors=spec)
     np.testing.assert_array_equal(out["iterations"].numpy(), np.asarray(ref["iterations"]))
     np.testing.assert_array_equal(out["num_inner"].numpy(), np.asarray(ref["num_inner"]))
     np.testing.assert_allclose(out["Y"].numpy(), np.asarray(ref["Y"]), rtol=0, atol=1e-8)

@@ -208,18 +208,25 @@ def test_anchored_hinges_active(ring6):
     assert int((a1 > 0).any(-1).sum()) >= 2
 
 
+@pytest.mark.parametrize("route", ["reference", "dense", "edge"])
 @pytest.mark.parametrize("res_tol", [0.0, 0.05])
-def test_anchored_tr_f64_against_edge(ring6, res_tol):
-    """At float64 the plain anchored TR at d = 2 follows the JAX package's
-    "edge" backend with the same anchors lane for lane for 5 iterations
-    (the horizon of test_torch_tr_solve.py)."""
+def test_anchored_tr_f64_against_edge(ring6, res_tol, route):
+    """At float64 the anchored TR at d = 2 - the plain kernel-order version
+    called directly ("reference"), or riemannian.solve's "dense" or "edge"
+    backend - follows the JAX package's "edge" backend with the same
+    anchors lane for lane for 5 iterations (the horizon of
+    test_torch_tr_solve.py)."""
     jps, _ = ring6
     masks, spec, Y0, D = _anchored_problem(jps)
     p = dict(maxiter=5, res_tol=res_tol, **TABLE)
     ref = jriem.solve(jnp.asarray(Y0), jnp.asarray(D), *masks,
                       params=jriem.TRParams(backend="edge", **p), anchors=spec)
-    out = triem.solve(torch.from_numpy(Y0), torch.from_numpy(D), *masks,
-                      params=triem.TRParams(**p), anchors=spec)
+    Y, Dg = torch.from_numpy(Y0), torch.from_numpy(D)
+    if route == "reference":
+        ep = tedge.build_edge_problem(*masks, dim=2, anchors=spec)
+        out = tr_solve.solve_tr_reference(ep, Y, ep.edge_values(Dg), **p)
+    else:
+        out = triem.solve(Y, Dg, *masks, params=triem.TRParams(backend=route, **p), anchors=spec)
     np.testing.assert_array_equal(out["iterations"].numpy(), np.asarray(ref["iterations"]))
     np.testing.assert_array_equal(out["num_inner"].numpy(), np.asarray(ref["num_inner"]))
     np.testing.assert_allclose(out["Y"].numpy(), np.asarray(ref["Y"]), rtol=0, atol=1e-8)

@@ -102,34 +102,42 @@ def _dense64(masks, Y0, D, maxiter):
                        params=jriem.TRParams(maxiter=maxiter, backend="dense", **PROD))
 
 
-def _port64(masks, Y0, D, maxiter):
-    return triem.solve(torch.from_numpy(Y0).double(), torch.from_numpy(D).double(), *masks,
-                       params=triem.TRParams(maxiter=maxiter, **PROD))
+def _port64(route, masks, Y0, D, maxiter):
+    """The port at float64: the plain kernel-order version called directly
+    ("reference"), or riemannian.solve's "dense" backend."""
+    Y, Dg = torch.from_numpy(Y0).double(), torch.from_numpy(D).double()
+    if route == "reference":
+        ep = tedge.build_edge_problem(*masks, dim=3)
+        return tr_solve.solve_tr_reference(ep, Y, ep.edge_values(Dg), maxiter=maxiter, **PROD)
+    return triem.solve(Y, Dg, *masks, params=triem.TRParams(maxiter=maxiter, backend=route, **PROD))
 
 
-def test_f64_against_dense_exact_horizon(ur10_problem):
-    """At float64 with the production stops the plain version follows the
-    JAX dense solver step for step. The horizon is 5 iterations: further
-    out the problem amplifies last-bit differences of the cost forms (the
-    JAX package's own edge and dense backends part by ~1e-5 in Y by
-    iteration 10), so per-lane equality is asserted only where the
-    reference's backends agree with each other."""
+@pytest.mark.parametrize("route", ["reference", "dense"])
+def test_f64_against_dense_exact_horizon(ur10_problem, route):
+    """At float64 with the production stops the port follows the JAX dense
+    solver step for step. The horizon is 5 iterations: further out the
+    problem amplifies last-bit differences of the cost forms (the JAX
+    package's own edge and dense backends part by ~1e-5 in Y by iteration
+    10), so per-lane equality is asserted only where the reference's
+    backends agree with each other. The "dense" backend follows JAX's for
+    longer (tests/test_torch_tr_backends.py)."""
     masks, *_, Y0, D, _ = ur10_problem
     ref = _dense64(masks, Y0, D, 5)
-    out = _port64(masks, Y0, D, 5)
+    out = _port64(route, masks, Y0, D, 5)
     assert out["Y"].dtype == torch.float64
     np.testing.assert_array_equal(out["iterations"].numpy(), np.asarray(ref["iterations"]))
     np.testing.assert_array_equal(out["num_inner"].numpy(), np.asarray(ref["num_inner"]))
     np.testing.assert_allclose(out["Y"].numpy(), np.asarray(ref["Y"]), rtol=0, atol=1e-8)
 
 
-def test_f64_against_dense_30_steps(ur10_problem):
+@pytest.mark.parametrize("route", ["reference", "dense"])
+def test_f64_against_dense_30_steps(ur10_problem, route):
     """30 float64 iterations with the production stops: the same iteration
     counts per lane, and per-lane cost within 10x of the dense solver's (the
     trajectories themselves part, see the test above)."""
     masks, *_, Y0, D, _ = ur10_problem
     ref = _dense64(masks, Y0, D, 30)
-    out = _port64(masks, Y0, D, 30)
+    out = _port64(route, masks, Y0, D, 30)
     np.testing.assert_array_equal(out["iterations"].numpy(), np.asarray(ref["iterations"]))
     ratio = out["cost"].numpy() / np.maximum(np.asarray(ref["cost"]), 1e-300)
     assert np.all((ratio < 10) & (ratio > 0.1)), ratio

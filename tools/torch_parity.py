@@ -15,6 +15,14 @@ one configuration at its bench parameters, float32:
     ur10_table_restarts2: production(250, 32), as above;
     tree_restarts3: the 5-joint, two-end-effector tree of tests/test_trees.py,
         3 restarts, production(maxiter=300), the default polish and smoothing;
+  the trust region's XLA backends (TRParams.backend), each half on its own
+  backend of that name:
+    ur10_f64_dense: UR10 at float64 (goals, prepare, solve and finish),
+        "dense" (the JAX package runs every float64 solve there), the ur10
+        config's goals, production(100, 24), 10-step polish, 2-squaring
+        smoothing;
+    planar10_edge: planar10 at float32 on "edge", the planar10 config's
+        goals and parameters (the JAX half is planar10's);
   Riemannian conjugate gradient (api.make_solver with CGParams, the dense
   cost backend):
     ur10_cg: UR10, CGParams.production(), 10-step polish, 2-squaring
@@ -32,6 +40,7 @@ Two halves, because the machine with the GPU has no JAX:
 
     # 1. JAX package on the CPU: make the goals, solve them, save both
     python tools/torch_parity.py jax --config ur10_table --n 1000
+    #    (ur10_f64_dense: about 2 min; planar10_edge: about 30 s)
 
     # 2. the port (on the GPU, or --device cpu): solve the same goals
     python3 tools/torch_parity.py torch --goals build/parity/ur10_table.npz
@@ -111,6 +120,11 @@ CONFIGS = {
                                cidgik=dict(admm_iters=700, admm_iters_rest=300)),
     # UR10's production path with the solver switched to CG (its dense backend)
     "ur10_cg": dict(BENCH, robot="ur10", restarts=0, seed=53, cg=True, backend="dense"),
+    # the TR's XLA backends on both halves (the port's TRParams.backend too)
+    "ur10_f64_dense": dict(BENCH, robot="ur10", restarts=0, seed=2026, backend="dense",
+                           port_backend="dense", dtype="float64"),
+    "planar10_edge": dict(BENCH, robot="planar10", restarts=0, seed=44, backend="edge",
+                          port_backend="edge"),
 }
 
 
@@ -212,6 +226,10 @@ def run_jax(args):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    cfg = CONFIGS[args.config]
+    dtype = cfg.get("dtype", "float32")
+    if dtype == "float64":
+        jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
     from graphik_tpu import api
@@ -222,7 +240,6 @@ def run_jax(args):
     from graphik_tpu.solvers.riemannian import CGParams, TRParams
     from graphik_tpu.utils.environments import table_environment
 
-    cfg = CONFIGS[args.config]
     seed = cfg["seed"] if args.seed is None else args.seed
     from tests.test_trees import tree_template
 
@@ -230,7 +247,7 @@ def run_jax(args):
                    lambda: ProblemStructure.from_template(tree_template()))
     tpl = ps.template
     q = np.random.RandomState(seed).uniform(tpl.lb[1:], tpl.ub[1:], size=(args.n, tpl.n))
-    T_goal = np.asarray(kinematics.all_poses(tpl, jnp.asarray(q))[:, tpl.ee], np.float32)
+    T_goal = np.asarray(kinematics.all_poses(tpl, jnp.asarray(q))[:, tpl.ee], dtype)
     t0 = time.perf_counter()
     fracs, extra = {}, {}
     if "cidgik" in cfg:
@@ -258,7 +275,7 @@ def run_jax(args):
             for k in jax.random.split(jax.random.PRNGKey(RESTART_SEED + i), R)[1:]])
             for i in range(min(REPLAY_DRAWS, args.draws))])  # (draws, R - 1, n, M, M)
     elif "cidgik" not in cfg:
-        outs = [api.make_solver(ps, dtype=jnp.float32, **kw)(jnp.asarray(T_goal))]
+        outs = [api.make_solver(ps, dtype=getattr(jnp, dtype), **kw)(jnp.asarray(T_goal))]
     outs = jax.block_until_ready(outs)
     wall = time.perf_counter() - t0
     e_pos = np.stack([np.asarray(o["e_pos"]) for o in outs])
@@ -308,7 +325,8 @@ def run_torch(args):
     cfg = CONFIGS[config]
     ps = structure(cfg["robot"], library, ProblemStructure, table_environment,
                    lambda: library.load_tree5()[1])
-    T_goal = torch.as_tensor(ref["T_goal"], dtype=torch.float32, device=dev)
+    dtype = getattr(torch, cfg.get("dtype", "float32"))
+    T_goal = torch.as_tensor(ref["T_goal"], dtype=dtype, device=dev)
     ok_j = ref["success"].astype(bool)
     launches = solve_tr_cuda.launches
     t0 = time.perf_counter()
@@ -323,12 +341,14 @@ def run_torch(args):
         oks = [ok_c]
     else:
         kw = solver_kwargs(cfg, TRParams, LocalParams, CGParams)
+        if "port_backend" in cfg:
+            kw["params"] = dataclasses.replace(kw["params"], backend=cfg["port_backend"])
         if cfg["restarts"]:
             solver = make_restart_solver(ps, n_restarts=cfg["restarts"], device=dev, **kw)
             outs = [solver(T_goal, torch.Generator(device=dev).manual_seed(RESTART_SEED + i))
                     for i in range(len(ok_j))]
         else:
-            outs = [api.make_solver(ps, device=dev, **kw)(T_goal)]
+            outs = [api.make_solver(ps, device=dev, dtype=dtype, **kw)(T_goal)]
         oks = [ok_of(o) for o in outs]
         iters = float(torch.stack([o["iterations"] for o in outs]).double().mean())
     if dev.type == "cuda":
