@@ -13,10 +13,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      TR step (cost rtol 2e-5 / atol 1e-6, Y atol 1e-4, num_inner equal),
      then the production params: every lane's outputs bitwise equal
      (1000/1000), all finite;
-  3. the UR10 path - api.make_solver on UR10 at B = 8192 with
+  3. the UR10 path - api.make_solver (the compiled solver: solve and
+     finish as CUDA graphs, utils/compiled.py) on UR10 at B = 8192 with
      TRParams.production(maxiter=100, maxinner=24), a 10-step LM polish and
-     2-squaring bound smoothing: one warm call, then 3 timed calls with
-     per-stage walls; success >= 0.85 (1 mm / 1 deg, limit-feasible), all
+     2-squaring bound smoothing: the first call (warm-up and capture, its
+     stage walls logged), then 3 timed calls (replays) with per-stage
+     walls; success >= 0.85 (1 mm / 1 deg, limit-feasible), all
      outputs finite, the kernel launched on every call; plus a 64-goal
      batch on the card against the same solver on the CPU (plain version);
   4. the TR kernel's and its plain version's times at the UR10 path's
@@ -68,11 +70,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
  11. dense CIDGIK on UR10 (ur10_cidgik): solvers/cidgik.solve_cidgik at
      B = 1024 with CidgikParams.production(admm_iters=700,
      admm_iters_rest=300), then the bench's finish (pose error, limits,
-     30-step LM polish); eager PyTorch, no hand-written kernel. One warm
-     call, one timed call with the ADMM and finish walls, success at or above
-     the floor, the raw-ADMM rate at 1 cm, median |eig_sum| and feas, finite
-     outputs of the right shapes; the kernel launches and device-busy share
-     of each stage from one profiled call; a 16-goal batch on the card
+     30-step LM polish); eager PyTorch, no hand-written kernel. The kernel
+     launches and device-busy share of each stage from one profiled call
+     (also the warm-up), then one timed call with the ADMM and finish
+     walls, success at or above the floor, the raw-ADMM rate at 1 cm,
+     median |eig_sum| and feas, finite outputs of the right shapes; a
+     16-goal batch on the card
      against the same call on the CPU (ADMM (200, 2 x 100)): status equal,
      eig_sum and feas within EIG_TOL and FEAS_TOL, points within 1e-3 on at
      least 15 lanes;
@@ -88,10 +91,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      block's norm;
  14. Riemannian conjugate gradient on UR10 (ur10_cg): make_solver with
      CGParams.production() at B = 8192, the UR10 path's polish and
-     smoothing: one warm and one timed call with per-stage walls, success
-     at or above the floor, no TR kernel launched, the solve's host reads,
-     the solve stage's launches and device-busy share from one profiled
-     call, and 64 goals on the card against the CPU: solve_cg from the
+     smoothing: the solve stage's launches and device-busy share from one
+     profiled call (also the warm-up), then one timed call with per-stage
+     walls, success at or above the floor, no TR kernel launched, the
+     solve's host reads, and 64 goals on the card against the CPU: solve_cg from the
      same Y0 at float64 (20 iterations) and float32 (5), iterations equal
      per lane and Y and cost within CG_TOL64 / CG_TOL32, then the whole
      solver's success counts;
@@ -117,16 +120,36 @@ Phases (any failure exits non-zero; no phase swallows an exception):
  17. the trust region's "dense" and "edge" backends (`tr_backends_phase`;
      eager PyTorch, no hand-written kernel launched on any of them):
      make_solver on UR10 at float64 (its "kernel" runs "dense") at
-     B = 8192 with the UR10 path's parameters, one warm and 2 timed calls
-     with per-stage walls, success >= 0.85, float64 finite outputs, the
-     solve's host reads, launches an iteration and device-busy share from
-     one profiled solve; 64 goals on the card against the CPU (one
+     B = 8192 with the UR10 path's parameters (no graph: the float64
+     path is eager): the launches an iteration and device-busy share from
+     one profiled solve (with one finish, the warm-up), the solve alone
+     timed with its host reads, then 2 timed calls with per-stage walls,
+     success >= 0.85, float64 finite outputs; 64 goals on the card against the CPU (one
      iteration from the same Y0: inner steps equal, Y within 1e-12; then
      the whole solver: per-goal success equal on >= 61); the table at
      float64 on "dense", B = 4096, production(250, 32): success >= 0.78,
      every successful lane clear of every sphere (radius - 1e-3); planar10
      at float32 on "edge", B = 1024: success within 0.03 of the kernel
      path's on the same goals.
+
+ 18. the compiled solver against the eager stages (`compiled_phase`): for
+     each f32 kernel path above (UR10, ur10_table, planar6, planar10, KUKA
+     iiwa, LWA4D, the four restart configurations, tree_restarts3,
+     planar10_ring6; the solvers of phases 3, 6, 8-10 and 15, which ran
+     compiled there) the same solver with every stage eager
+     (api.solve_ik's) on the same prepared inputs at the path's batch:
+     every output of the solve and the finish bitwise equal; per-stage
+     walls compiled and eager; the finish's host launches, device
+     activities and busy share (one profiled call each); the first call's
+     walls (warm-up + capture); the memory the graphs' pools hold and each
+     finish's peak.
+
+Phases 3, 6, 8-10, 15 and 16 run the compiled solver (make_solver,
+make_restart_solver, solve_ik_sharded): the warm call is the first call
+at the batch shape, which runs the solve and finish eagerly and captures
+them; the timed calls replay the graphs, and each launches the TR kernel
+once, inside the graph. Phases 11-14 and 17 are eager paths (CIDGIK, CG,
+the float64 and "edge" solves): no graph.
 
 A floor is the lower end of the JAX package's 95% Wilson interval on that
 configuration's 1000 goals (tools/torch_parity.py jax --config <name>), less
@@ -247,6 +270,9 @@ F64_TOL, F64_SAME_GOALS, EDGE_GAP = 1e-12, 61, 0.03
 # The H100 SXM's published peaks: f32 outside the tensor cores, and HBM3.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# the CUDA API calls (runtime cuda*, low-level cu*) by which the host starts device work
+HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync"}
 
 
 def bound(flops, nbytes):
@@ -345,19 +371,23 @@ def cidgik_call(solve, comp, ps_c, T_goal, params):
 
 def profiled(fn, dev):
     """Device activities of one run of fn (torch.profiler): (kernel
-    launches, other device activities - copies and sets -, device-busy ms).
-    The profiler's raw events are read directly: building its per-event
-    Python objects takes ~50 us an event, minutes for a CIDGIK call."""
+    launches, other device activities - copies and sets -, device-busy ms,
+    host launches - the CUDA API calls by which the host starts device
+    work, a graph launch counting one). The profiler's raw
+    events are read directly: building its per-event Python objects takes
+    ~50 us an event, minutes for a CIDGIK call."""
     import torch
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         sync(dev)
     cuda = torch.autograd.DeviceType.CUDA
-    dev_ev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    events = prof.profiler.kineto_results.events()
+    dev_ev = [e for e in events if e.device_type() == cuda]
     copies = sum(1 for e in dev_ev if e.name().startswith(("Memcpy", "Memset")))
     busy_ms = sum(e.duration_ns() for e in dev_ev) / 1e6
-    return len(dev_ev) - copies, copies, busy_ms
+    host = sum(1 for e in events if e.device_type() != cuda and e.name() in HOST_LAUNCH_CALLS)
+    return len(dev_ev) - copies, copies, busy_ms, host
 
 
 def flushed_kernel_ms(fn, name, reps):
@@ -571,10 +601,115 @@ def staged(solver, T_goal, *gen):
     return t1 - t0, t2 - t1, t3 - t2, peak, out
 
 
+def first_call(tag, solver, T_goal, *gen):
+    """The first call of a compiled solver at the path's shape, stage by
+    stage: its solve and finish run eagerly once (the warm-up) and are
+    captured into CUDA graphs (utils/compiled.py). Logs and returns the
+    stage walls (s)."""
+    tp, ts, tf, _, _ = staged(solver, T_goal, *gen)
+    log(f"[{tag}] first call (warm-up + capture of the solve and finish graphs): prepare "
+        f"{tp * 1e3:.1f} ms, solve {ts * 1e3:.1f} ms, finish {tf * 1e3:.1f} ms")
+    return tp, ts, tf
+
+
+def graph_pool_bytes(solvers):
+    """Bytes held by the memory pools of each compiled solver's CUDA
+    graphs: the caching allocator's segments of those pools (one
+    snapshot)."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    check(all("segment_pool_id" in seg for seg in segs), "memory_snapshot has no segment_pool_id")
+    by_pool = {}
+    for seg in segs:
+        pool = tuple(seg["segment_pool_id"])
+        by_pool[pool] = by_pool.get(pool, 0) + seg["total_size"]
+    return [sum(by_pool.get(tuple(p), 0) for p in s.graphs.pools.values()) for s in solvers]
+
+
+def compiled_phase(dev, paths):
+    """Phase 18: each f32 kernel path's compiled solver (CUDA graphs, as
+    the earlier phases ran it) against the same solver with every stage
+    eager (api.solve_ik's), on the same prepared inputs at the path's
+    batch: every output of the solve and of the finish bitwise equal; the
+    stages' walls; the finish's host launches, device activities and
+    device-busy share (one profiled call each, busy over the unprofiled
+    wall); the first call's walls (warm-up + capture, from the path's
+    phase) and, less the eager stage's wall, the capture's; the memory
+    the solver's graph pools hold and each finish's peak. paths: [(tag, compiled solver, T_goal, generator args, first-call
+    walls)]. Returns the records."""
+    import torch
+
+    t_phase = time.perf_counter()
+    records = []
+    for tag, solver, T_goal, gen, first in paths:
+        eager = dataclasses.replace(solver, graphs=None)
+        D, Y0 = eager.prepare(T_goal, *gen)
+        walls, outs, peaks = {}, {}, {}
+        for name, s in (("compiled", solver), ("eager", eager)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = s.solve(Y0, D)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = s.finish(sol, T_goal)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+            walls[name] = (t1 - t0, t2 - t1)
+            outs[name] = (sol, out)
+        differ = {k: int((a[k] != b[k]).reshape(a[k].shape[0], -1).any(-1).sum())
+                  for a, b in zip(outs["compiled"], outs["eager"]) for k in a
+                  if not torch.equal(a[k], b[k])}
+        sol_c = outs["compiled"][0]
+        t_prof = time.perf_counter()
+        prof = {name: profiled(lambda s=s: s.finish(sol_c, T_goal), dev)
+                for name, s in (("compiled", solver), ("eager", eager))}
+        t_prof = time.perf_counter() - t_prof
+        B = Y0.shape[0]
+        # the first call ran each stage eagerly (the warm-up), then captured it
+        rec = {"path": tag, "B": B, "bitwise": not differ, "lanes_differ": differ,
+               "first_call_ms": {"solve": first[1] * 1e3, "finish": first[2] * 1e3},
+               "capture_ms": {"solve": (first[1] - walls["eager"][0]) * 1e3,
+                              "finish": (first[2] - walls["eager"][1]) * 1e3}}
+        for name in ("compiled", "eager"):
+            kernels, copies, busy, host = prof[name]
+            n_dev = kernels + copies
+            ts, tf = walls[name]
+            rec[name] = {"solve_ms": ts * 1e3, "finish_ms": tf * 1e3, "finish_host_launches": host,
+                         "finish_device_activities": n_dev, "finish_busy_ms": busy,
+                         "finish_busy_share": busy / (tf * 1e3),
+                         "finish_peak_mib": peaks[name] / 2**20}
+        c, e = rec["compiled"], rec["eager"]
+        log(f"[18] {tag}, {B} instances: solve {c['solve_ms']:.1f} ms compiled / "
+            f"{e['solve_ms']:.1f} eager; finish {c['finish_ms']:.1f} / {e['finish_ms']:.1f} ms "
+            f"({e['finish_ms'] / c['finish_ms']:.1f}x); finish host launches "
+            f"{c['finish_host_launches']} / {e['finish_host_launches']}, device activities "
+            f"{c['finish_device_activities']} / {e['finish_device_activities']}, busy "
+            f"{100 * c['finish_busy_share']:.1f}% / {100 * e['finish_busy_share']:.1f}%; first "
+            f"call (warm-up + capture) solve {first[1] * 1e3:.1f} ms, finish "
+            f"{first[2] * 1e3:.1f} ms, less the eager stage: capture "
+            f"{rec['capture_ms']['solve']:.1f} / {rec['capture_ms']['finish']:.1f} ms; finish peak {c['finish_peak_mib']:.1f} / "
+            f"{e['finish_peak_mib']:.1f} MiB; outputs bitwise equal {not differ} {differ or ''}; "
+            f"the two profiled finishes took {t_prof:.1f} s")
+        check(not differ, f"{tag}: the compiled solver's outputs differ from the eager ones")
+        records.append(rec)
+    pools = graph_pool_bytes([p[1] for p in paths])
+    for rec, pool in zip(records, pools):
+        rec["graph_pool_mib"] = pool / 2**20
+    per_path = ", ".join("%s %.1f" % (r["path"], r["graph_pool_mib"]) for r in records)
+    log(f"[18] graph pools (MiB): {per_path}; {sum(pools) / 2**20:.1f} in all; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def cidgik_phases(dev, gen, cfgs):
     """The CIDGIK paths: for each (tag, phase, structure, B, production
-    overrides, sparse), one warm and one timed call with the ADMM and
-    finish walls, success at or above the floor, finite outputs
+    overrides, sparse), one profiled call (the launches and device-busy
+    share of each stage; also the warm-up) and one timed call with the
+    ADMM and finish walls, success at or above the floor, finite outputs
     of the right shapes (and, with obstacles, successful lanes clear of every
     sphere), the launches and device-busy share of each stage from one
     profiled call, and a 16-goal batch on `dev` against the same call on the
@@ -611,8 +746,21 @@ def cidgik_phases(dev, gen, cfgs):
         def goals_c(B, device=dev, ps_=ps_c):
             return api.random_goals(ps_, (B,), gen, dtype=torch.float32, device=device)[0]
 
-        cidgik_call(solve, comp, ps_c, goals_c(B_c), params)  # warm call
         T_goal = goals_c(B_c)
+        # launches and device-busy share of each stage, from one profiled
+        # call, which is also the timed call's warm-up; busy share = its
+        # device time over the timed call's wall
+        out_p = {}
+        k_a, c_a, busy_a, _ = profiled(lambda: out_p.update(solve(comp, T_goal, params=params)),
+                                       dev)
+        q0 = out_p["q"]
+
+        def finish_only():
+            e0, r0 = api.pose_error(ps_c, q0, T_goal)
+            v0, ok0 = ps_c.check_distance_limits(ps_c.realization(q0))
+            api.polish_solution(ps_c, q0, T_goal, e0, r0, v0, ok0)
+
+        k_f, c_f, busy_f, _ = profiled(finish_only, dev)
         counters = (solve_tr_cuda, edge_ops.cost_and_egrad_cuda, edge_ops.ehess_cuda)
         for f in counters:
             f.launches = 0
@@ -658,18 +806,6 @@ def cidgik_phases(dev, gen, cfgs):
             log(f"[{phase}] {tag}: least clearance over successful lanes {worst:.3e} m (>= -1e-3)")
             check(worst >= -1e-3, f"{tag}: a successful lane enters an obstacle")
 
-        # launches and device-busy share of each stage, from one profiled
-        # call; busy share = its device time over the timed call's wall
-        out_p = {}
-        k_a, c_a, busy_a = profiled(lambda: out_p.update(solve(comp, T_goal, params=params)), dev)
-        q0 = out_p["q"]
-
-        def finish_only():
-            e0, r0 = api.pose_error(ps_c, q0, T_goal)
-            v0, ok0 = ps_c.check_distance_limits(ps_c.realization(q0))
-            api.polish_solution(ps_c, q0, T_goal, e0, r0, v0, ok0)
-
-        k_f, c_f, busy_f = profiled(finish_only, dev)
         log(f"[{phase}] {tag} profiled call: ADMM {k_a} kernel launches + {c_a} copies/sets, "
             f"device busy {busy_a:.1f} ms = {busy_a / (t_admm * 1e3):.3f} of the timed ADMM wall; "
             f"finish {k_f} launches + {c_f} copies/sets, busy {busy_f:.1f} ms = "
@@ -751,7 +887,8 @@ def eigh_check(phase, comp, ps_c, out, dev):
 
 def cg_phase(dev, gen, ps, polish):
     """The CG path (ur10_cg): make_solver with CGParams.production() at
-    B_CG, one warm and one timed call with per-stage walls, success at or
+    B_CG, one profiled solve (also the warm-up) and one timed call with
+    per-stage walls, success at or
     above the floor, no TR kernel launched, the solve's host reads, the
     solve stage's launches and busy share from one profiled call, and 64
     goals on `dev` against the CPU: solve_cg's trajectories from the same
@@ -772,9 +909,11 @@ def cg_phase(dev, gen, ps, polish):
     def goals(B, device=dev):
         return api.random_goals(ps, (B,), gen, dtype=torch.float32, device=device)[0]
 
-    solver(goals(B_CG))  # warm call
-    sync(dev)
     T_goal = goals(B_CG)
+    # the solve stage's launches and device-busy share, from one profiled
+    # call, which is also the timed call's warm-up
+    D_goal, Y0 = solver.prepare(T_goal)
+    k_s, c_s, busy_s, _ = profiled(lambda: solver.solve(Y0, D_goal), dev)
     solve_tr_cuda.launches = 0
     riemannian.solve_cg.host_reads = 0
     sync(dev)
@@ -805,8 +944,6 @@ def cg_phase(dev, gen, ps, polish):
         f"success {summ['success_rate']:.4f} (floor {FLOORS[tag]}), pose only "
         f"{summ['pose_only_rate']:.4f}, median e_pos {summ['median_pos_err']:.3e} m")
     check(summ["success_rate"] >= FLOORS[tag], f"{tag}: success below its floor")
-
-    k_s, c_s, busy_s = profiled(lambda: solver.solve(Y0, D_goal), dev)
     log(f"[14] {tag} profiled solve: {k_s} kernel launches + {c_s} copies/sets "
         f"({k_s / float(it.max()):.1f} launches an iteration), device busy {busy_s:.1f} ms = "
         f"{busy_s / ((t2 - t1) * 1e3):.3f} of the timed solve wall")
@@ -844,7 +981,7 @@ def cg_phase(dev, gen, ps, polish):
             "card_vs_cpu_successes": [s_g, s_c], "card_vs_cpu_trajectory": traj}
 
 
-def ring_phase(dev, gen, polish):
+def ring_phase(dev, gen, polish, graphed):
     """Phase 15, planar10_ring6 (load_planar_chain(10, limits=pi/2) and the
     six circles of ring_environment): the anchored TR kernel's <2, 2, 16,
     true> instance against its plain version on the path's prepared inputs
@@ -854,8 +991,9 @@ def ring_phase(dev, gen, polish):
     and 2 timed calls with per-stage walls, one anchored launch a call,
     success at or above the floor on each, every successful lane's
     p1..p10 at least radius - 1e-3 from every centre; the kernel's and the
-    plain version's times; 64 goals on the card against the CPU. Returns
-    the kernel's record."""
+    plain version's times; 64 goals on the card against the CPU. Appends
+    the compiled path to `graphed` (phase 18). Returns the kernel's
+    record."""
     import torch
 
     from graphik_tpu_torch import api
@@ -923,13 +1061,14 @@ def ring_phase(dev, gen, polish):
     log(f"[15] {tag} at B={B_CHECK}: kernel {ms_kernel:.3f} ms, plain torch {ms_plain:.3f} ms, "
         f"bound {b[0]:.4f} ms ({b[1]})")
 
-    solver(goals(B_MAIN))  # warm call
-    torch.cuda.synchronize()
+    first = first_call("15", solver, goals(B_MAIN))
     calls = []
+    sets = [goals(B_MAIN) for _ in range(2)]
     solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = 0
-    for _ in range(2):
-        tp, ts, tf, peak, o = staged(solver, goals(B_MAIN))
+    for T_goal in sets:
+        tp, ts, tf, peak, o = staged(solver, T_goal)
         calls.append((tp, ts, tf, peak, api.summarize(o), o))
+    graphed.append((tag, solver, sets[-1], (), first))
     launches = solve_tr_cuda.anchored_launches
     log(f"[15] {tag}: TR launches during the 2 timed calls: {solve_tr_cuda.launches} "
         f"(anchored {launches})")
@@ -967,7 +1106,9 @@ def ring_phase(dev, gen, polish):
         f"{b_path[0]:.4f} ms ({b_path[1]}), {ms_path / b_path[0]:.0f}x")
 
     T_small = goals(B_SMALL, device=torch.device("cpu"))
-    s_gpu = api.summarize(solver(T_small.to(dev)))["success_rate"]
+    # eager stages on the card: a first compiled call at a new shape would
+    # run them eagerly too, then capture graphs that nothing replays
+    s_gpu = api.summarize(dataclasses.replace(solver, graphs=None)(T_small.to(dev)))["success_rate"]
     o_cpu = solver(T_small)
     check(o_cpu["Y"].device.type == "cpu", f"{tag}: the CPU call ran on {o_cpu['Y'].device}")
     s_cpu = api.summarize(o_cpu)["success_rate"]
@@ -1024,12 +1165,14 @@ def sharded_phase(dev, gen, ps, params, polish):
     check(n_ref == 1, "the unsharded solve did not launch the TR kernel once")
     record = {"B": B, "unsharded_ms": ms_ref, "meshes": []}
     for mesh in (make_mesh(), [dev, dev]):
+        solve_ik_sharded(ps, T_goal, mesh, **kw)  # the first call of a shard shape captures
         out, ms, n = timed(lambda: solve_ik_sharded(ps, T_goal, mesh, **kw))
         dq = (out["q"] - ref["q"]).abs()
         over = int((dq > 1e-4 + 1e-3 * ref["q"].abs()).any(-1).sum())
         n_succ = int((out["success"] != ref["success"]).sum())
-        log(f"[16] solve_ik_sharded over {[str(d) for d in mesh]}, B={B}: {ms:.1f} ms (unsharded "
-            f"{ms_ref:.1f} ms), TR launches {n}; lanes with q outside rtol 1e-3 / atol 1e-4 "
+        log(f"[16] solve_ik_sharded over {[str(d) for d in mesh]}, B={B}: {ms:.1f} ms, compiled "
+            f"(unsharded eager solve_ik {ms_ref:.1f} ms), TR launches {n}; lanes with q outside "
+            f"rtol 1e-3 / atol 1e-4 "
             f"{over}, max |dq| {float(dq.max()):.3e}, success differs on {n_succ} lanes; success "
             f"{api.summarize(out)['success_rate']:.4f}")
         check(n == len(mesh), "solve_ik_sharded did not launch the TR kernel once a shard")
@@ -1121,17 +1264,14 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish):
     prod = TRParams.production(maxiter=100, maxinner=24)
     solver = api.make_solver(ps, params=prod, polish_params=polish, smooth_iters=2)
     log(f"[17] {tag}: UR10, float64, B = {B_F64}; {prod}")
-    solver(goals(ps, B_F64, torch.float64))  # warm call
-    sync(dev)
+    # the solve's launches and device-busy share, from one profiled call;
+    # that call and one finish are the warm-up of the timed calls
+    T_p = goals(ps, B_F64, torch.float64)
+    D_goal, Y0 = solver.prepare(T_p)
     zero_counts()
-    calls = []
-    for i in range(2):
-        tp, ts, tf, _, o = staged(solver, goals(ps, B_F64, torch.float64))
-        summ = checked(tag, o, B_F64, torch.float64)
-        calls.append(walls(tag, i, tp, ts, tf, summ, B_F64))
-        check(summ["success_rate"] >= 0.85, f"{tag}: success below 0.85")
-    no_kernel(tag)
-    D_goal, Y0 = solver.prepare(goals(ps, B_F64, torch.float64))
+    prof_out = {}
+    k_s, c_s, busy, _ = profiled(lambda: prof_out.update(solver.solve(Y0, D_goal)), dev)
+    solver.finish(prof_out, T_p)
     riemannian.solve.host_reads = 0
     sync(dev)
     t0 = time.perf_counter()
@@ -1139,7 +1279,13 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish):
     sync(dev)
     t_solve = time.perf_counter() - t0
     reads = riemannian.solve.host_reads
-    k_s, c_s, busy = profiled(lambda: solver.solve(Y0, D_goal), dev)
+    calls = []
+    for i in range(2):
+        tp, ts, tf, _, o = staged(solver, goals(ps, B_F64, torch.float64))
+        summ = checked(tag, o, B_F64, torch.float64)
+        calls.append(walls(tag, i, tp, ts, tf, summ, B_F64))
+        check(summ["success_rate"] >= 0.85, f"{tag}: success below 0.85")
+    no_kernel(tag)
     n_it = int(sol["iterations"].max())  # the outer iterations the batch ran
     steps = float(sol["num_inner"].double().mean())
     log(f"[17] {tag} solve alone: {t_solve * 1e3:.1f} ms, {n_it} iterations (mean "
@@ -1312,8 +1458,8 @@ def main() -> int:
         f"{float(pp['num_inner'].double().mean()):.2f}")
 
     # ---- phase 3: the main path ----
-    out = solver(goals(B_MAIN))  # warm call
-    torch.cuda.synchronize()
+    graphed = []  # the compiled f32 kernel paths, for phase 18
+    first = first_call("3", solver, goals(B_MAIN))
     goal_sets = [goals(B_MAIN) for _ in range(3)]
     calls = []
     solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = 0
@@ -1339,10 +1485,13 @@ def main() -> int:
         check(summ["success_rate"] >= 0.85, "UR10 success below 0.85")
     walls = [sum(c[:3]) for c in calls]
     log(f"[3] mean over the timed calls: {B_MAIN / (sum(walls) / 3):.1f} solves/s")
+    graphed.append(("ur10", solver, goal_sets[-1], (), first))
 
     # the same solver on a small batch, on the card and on the CPU (plain version)
     T_small = goals(B_SMALL, device=torch.device("cpu"))
-    s_gpu = api.summarize(solver(T_small.to(dev)))["success_rate"]
+    # eager stages on the card: a first compiled call at a new shape would
+    # run them eagerly too, then capture graphs that nothing replays
+    s_gpu = api.summarize(dataclasses.replace(solver, graphs=None)(T_small.to(dev)))["success_rate"]
     s_cpu = api.summarize(solver(T_small))["success_rate"]
     log(f"[3] {B_SMALL} goals: success on the card {s_gpu:.4f}, on the CPU {s_cpu:.4f}")
     check(abs(s_gpu - s_cpu) * B_SMALL <= 6, "card and CPU success differ by more than 6 goals")
@@ -1412,8 +1561,7 @@ def main() -> int:
         f"torch {ms_a_plain:.3f} ms")
 
     # ---- phase 6: the table path ----
-    out_t = solver_t(goals_t(B_MAIN))  # warm call
-    torch.cuda.synchronize()
+    first = first_call("6", solver_t, goals_t(B_MAIN))
     goal_sets = [goals_t(B_MAIN) for _ in range(3)]
     calls_t = []
     solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = 0
@@ -1449,6 +1597,7 @@ def main() -> int:
         check(worst >= -1e-3, "a successful lane enters an obstacle")
     walls_t = [sum(c[:3]) for c in calls_t]
     log(f"[6] mean over the timed calls: {B_MAIN / (sum(walls_t) / 3):.1f} solves/s")
+    graphed.append(("ur10_table", solver_t, goal_sets[-1], (), first))
     D_m, Y0_m = solver_t.prepare(goal_sets[-1])
     Y0_m, dg_m = Y0_m.contiguous(), ep_t.edge_values(D_m).contiguous()
     # one step at the table path's own shapes, against the plain version
@@ -1466,7 +1615,8 @@ def main() -> int:
         f"maxinner=32): {ms_a_main:.3f} ms")
 
     T_small = goals_t(B_SMALL, device=torch.device("cpu"))
-    s_gpu = api.summarize(solver_t(T_small.to(dev)))["success_rate"]
+    s_gpu = api.summarize(dataclasses.replace(solver_t, graphs=None)(T_small.to(dev)))[
+        "success_rate"]
     s_cpu = api.summarize(solver_t(T_small))["success_rate"]
     log(f"[6] {B_SMALL} table goals: success on the card {s_gpu:.4f}, on the CPU {s_cpu:.4f}")
     check(abs(s_gpu - s_cpu) * B_SMALL <= 6, "card and CPU success differ by more than 6 goals")
@@ -1557,9 +1707,10 @@ def main() -> int:
                       dict(maxiter=100, **tr_kw))
         two = tr_solve.kernel_shape(ep_r, B_MAIN, ps_r.dim)["two_per_warp"]
         check(two == (ps_r.dim == 2), f"{tag}: two_per_warp is {two}")
-        solver_r(goals_r(B_MAIN))  # warm call
-        torch.cuda.synchronize()
-        calls_r, n_r = path_calls(tag, solver_r, [goals_r(B_MAIN) for _ in range(2)])
+        first = first_call(tag, solver_r, goals_r(B_MAIN))
+        sets = [goals_r(B_MAIN) for _ in range(2)]
+        calls_r, n_r = path_calls(tag, solver_r, sets)
+        graphed.append((tag, solver_r, sets[-1], (), first))
         D_m, Y0_m = solver_r.prepare(goals_r(B_MAIN))
         tr_paths.append(sub_record(tag, ep_r, Y0_m.contiguous(), ep_r.edge_values(D_m).contiguous(),
                                    dict(maxiter=100, **tr_kw), n_r, B_MAIN, lanes_bitwise=B_CHECK,
@@ -1577,15 +1728,17 @@ def main() -> int:
         table = ps_r.n_obstacles > 0
         rsolver = make_restart_solver(ps_r, n_restarts=R, params=params_r, polish_params=polish,
                                       smooth_iters=2)
-        single = api.make_solver(ps_r, params=params_r, polish_params=polish, smooth_iters=2)
+        # the single-init reference runs eagerly (api.solve_ik's stages): two
+        # calls cost less than a capture
+        single = api.Solver(ps_r, params=params_r, polish_params=polish, smooth_iters=2)
 
         def goals_rr(B, ps_=ps_r):
             return api.random_goals(ps_, (B,), gen, dtype=torch.float32, device=dev)[0]
 
-        rsolver(goals_rr(B_r), rgen)  # warm call
-        torch.cuda.synchronize()
+        first = first_call(tag, rsolver, goals_rr(B_r), rgen)
         sets = [goals_rr(B_r) for _ in range(2)]
         calls_r, n_r = path_calls(tag, rsolver, sets, rgen, anchored=table)
+        graphed.append((tag, rsolver, sets[-1], (rgen,), first))
         for i, (T_goal, c) in enumerate(zip(sets, calls_r)):
             s_single = api.summarize(single(T_goal))["success_rate"]
             s_rest = c[3]["success_rate"]
@@ -1620,11 +1773,10 @@ def main() -> int:
     # and 2 padded edge slots in each half warp
     D_m, Y0_m = tsolver.prepare(T_tree, rgen)
     bitwise_check("10", "tree_restarts3", ep_tree, Y0_m, D_m, dict(maxiter=1), tree_kw)
-    tsolver(T_tree, rgen)  # warm call
-    torch.cuda.synchronize()
-    calls_tree, n_tree = path_calls(
-        "tree_restarts3", tsolver,
-        [api.random_goals(ps_tree, (B_TREE,), gen, dtype=torch.float32, device=dev)[0]], rgen)
+    first = first_call("tree_restarts3", tsolver, T_tree, rgen)
+    sets = [api.random_goals(ps_tree, (B_TREE,), gen, dtype=torch.float32, device=dev)[0]]
+    calls_tree, n_tree = path_calls("tree_restarts3", tsolver, sets, rgen)
+    graphed.append(("tree_restarts3", tsolver, sets[-1], (rgen,), first))
     tr_paths.append(sub_record("tree_restarts3", ep_tree, Y0_m.contiguous(),
                                ep_tree.edge_values(D_m).contiguous(), tree_kw,
                                n_tree, 3 * B_TREE, restarts=3, lanes_bitwise=3 * B_TREE,
@@ -1644,12 +1796,14 @@ def main() -> int:
 
     # ---- phase 15: planar10_ring6, the anchored TR kernel at d = 2 ----
     t_new = time.perf_counter()
-    ring_kernel = ring_phase(dev, gen, polish)
+    ring_kernel = ring_phase(dev, gen, polish, graphed)
     # ---- phase 16: the data-parallel solve on the card ----
     sharded_path = sharded_phase(dev, gen, ps, prod, polish)
     log(f"[16] phases 15 and 16 took {time.perf_counter() - t_new:.1f} s")
     # ---- phase 17: the trust region's "dense" and "edge" backends ----
     backend_paths = tr_backends_phase(dev, gen, ps, ps_t, polish)
+    # ---- phase 18: the compiled solver against the eager stages ----
+    compiled_paths = compiled_phase(dev, graphed)
 
     # Bounds: counted from the shapes and, for the TR kernels, from the
     # iteration counts of the runs that were timed. No single PyTorch call
@@ -1689,6 +1843,7 @@ def main() -> int:
     log(f"[14] CG path: {json.dumps(cg_path)}")
     log(f"[16] sharded paths: {json.dumps(sharded_path)}")
     log(f"[17] TR backend paths: {json.dumps(backend_paths)}")
+    log(f"[18] compiled paths: {json.dumps(compiled_paths)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(f"card: {smi}")

@@ -1,17 +1,26 @@
 """High-level IK API: batched IK solves with the Riemannian solvers.
 
 Port of graphik_tpu/api.py for 3D revolute robots, with or without
-spherical obstacles, and for planar robots. The pipeline runs eagerly in
-three stages - prepare (goal anchors, bound smoothing, MDS init), solve
-(the TR kernel, or the eager conjugate-gradient solver with CGParams),
-finish (joint recovery, FK validation, pose error, LM
-polish, keep-the-better) - on the goals' device: goals given as a torch
-tensor stay where the caller put them, and goals with no device (numpy
-arrays) go to the solver's
+spherical obstacles, and for planar robots. The pipeline runs in three
+stages - prepare (goal anchors, bound smoothing, MDS init), solve (the TR
+kernel, or the eager conjugate-gradient solver with CGParams), finish
+(joint recovery, FK validation, pose error, LM polish, keep-the-better) -
+on the goals' device: goals given as a torch tensor stay where the caller
+put them, and goals with no device (numpy arrays) go to the solver's
 `device`, the card unless the caller names another. With obstacles,
 prepare and solve run on the Nr robot nodes only (the anchored reduction,
 ProblemStructure.reduced_spec) and the obstacle positions are padded back
 into Y after the solve.
+
+`solve_ik` runs every stage eagerly. `make_solver` and `solve_ik_jit`
+return the compiled solver, as the JAX package's jitted ones: on a card,
+its solve and finish stages of the float32 TR-kernel path (K3, or K4 with
+anchors) run as CUDA graphs, captured on the first call of each input
+shape and replayed after (utils/compiled.py), with the eager stages'
+results bit for bit. Prepare stays eager: its `torch.linalg.eigh`
+synchronises with the host. Every other path (CGParams, the TR's "dense"
+and "edge" backends, float64) reads the host in its solve loop and runs
+eagerly, as do CPU tensors.
 Layouts match the JAX package: Y is (B, N, d), T_goal is (B, n_ee, hd, hd)
 with hd = d + 1, and the output dicts carry the same keys.
 """
@@ -19,6 +28,7 @@ with hd = d + 1, and the output dicts carry the same keys.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Union
 
@@ -30,7 +40,7 @@ from graphik_tpu_torch.solvers import local as local_solver
 from graphik_tpu_torch.solvers import riemannian
 from graphik_tpu_torch.solvers.local import LocalParams
 from graphik_tpu_torch.solvers.riemannian import CGParams, TRParams
-from graphik_tpu_torch.utils import lie
+from graphik_tpu_torch.utils import compiled, lie
 
 
 def pose_error(structure: ProblemStructure, q, T_goal):
@@ -91,7 +101,8 @@ def solve_reduced(structure, Y0, D_goal, omega_np, psi_L, psi_U,
         anchors=spec if use_limits else None,
     )
     Yr = sol["Y"]
-    obs = torch.as_tensor(structure.pos_fixed[Nr:], dtype=Yr.dtype, device=Yr.device)
+    obs = compiled.device_const(structure, "obstacle_positions", structure.pos_fixed[Nr:],
+                                Yr.dtype, Yr.device)
     sol["Y"] = torch.cat([Yr, obs.expand(Yr.shape[:-2] + obs.shape)], dim=-2)
     return sol
 
@@ -124,7 +135,9 @@ def polish_solution(structure, q, T_goal, e_pos, e_rot, max_viol, limits_ok,
 @dataclasses.dataclass
 class Solver:
     """The staged pipeline of `make_solver`; call it on T_goal, or run the
-    stages one by one (prepare -> solve -> finish) to time them."""
+    stages one by one (prepare -> solve -> finish) to time them. With
+    `graphs` (the compiled solver), solve and finish of the float32
+    TR-kernel path run as CUDA graphs on a card; without, eagerly."""
 
     structure: ProblemStructure
     params: Union[TRParams, CGParams] = TRParams()
@@ -135,6 +148,7 @@ class Solver:
     polish_params: Optional[LocalParams] = None
     smooth_iters: Optional[int] = None
     device: Optional[torch.device] = None  # for goals with no device; None: the card
+    graphs: Optional[compiled.StageGraphs] = None  # the captured stages; None: eager
 
     def __post_init__(self):
         self.omega, self.psi_L, self.psi_U = self.structure.masks()
@@ -156,19 +170,37 @@ class Solver:
         inst = self.structure.instance(T_goal, dtype=self.dtype, smooth=True,
                                        n_nodes=self.n_nodes, smooth_iters=self.smooth_iters)
         M = self.structure.N if self.n_nodes is None else self.n_nodes
-        Y0 = riemannian.generate_initialization(
-            inst["lb"], inst["ub"], self.omega[:M, :M], self.structure.dim)
+        omega = compiled.device_const(self.structure, ("omega", M), self.omega[:M, :M],
+                                      device=inst["lb"].device)
+        Y0 = riemannian.generate_initialization(inst["lb"], inst["ub"], omega, self.structure.dim)
         return inst["D_goal"], Y0
 
+    def _graphed(self, Y):
+        """Whether a stage on Y runs as a CUDA graph: the compiled solver's
+        float32 TR-kernel path on a card."""
+        return (self.graphs is not None and Y.device.type == "cuda" and Y.dtype == torch.float32
+                and isinstance(self.params, TRParams) and self.params.backend == "kernel")
+
     def solve(self, Y0, D_goal):
+        if self._graphed(Y0):
+            return self.graphs.run("solve", self._solve, Y0, D_goal)
+        return self._solve(Y0, D_goal)
+
+    def _solve(self, Y0, D_goal):
         return solve_reduced(self.structure, Y0, D_goal, self.omega, self.psi_L,
                              self.psi_U, params=self.params, use_limits=self.use_limits)
 
     def finish(self, sol, T_goal):
         """Joint recovery, FK validation, pose error and the polish."""
-        ps = self.structure
         Y = sol["Y"]
         T_goal = self.goals(T_goal).to(Y.device, Y.dtype)
+        if self._graphed(Y):
+            return self.graphs.run("finish", self._finish, sol, T_goal)
+        return self._finish(sol, T_goal)
+
+    def _finish(self, sol, T_goal):
+        ps = self.structure
+        Y = sol["Y"]
         q = ps.joint_variables(Y, T_goal)
         max_viol, limits_ok = ps.check_distance_limits(ps.realization(q), tol=self.limit_tol)
         e_pos, e_rot = pose_error(ps, q, T_goal)
@@ -187,9 +219,17 @@ class Solver:
             **{k: sol[k] for k in ("cost", "gradnorm", "iterations", "num_inner")},
         }
 
-    def __call__(self, T_goal):
+    def __call__(self, T_goal, Y_init=None):
+        """The three stages on T_goal; with Y_init ((..., N, d) or
+        (..., Nr, d), broadcast over the batch) the solve starts there, from
+        the unsmoothed goal distances, in place of prepare's MDS init."""
         T_goal = self.goals(T_goal)
-        D_goal, Y0 = self.prepare(T_goal)
+        if Y_init is None:
+            D_goal, Y0 = self.prepare(T_goal)
+        else:
+            D_goal = self.structure.instance(T_goal, dtype=self.dtype, smooth=False)["D_goal"]
+            Y0 = torch.as_tensor(Y_init, device=D_goal.device)
+            Y0 = Y0.expand(D_goal.shape[:-2] + Y0.shape[-2:])
         return self.finish(self.solve(Y0, D_goal), T_goal)
 
 
@@ -197,14 +237,31 @@ def make_solver(structure: ProblemStructure, params: Union[TRParams, CGParams] =
                 use_limits: bool = True, dtype=None, limit_tol: float = 1e-6,
                 polish: bool = True, polish_params: Optional[LocalParams] = None,
                 smooth_iters: Optional[int] = None, device=None) -> Solver:
-    """A batched solver for `structure`: solver(T_goal) -> dict of
-    per-instance q, Y, e_pos, e_rot, limit_violation, success, cost,
-    gradnorm, iterations, num_inner. params: TRParams for the trust-region
-    solver, CGParams for the conjugate-gradient one. A tensor T_goal runs
-    on its own device; goals with no device run on `device` (None: the
-    card, which raises when there is none)."""
+    """The compiled batched solver for `structure`: solver(T_goal) -> dict
+    of per-instance q, Y, e_pos, e_rot, limit_violation, success, cost,
+    gradnorm, iterations, num_inner, the same as `solve_ik`'s. On a card
+    the float32 TR-kernel path's solve and finish run as CUDA graphs, one
+    captured per input shape on its first call (utils/compiled.py).
+    params: TRParams for the trust-region solver, CGParams for the
+    conjugate-gradient one. A tensor T_goal runs on its own device; goals
+    with no device run on `device` (None: the card, which raises when there
+    is none)."""
     return Solver(structure, params, use_limits, dtype, limit_tol, polish,
-                  polish_params, smooth_iters, device)
+                  polish_params, smooth_iters, device, compiled.StageGraphs())
+
+
+def solve_ik_jit(structure: ProblemStructure, **fixed_kwargs):
+    """The compiled solver specialised to `structure` and `solve_ik`'s
+    keyword arguments: solver(T_goal) is solve_ik(structure, T_goal,
+    **fixed_kwargs), its stages run as `make_solver`'s.
+
+    Example:
+        solver = solve_ik_jit(structure, params=TRParams(maxiter=500))
+        out = solver(T_goal_batch)
+    """
+    Y_init = fixed_kwargs.pop("Y_init", None)
+    solver = make_solver(structure, **fixed_kwargs)
+    return solver if Y_init is None else functools.partial(solver, Y_init=Y_init)
 
 
 def solve_ik(structure: ProblemStructure, T_goal, params: Union[TRParams, CGParams] = TRParams(),
@@ -212,21 +269,15 @@ def solve_ik(structure: ProblemStructure, T_goal, params: Union[TRParams, CGPara
              polish: bool = True, polish_params: Optional[LocalParams] = None,
              smooth_iters: Optional[int] = None, device=None):
     """One-shot batched IK solve (TRParams: trust region, CGParams:
-    conjugate gradient).
+    conjugate gradient), every stage eager.
 
     Y_init: optional (..., N, d) or (..., Nr, d) initialization, broadcast
     over the batch; the default is the bound-smoothing MDS init. device: as
     `make_solver`'s, for goals with no device.
     """
-    solver = make_solver(structure, params, use_limits, dtype, limit_tol, polish,
-                         polish_params, smooth_iters, device)
-    T_goal = solver.goals(T_goal)
-    if Y_init is None:
-        return solver(T_goal)
-    D_goal = structure.instance(T_goal, dtype=dtype, smooth=False)["D_goal"]
-    Y0 = torch.as_tensor(Y_init, device=D_goal.device)
-    Y0 = Y0.expand(D_goal.shape[:-2] + Y0.shape[-2:])
-    return solver.finish(solver.solve(Y0, D_goal), T_goal)
+    solver = Solver(structure, params, use_limits, dtype, limit_tol, polish,
+                    polish_params, smooth_iters, device)
+    return solver(T_goal, Y_init)
 
 
 def random_goals(structure: ProblemStructure, batch_shape=(),
@@ -240,7 +291,7 @@ def random_goals(structure: ProblemStructure, batch_shape=(),
     tpl = structure.template
     q = kinematics.random_configuration(tpl, batch_shape, generator, dtype, device)
     T_all = kinematics.all_poses(tpl, q)
-    return T_all[..., torch.as_tensor(tpl.ee, device=q.device), :, :], q
+    return T_all[..., compiled.device_const(tpl, "ee", tpl.ee, torch.long, q.device), :, :], q
 
 
 def summarize(out, criterion_pos: float = 1e-3, criterion_rot: float = math.pi / 180):

@@ -26,6 +26,7 @@ import torch
 from graphik_tpu_torch.robots import kinematics
 from graphik_tpu_torch.robots.templates import RobotTemplate, _rotz, _se3
 from graphik_tpu_torch.utils import dgp, lie
+from graphik_tpu_torch.utils.compiled import device_const
 
 # Bounded-edge classification codes.
 UNBOUNDED = 0
@@ -46,8 +47,10 @@ def _max_min_distance_revolute(r, P, C, N):
     return d_max, d_min
 
 
-def _const(x, like, dtype=None):
-    return torch.as_tensor(np.asarray(x), dtype=dtype or like.dtype, device=like.device)
+def _const(owner, key, x, like, dtype=None):
+    """Host data x of `owner` as a tensor in like's dtype (or `dtype`) on
+    like's device, made once (compiled.device_const)."""
+    return device_const(owner, key, x, dtype or like.dtype, like.device)
 
 
 @dataclasses.dataclass(eq=False)
@@ -307,7 +310,8 @@ class ProblemStructure:
         if T_goal.shape[-3:-2] != (n_ee,) or T_goal.ndim < 3:
             T_goal = T_goal[..., None, :, :]  # single-ee convenience
         batch = T_goal.shape[:-3]
-        pos = _const(self.pos_fixed, T_goal).expand(batch + (self.N, dim)).clone()
+        pos = _const(self, "pos_fixed", self.pos_fixed, T_goal).expand(
+            batch + (self.N, dim)).clone()
         for e, ee in enumerate(tpl.ee):
             ee = int(ee)
             Te = T_goal[..., e, :, :]
@@ -340,37 +344,44 @@ class ProblemStructure:
             T_goal = T_goal.to(dtype)
         M = self.N if n_nodes is None else int(n_nodes)
         pos = self.goal_positions(T_goal)[..., :M, :]
-        anchor = torch.as_tensor(self.anchor_mask[:M], device=pos.device)
+        anchor = device_const(self, ("anchor_mask", M), self.anchor_mask[:M], device=pos.device)
         eye = torch.eye(M, dtype=torch.bool, device=pos.device)
         pair = anchor[:, None] & anchor[None, :] & ~eye
 
         D_anchor = dgp.distance_matrix_from_pos(pos)
-        D_goal = torch.where(pair, D_anchor, _const(self.D_struct[:M, :M], pos))
+        D_goal = torch.where(pair, D_anchor,
+                             _const(self, ("D_struct", M), self.D_struct[:M, :M], pos))
 
         out = {"D_goal": D_goal, "pos_anchor": pos}
         if smooth:
             d_anchor = torch.sqrt(torch.clamp(D_anchor, min=0.0))
-            L = torch.where(pair, d_anchor, _const(self.L_edges[:M, :M], pos))
-            U = torch.where(pair, d_anchor, _const(self.U_edges[:M, :M], pos))
-            mask = torch.as_tensor(self.edge_mask[:M, :M], device=pos.device) | pair
+            L = torch.where(pair, d_anchor, _const(self, ("L_edges", M), self.L_edges[:M, :M], pos))
+            U = torch.where(pair, d_anchor, _const(self, ("U_edges", M), self.U_edges[:M, :M], pos))
+            mask = device_const(self, ("edge_mask", M), self.edge_mask[:M, :M],
+                                device=pos.device) | pair
             if M < self.N:
                 # The excluded nodes sit at known positions: their bound
                 # edges enter the reduced smoothing as side-node terms.
                 obs_pos = np.asarray(self.pos_fixed[M:], np.float64)
                 d_ro = torch.sqrt(torch.clamp(
-                    ((pos[..., :, None, :] - _const(obs_pos, pos)) ** 2).sum(dim=-1), min=0.0))
+                    ((pos[..., :, None, :] - _const(self, ("obs_pos", M), obs_pos, pos)) ** 2
+                     ).sum(dim=-1), min=0.0))
                 anch = anchor[:, None]
-                ro_mask = torch.as_tensor(self.edge_mask[:M, M:], device=pos.device)
+                ro_mask = device_const(self, ("edge_mask_ro", M), self.edge_mask[:M, M:],
+                                       device=pos.device)
                 big = torch.full_like(d_ro, dgp.BIG)
                 zero = torch.zeros_like(d_ro)
                 U_ro = torch.minimum(torch.where(anch, d_ro, big),
-                                     torch.where(ro_mask, _const(self.U_edges[:M, M:], pos), big))
+                                     torch.where(ro_mask, _const(self, ("U_edges_ro", M),
+                                                                 self.U_edges[:M, M:], pos), big))
                 L_ro = torch.maximum(torch.where(anch, d_ro, zero),
-                                     torch.where(ro_mask, _const(self.L_edges[:M, M:], pos), zero))
+                                     torch.where(ro_mask, _const(self, ("L_edges_ro", M),
+                                                                 self.L_edges[:M, M:], pos), zero))
                 D_oo = np.sqrt(np.maximum(
                     ((obs_pos[:, None, :] - obs_pos[None, :, :]) ** 2).sum(axis=-1), 0.0))
                 out["lb"], out["ub"] = dgp.bound_smoothing_anchored(
-                    L, U, mask, U_ro, L_ro, _const(D_oo, pos), n_iter=smooth_iters)
+                    L, U, mask, U_ro, L_ro, _const(self, ("D_oo", M), D_oo, pos),
+                    n_iter=smooth_iters)
             else:
                 out["lb"], out["ub"] = dgp.bound_smoothing(L, U, mask, n_iter=smooth_iters)
         return out
@@ -384,7 +395,7 @@ class ProblemStructure:
         tpl = self.template
         p_pos, q_pos = kinematics.joint_positions(tpl, q, self.axis_length)
         batch = q.shape[:-1]
-        fixed = _const(self.pos_fixed, q).expand(batch + (self.N, self.dim))
+        fixed = _const(self, "pos_fixed", self.pos_fixed, q).expand(batch + (self.N, self.dim))
         if self.dim == 2:
             return torch.cat([p_pos, fixed[..., tpl.n + 1:, :]], dim=-2)
         return torch.cat([p_pos, q_pos, fixed[..., 2 * tpl.n + 2:, :]], dim=-2)
@@ -395,9 +406,9 @@ class ProblemStructure:
         Returns (max_violation, ok) where ok = max_violation <= 0 at `tol`.
         """
         D = torch.sqrt(torch.clamp(dgp.distance_matrix_from_pos(pos), min=0.0))
-        bounded = torch.as_tensor(self.bounded_mask, device=pos.device)
-        cL = _const(self.check_L, pos)
-        cU = _const(self.check_U, pos)
+        bounded = device_const(self, "bounded_mask", self.bounded_mask, device=pos.device)
+        cL = _const(self, "check_L", self.check_L, pos)
+        cU = _const(self, "check_U", self.check_U, pos)
         ninf = torch.full_like(D, -float("inf"))
         below = torch.where(bounded, (cL - tol) - D, ninf)
         above = torch.where(bounded, D - (cU + tol), ninf)
@@ -740,7 +751,7 @@ def _joint_variables_revolute(ps: ProblemStructure, pos, T_goal):
     R = torch.stack([nrm(x_hat), -nrm(y_hat), nrm(z_hat)], dim=-1)
     B_inv = lie.se3_inv(lie.se3_make(R, p0))
 
-    T0 = _const(tpl.T0, pos)
+    T0 = _const(tpl, "T0", tpl.T0, pos)
     T_axis = lie.se3_trans_axis(ps.axis_length, dtype=dt, device=dev)
 
     theta = [torch.zeros(batch, dtype=dt, device=dev)]
@@ -790,7 +801,7 @@ def _joint_variables_planar(ps: ProblemStructure, pos):
     joint angle from its link direction relative to its parent's frame."""
     tpl = ps.template
     dt, dev = pos.dtype, pos.device
-    canon = torch.tensor([[0.0, 0.0], [-1.0, 0.0], [0.0, 1.0]], dtype=dt, device=dev)
+    canon = device_const(ps, "planar_canon", [[0.0, 0.0], [-1.0, 0.0], [0.0, 1.0]], dt, dev)
     src = torch.stack([pos[..., 0, :], pos[..., ps.idx_x, :], pos[..., ps.idx_y, :]], dim=-2)
     R_, _ = dgp.best_fit_transform(src, canon)
 

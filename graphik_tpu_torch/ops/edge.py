@@ -23,13 +23,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import weakref
 from collections import Counter
 
 import numpy as np
 import torch
 
 from graphik_tpu_torch.solvers.costs import make_masks
+from graphik_tpu_torch.utils.compiled import cached, device_const
 
 _SUBLANE = 8  # edge and anchor-block counts pad to a multiple of this
 
@@ -93,8 +93,8 @@ class EdgeProblem:
 
     def edge_values(self, M):
         """Gather per-edge values from a dense (..., N, N) tensor, padded."""
-        ei = torch.as_tensor(self.ei, dtype=torch.long, device=M.device)
-        ej = torch.as_tensor(self.ej, dtype=torch.long, device=M.device)
+        ei = device_const(self, "ei", self.ei, torch.long, M.device)
+        ej = device_const(self, "ej", self.ej, torch.long, M.device)
         vals = M[..., ei, ej]
         pad = self.Ep - self.E
         if pad:
@@ -488,11 +488,6 @@ def scatter_slots(ep: EdgeProblem) -> np.ndarray:
     return np.array([(e // W) * W + residue[e] for e in range(ep.E)], np.int32)
 
 
-# EdgeProblem -> {device: its tables for csrc/edge.cu}; an entry lives as
-# long as its EdgeProblem.
-_TABLES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
-
-
 def edge_kernel_tables(ep: EdgeProblem, device):
     """csrc/edge.cu's tables as device tensors: ei, ej, the packed
     parameters and rowptr of `kernel_edge_tables`; the scatter codes (max
@@ -513,15 +508,11 @@ def edge_kernel_tables(ep: EdgeProblem, device):
 
 def cached_edge_tables(ep: EdgeProblem, device):
     """`edge_kernel_tables(ep, device)`, built on the first call for this
-    (EdgeProblem, device) and the same tensors on every later one. The
-    tables never change: an EdgeProblem is frozen."""
-    per_device = _TABLES.get(ep)
-    if per_device is None:
-        per_device = _TABLES[ep] = {}
-    tables = per_device.get(device)
-    if tables is None:
-        tables = per_device[device] = edge_kernel_tables(ep, device)
-    return tables
+    (EdgeProblem, device) and the same tensors on every later one, for as
+    long as the EdgeProblem lives (utils/compiled.py::cached). The tables
+    never change: an EdgeProblem is frozen."""
+    device = torch.device(device)
+    return cached(ep, ("edge_tables", device), lambda: edge_kernel_tables(ep, device))
 
 
 def check_kernel_inputs(what: str, ep: EdgeProblem, Ys, dgoal_e):

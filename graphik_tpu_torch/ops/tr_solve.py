@@ -33,6 +33,7 @@ import torch
 from graphik_tpu_torch.ops.edge import (
     WARP as _WARP, EdgeProblem, check_kernel_inputs, dot_d, edge_hvp, edge_sum, edge_terms,
     hvp_weights, kernel_edge_tables, kernel_order_tables, lane_sum, scatter)
+from graphik_tpu_torch.utils.compiled import cached
 
 # tCG stop reasons (graphik_tpu/ops/tr_pallas.py:41-44)
 _NEGATIVE_CURVATURE = 0
@@ -99,7 +100,7 @@ def solve_tr_reference(
     # per-lane partials (lane i < N holds node i; lane l holds edges l,
     # l + 32, ...), sequential sums over the d coordinates, and the scatter
     # C^T w summed per node in ascending edge order.
-    kt = kernel_order_tables(ep, dt, dev)
+    kt = cached(ep, ("kernel_order_tables", dt, dev), lambda: kernel_order_tables(ep, dt, dev))
     om, psiL, psiU = kt.om, kt.psiL, kt.psiU
 
     def inner(a, b):
@@ -115,7 +116,6 @@ def solve_tr_reference(
     if A:
         G, R = ep.a_nsel, ep.a_R
         T = -(-R // _WARP)
-        anode = torch.as_tensor(_anchor_nodes(ep), dtype=torch.long, device=dev)
 
         def lanes(x):  # (Ap, ...) rows -> (G, T, 32, ...)
             x = np.asarray(x, np.float64).reshape((G, R) + np.shape(x)[1:])
@@ -123,9 +123,12 @@ def solve_tr_reference(
             out[:, :R] = x
             return torch.as_tensor(out.reshape((G, T, _WARP) + x.shape[2:]), dtype=dt, device=dev)
 
-        acen = lanes(np.asarray(ep.acenters)[:, :d])
-        apsiL, apsiU, aLm, aUm = (lanes(x) for x in (ep.apsi_L, ep.apsi_U, ep.aL_mask, ep.aU_mask))
-        avalid = lanes(np.ones(A)) > 0
+        anode, acen, apsiL, apsiU, aLm, aUm, avalid = cached(
+            ep, ("anchor_lanes", dt, dev), lambda: (
+                torch.as_tensor(_anchor_nodes(ep), dtype=torch.long, device=dev),
+                lanes(np.asarray(ep.acenters)[:, :d]),
+                *(lanes(x) for x in (ep.apsi_L, ep.apsi_U, ep.aL_mask, ep.aU_mask)),
+                lanes(np.ones(A)) > 0))
         zero = torch.zeros((), dtype=dt, device=dev)
 
         def anchor_terms(Y):  # -> adY (B, G, T, 32, d), a1, a2 (B, G, T, 32)
@@ -396,6 +399,17 @@ def _anchor_tables(ep: EdgeProblem, device):
             torch.as_tensor(_anchor_nodes(ep).astype(np.int32), device=device))
 
 
+def kernel_tables(ep: EdgeProblem, device):
+    """The TR kernel's tables on `device` - `kernel_edge_tables` (edge
+    list, packed parameters, incidence CSR), `_anchor_tables` and the
+    anchor skip's reach `_anchor_near` - built on the first call for this
+    (EdgeProblem, device) and the same on every later one: a launch copies
+    nothing from the host, so it can be captured in a CUDA graph."""
+    return cached(ep, ("tr_kernel_tables", torch.device(device)),
+                  lambda: (*kernel_edge_tables(ep, device), *_anchor_tables(ep, device),
+                           _anchor_near(ep)))
+
+
 def solve_tr_cuda(
     ep: EdgeProblem,
     Y0,
@@ -440,8 +454,7 @@ def solve_tr_cuda(
     from graphik_tpu_torch.ops._build import load_library
 
     lib = load_library()
-    ei, ej, epar, rowptr, inc = kernel_edge_tables(ep, dev)
-    acen, apar, anode = _anchor_tables(ep, dev)
+    ei, ej, epar, rowptr, inc, acen, apar, anode, anchor_near = kernel_tables(ep, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):  # the launch goes to the current device
         rc = lib.graphik_tr_solve(
@@ -454,7 +467,7 @@ def solve_tr_cuda(
             int(maxiter), int(maxinner), int(mininner), int(plateau_every),
             float(mingradnorm), float(kappa), float(theta), float(rho_prime),
             float(rho_regularization), float(Delta_bar), float(Delta0),
-            float(plateau_rtol), float(plateau_atol), float(res_tol), _anchor_near(ep),
+            float(plateau_rtol), float(plateau_atol), float(res_tol), anchor_near,
             stream,
         )
     if rc != 0:
@@ -462,9 +475,6 @@ def solve_tr_cuda(
     solve_tr_cuda.launches += 1
     if ep.A:
         solve_tr_cuda.anchored_launches += 1
-    # The tables are freed on return while the kernel may still read them:
-    # safe, because the caching allocator hands their memory only to later
-    # work on this same stream, which runs after the kernel.
     return out
 
 

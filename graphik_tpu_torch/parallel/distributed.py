@@ -31,8 +31,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from graphik_tpu_torch import api
 from graphik_tpu_torch.graphs.problem import ProblemStructure
+from graphik_tpu_torch.parallel.mesh import _sharded_solver
 from graphik_tpu_torch.solvers.riemannian import TRParams
 
 
@@ -110,8 +110,10 @@ def solve_ik_global(structure: ProblemStructure, T_goal_local, mesh: Optional[Pr
     """Solve this process's shard of the global goal batch; return (local
     result, global metrics).
 
-    The solve is `api.solve_ik` on the shard, on this process's device,
-    with no communication. The metrics are sums over every process's lanes
+    The solve is the compiled solver of `api.solve_ik`'s arguments (made
+    once per structure and arguments and kept, as the JAX package memoizes
+    its jitted runner) on the shard, on this process's device, with no
+    communication. The metrics are sums over every process's lanes
     (one all_reduce of float64 sums whenever a process group is up, at
     world size 1 too), so they are identical on every
     process: success_rate (pose within the criteria and limit- and
@@ -121,7 +123,8 @@ def solve_ik_global(structure: ProblemStructure, T_goal_local, mesh: Optional[Pr
     if mesh is None:
         mesh = global_batch_mesh(device)
     T_goal = shard_local_batch(T_goal_local, mesh)
-    out = api.solve_ik(structure, T_goal, params=params, **kwargs)
+    Y_init = kwargs.pop("Y_init", None)
+    out = _sharded_solver(structure, params, **kwargs)(T_goal, Y_init)
     pose_ok = (out["e_pos"] < criterion_pos) & (out["e_rot"] < criterion_rot)
     hit = pose_ok & out["success"]
     sums = torch.stack([

@@ -5,8 +5,10 @@ Port of graphik_tpu/parallel/mesh.py. A mesh is a 1-D list of
 `torch.device`s over the instance batch (`make_mesh`: every visible card,
 or a list the caller gives). `solve_ik_sharded` splits the goal batch over
 it - padded to a multiple of the shard count with copies of goal 0, as the
-JAX package's shard_map requires - runs one single-device solver a shard on
-its own device, gathers to the first device and slices back to the batch.
+JAX package's shard_map requires - runs each shard on its own device through
+one compiled solver (api.make_solver; on a card each device captures and
+replays its own CUDA graphs), gathers to the first device and slices back
+to the batch.
 The shards are enqueued one after another from the calling thread; the
 devices overlap as far as a shard's path leaves the host free (the JAX
 package's shard_map runs them as one program). `dryrun_multigpu` is the
@@ -24,6 +26,7 @@ per goal is chosen by (limit-feasible, e_pos + e_rot).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import List, Optional, Sequence
 
@@ -35,6 +38,7 @@ from graphik_tpu_torch.graphs.problem import ProblemStructure
 from graphik_tpu_torch.solvers import riemannian
 from graphik_tpu_torch.solvers.local import LocalParams
 from graphik_tpu_torch.solvers.riemannian import TRParams
+from graphik_tpu_torch.utils import compiled
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -65,15 +69,39 @@ def shard_batch(x, mesh: Sequence[torch.device]):
     return [part.to(dev) for part, dev in zip(torch.tensor_split(x, len(mesh)), mesh)]
 
 
+# (structure, params, keyword arguments) -> the compiled solver of its
+# sharded solves, which keeps its structure and graphs alive; past
+# _SHARDED_SOLVERS_MAX entries the oldest goes, as the JAX package bounds
+# its memoized runners (graphik_tpu/parallel/distributed.py).
+_SHARDED_SOLVERS: "collections.OrderedDict" = collections.OrderedDict()
+_SHARDED_SOLVERS_MAX = 16
+
+
+def _sharded_solver(structure: ProblemStructure, params: TRParams = TRParams(), **kwargs):
+    """The compiled solver (`api.make_solver(structure, params, **kwargs)`)
+    that `solve_ik_sharded` runs its shards with: made on the first call
+    for these arguments, the same solver after, so each device keeps the
+    graphs it captured for its shards."""
+    key = (structure, params, tuple(sorted(kwargs.items())))
+    solver = _SHARDED_SOLVERS.get(key)
+    if solver is None:
+        solver = _SHARDED_SOLVERS[key] = api.make_solver(structure, params, **kwargs)
+        if len(_SHARDED_SOLVERS) > _SHARDED_SOLVERS_MAX:
+            _SHARDED_SOLVERS.popitem(last=False)
+    return solver
+
+
 def solve_ik_sharded(structure: ProblemStructure, T_goal, mesh: Sequence[torch.device],
-                     params: TRParams = TRParams(), **kwargs):
+                     params: TRParams = TRParams(), Y_init=None, **kwargs):
     """Batched IK solve with the goal batch sharded over the mesh: the
     batch is padded to a multiple of the shard count with copies of goal 0,
-    each shard is solved by `api.solve_ik(structure, shard, params,
-    **kwargs)` on its own device (one TR launch a shard), and every output
-    is gathered to mesh[0] and sliced back to the batch. The solve is
-    data-parallel, so each lane is the unsharded solver's up to the
-    rounding of batched eigh and matmul at another batch size."""
+    each shard is solved on its own device by the compiled solver of
+    `_sharded_solver(structure, params, **kwargs)` (`api.solve_ik`'s
+    arguments; one TR launch a shard, inside that device's CUDA graph on a
+    card), and every output is gathered to mesh[0] and sliced back to the
+    batch. The solve is data-parallel, so each lane is the unsharded
+    solver's up to the rounding of batched eigh and matmul at another batch
+    size."""
     mesh = [torch.device(d) for d in mesh]
     if not isinstance(T_goal, torch.Tensor):
         T_goal = torch.as_tensor(T_goal, device=mesh[0])
@@ -83,8 +111,8 @@ def solve_ik_sharded(structure: ProblemStructure, T_goal, mesh: Sequence[torch.d
     if Bp != B:
         pad = T_goal[:1].expand((Bp - B,) + T_goal.shape[1:])
         T_goal = torch.cat([T_goal, pad], dim=0)
-    outs = [api.solve_ik(structure, shard, params=params, **kwargs)
-            for shard in shard_batch(T_goal, mesh)]
+    solver = _sharded_solver(structure, params, **kwargs)
+    outs = [solver(shard, Y_init) for shard in shard_batch(T_goal, mesh)]
     return {k: torch.cat([o[k].to(mesh[0]) for o in outs], dim=0)[:B] for k in outs[0]}
 
 
@@ -145,7 +173,9 @@ class RestartSolver(Solver):
         inst = self.structure.instance(T_goal, dtype=self.dtype, smooth=True,
                                        n_nodes=self.n_nodes, smooth_iters=self.smooth_iters)
         M = self.structure.N if self.n_nodes is None else self.n_nodes
-        omega, dim = self.omega[:M, :M], self.structure.dim
+        omega = compiled.device_const(self.structure, ("omega", M), self.omega[:M, :M],
+                                      device=inst["lb"].device)
+        dim = self.structure.dim
         Y0 = torch.stack([
             riemannian.generate_initialization(
                 inst["lb"], inst["ub"], omega, dim, generator=None if r == 0 else generator,
@@ -157,10 +187,16 @@ class RestartSolver(Solver):
 
     def finish(self, sol, T_goal):
         """The single-init finish on every restart, then the per-goal pick."""
+        Y = sol["Y"]
+        T_goal = self.goals(T_goal).to(Y.device, Y.dtype)
+        if self._graphed(Y):
+            return self.graphs.run("finish_pick", self._finish_pick, sol, T_goal)
+        return self._finish_pick(sol, T_goal)
+
+    def _finish_pick(self, sol, T_goal):
         R = self.n_restarts
-        T_goal = self.goals(T_goal)
         T_f = T_goal.expand((R,) + T_goal.shape).reshape((-1,) + T_goal.shape[1:])
-        out = super().finish(sol, T_f)
+        out = self._finish(sol, T_f)
         return _select_best_restart(
             {k: v.reshape((R, -1) + v.shape[1:]) for k, v in out.items()})
 
@@ -174,18 +210,22 @@ def make_restart_solver(structure: ProblemStructure, n_restarts: int = 4,
                         params: TRParams = TRParams(), use_limits: bool = True, dtype=None,
                         polish: bool = True, polish_params: Optional[LocalParams] = None,
                         smooth_iters: Optional[int] = None, device=None) -> RestartSolver:
-    """A batched multi-restart solver: solver(T_goal, generator) -> the
-    selected per-goal dict of `api.make_solver`'s keys plus
-    "restart_index". Devices as in `api.make_solver`."""
+    """The compiled batched multi-restart solver: solver(T_goal, generator)
+    -> the selected per-goal dict of `api.make_solver`'s keys plus
+    "restart_index". Prepare (which draws from the generator) runs eagerly;
+    on a card, solve and finish with the pick run as CUDA graphs, one
+    captured per batch length, as the JAX package jits one finish per batch
+    length. Devices as in `api.make_solver`."""
     return RestartSolver(structure, params, use_limits, dtype, polish=polish,
                          polish_params=polish_params, smooth_iters=smooth_iters,
-                         device=device, n_restarts=n_restarts)
+                         device=device, graphs=compiled.StageGraphs(), n_restarts=n_restarts)
 
 
 def solve_ik_restarts(structure: ProblemStructure, T_goal,
                       generator: Optional[torch.Generator] = None, n_restarts: int = 4,
                       params: TRParams = TRParams(), use_limits: bool = True, dtype=None,
                       polish: bool = True, device=None):
-    """One-shot multi-restart solve (see `make_restart_solver`)."""
-    return make_restart_solver(structure, n_restarts, params, use_limits, dtype, polish,
-                               device=device)(T_goal, generator)
+    """One-shot multi-restart solve, every stage eager (see
+    `make_restart_solver`)."""
+    return RestartSolver(structure, params, use_limits, dtype, polish=polish, device=device,
+                         n_restarts=n_restarts)(T_goal, generator)

@@ -19,10 +19,14 @@ import torch
 
 from graphik_tpu_torch.robots.templates import RobotTemplate
 from graphik_tpu_torch.utils import lie
+from graphik_tpu_torch.utils.compiled import device_const
 
 
-def _const(x, like):
-    return torch.as_tensor(np.asarray(x), dtype=like.dtype, device=like.device)
+def _const(template, key, x, like):
+    """Host data x of `template` in like's dtype on like's device, made
+    once (compiled.device_const)."""
+    return device_const(template, key, x, like.dtype, like.device)
+
 
 
 def _exp(template: RobotTemplate, xi):
@@ -43,8 +47,8 @@ def prefix_products(template: RobotTemplate, q):
     """
     tpl = template
     hd = tpl.dim + 1
-    S = _const(tpl.S, q)
-    A = [_const(tpl.T0[0], q).expand(q.shape[:-1] + (hd, hd))]
+    S = _const(tpl, "S", tpl.S, q)
+    A = [_const(tpl, "T0", tpl.T0, q)[0].expand(q.shape[:-1] + (hd, hd))]
     for i in range(1, tpl.n + 1):
         p = int(tpl.parents[i])
         A.append(A[p] @ _exp(tpl, S[p] * q[..., i - 1, None]))
@@ -53,7 +57,7 @@ def prefix_products(template: RobotTemplate, q):
 
 def all_poses(template: RobotTemplate, q):
     """Poses of every joint frame: (..., n) -> (..., n+1, hd, hd)."""
-    return lie.matmul_small(prefix_products(template, q), _const(template.T0, q))
+    return lie.matmul_small(prefix_products(template, q), _const(template, "T0", template.T0, q))
 
 
 def pose(template: RobotTemplate, q, node: int):
@@ -97,13 +101,14 @@ def jacobian(template: RobotTemplate, q, node: int, A: Optional[torch.Tensor] = 
     tpl = template
     if A is None:
         A = prefix_products(tpl, q)
-    par = torch.as_tensor(tpl.parents[1:], device=q.device)
-    S = _const(tpl.S, q)[par]  # (n, tw)
+    par = device_const(tpl, "joint_parents", tpl.parents[1:], device=q.device)
+    S = _const(tpl, "S", tpl.S, q)[par]  # (n, tw)
     Ad = _adjoint(tpl, A[..., par, :, :])  # (..., n, tw, tw)
     # an elementwise product and sum, not an einsum: einsum folds the batch
     # into a GEMM's rows, whose rounding then depends on the batch size
     cols = (Ad * S[:, None, :]).sum(-1)
-    on_path = torch.as_tensor(_path_membership(tpl, node)[1:], device=q.device)
+    on_path = device_const(tpl, ("on_path", node), _path_membership(tpl, node)[1:],
+                           device=q.device)
     cols = torch.where(on_path[:, None], cols, torch.zeros_like(cols))
     return cols.transpose(-1, -2)
 
@@ -121,7 +126,7 @@ def linear_jacobians(template: RobotTemplate, q, T=None):
     dim = tpl.dim
     if T is None:
         T = all_poses(tpl, q)
-    parents = torch.as_tensor(tpl.parents[1:], device=q.device)
+    parents = device_const(tpl, "joint_parents", tpl.parents[1:], device=q.device)
     p = T[..., :dim, dim]                          # (..., n+1, dim)
     Tp = T[..., parents, :, :]
     rel = p[..., :, None, :] - Tp[..., None, :, :dim, dim]  # (..., n+1, n, dim)
@@ -130,7 +135,7 @@ def linear_jacobians(template: RobotTemplate, q, T=None):
         vel = torch.linalg.cross(z, rel, dim=-1)
     else:
         vel = torch.stack([-rel[..., 1], rel[..., 0]], dim=-1)
-    anc = torch.as_tensor(_ancestor_matrix(tpl), device=q.device)
+    anc = device_const(tpl, "ancestors", _ancestor_matrix(tpl), device=q.device)
     vel = torch.where(anc[:, :, None], vel, torch.zeros_like(vel))
     return vel.transpose(-1, -2)
 
@@ -144,11 +149,12 @@ def jacobian_geometric(template: RobotTemplate, q, node: int):
     if tpl.dim != 3:
         raise ValueError("the geometric Jacobian is defined for 3D robots")
     T = all_poses(tpl, q)                                  # (..., n+1, 4, 4)
-    Tp = T[..., torch.as_tensor(tpl.parents[1:], device=q.device), :, :]
+    Tp = T[..., device_const(tpl, "joint_parents", tpl.parents[1:], device=q.device), :, :]
     z = Tp[..., :3, 2]                                     # (..., n, 3)
     lin = torch.linalg.cross(z, T[..., node, None, :3, 3] - Tp[..., :3, 3], dim=-1)
     cols = torch.cat([lin, z], dim=-1)                     # (..., n, 6)
-    on_path = torch.as_tensor(_path_membership(tpl, node)[1:], device=q.device)
+    on_path = device_const(tpl, ("on_path", node), _path_membership(tpl, node)[1:],
+                           device=q.device)
     cols = torch.where(on_path[:, None], cols, torch.zeros_like(cols))
     return cols.transpose(-1, -2)
 

@@ -1,9 +1,9 @@
 """Bundled robot model library.
 
-Port of graphik_tpu/robots/library.py. The kinematic JSON specs are shared
-data: they are read by path from graphik_tpu/robots/specs/ (no code of the
-JAX package is imported). Each loader returns (RobotTemplate,
-ProblemStructure).
+Port of graphik_tpu/robots/library.py. The kinematic JSON specs are the
+port's own copy of the JAX package's (graphik_tpu_torch/robots/specs/,
+byte for byte the same files), so the port needs nothing of the JAX
+package's tree. Each loader returns (RobotTemplate, ProblemStructure).
 """
 
 from __future__ import annotations
@@ -19,10 +19,7 @@ from graphik_tpu_torch.io.urdf import UrdfJoint, UrdfModel
 from graphik_tpu_torch.robots.templates import (
     RobotTemplate, dh_to_se3, planar_from_links, revolute_from_dh, revolute_from_t_zero)
 
-SPEC_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "graphik_tpu", "robots", "specs",
-)
+SPEC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs")
 
 
 def model_from_spec(name: str) -> UrdfModel:

@@ -21,6 +21,7 @@ import torch
 from graphik_tpu_torch.graphs.problem import ProblemStructure
 from graphik_tpu_torch.robots import kinematics
 from graphik_tpu_torch.utils import lie
+from graphik_tpu_torch.utils.compiled import device_const
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +77,7 @@ def _pose_residuals(tpl, T_goal, q, with_jacobian=True, A=None):
     """
     if A is None:
         A = kinematics.prefix_products(tpl, q)
-    T_all = lie.matmul_small(A, torch.as_tensor(tpl.T0, dtype=q.dtype, device=q.device))
+    T_all = lie.matmul_small(A, device_const(tpl, "T0", tpl.T0, q.dtype, q.device))
     planar = tpl.dim == 2
     es, Js = [], []
     for e_idx, ee in enumerate(tpl.ee):
@@ -114,9 +115,10 @@ def _obstacle_g_and_jac(tpl, q, centers, radii, A=None, with_jacobian=True):
     world-frame position Jacobians (kinematics.linear_jacobians)."""
     if A is None:
         A = kinematics.prefix_products(tpl, q)
-    T = lie.matmul_small(A, torch.as_tensor(tpl.T0, dtype=q.dtype, device=q.device))
+    T = lie.matmul_small(A, device_const(tpl, "T0", tpl.T0, q.dtype, q.device))
     d = tpl.dim
     p = T[..., 1:, :d, d]                                  # (..., n, d)
+    # no copy when the caller hands them on q's device in q's dtype
     c = torch.as_tensor(centers, dtype=q.dtype, device=q.device)[:, None, :]
     r = torch.as_tensor(radii, dtype=q.dtype, device=q.device)[:, None]
     diff = c - p[..., None, :, :]                          # (..., n_obs, n, d)
@@ -148,15 +150,16 @@ def solve_local(
     """
     tpl = ps.template
     dt, dev = q0.dtype, q0.device
-    lb = torch.as_tensor(tpl.lb[1:], dtype=dt, device=dev)
-    ub = torch.as_tensor(tpl.ub[1:], dtype=dt, device=dev)
+    lb = device_const(tpl, "joint_lb", tpl.lb[1:], dt, dev)
+    ub = device_const(tpl, "joint_ub", tpl.ub[1:], dt, dev)
     T_goal = T_goal.to(dt)
     if T_goal.ndim == q0.ndim + 1:  # (..., hd, hd): add the ee axis
         T_goal = T_goal[..., None, :, :]
     eye = torch.eye(tpl.n, dtype=dt, device=dev)
     batch = q0.shape[:-1]
     if ps.n_obstacles:
-        centers, radii = _obstacle_pairs(ps)
+        centers, radii = (device_const(ps, ("obstacle_pairs", k), x, dt, dev)
+                          for k, x in enumerate(_obstacle_pairs(ps)))
 
     def residuals(q, mult, rho, with_jacobian=True):
         A = kinematics.prefix_products(tpl, q)
@@ -187,9 +190,12 @@ def solve_local(
             # A lane whose f32 system is not numerically SPD (info != 0)
             # takes no step and raises its damping - the same outcome as the
             # JAX package's clamped-pivot solve, whose step then fails the
-            # improvement test.
+            # improvement test. The two triangular solves (cuBLAS's batched
+            # trsm) can be captured in a CUDA graph; torch.cholesky_solve's
+            # batched MAGMA path builds its pointer arrays on the host.
             Lc, info = torch.linalg.cholesky_ex(H)
-            step = -torch.cholesky_solve(g[..., None], Lc)[..., 0]
+            w = torch.linalg.solve_triangular(Lc, g[..., None], upper=False)
+            step = -torch.linalg.solve_triangular(Lc.transpose(-1, -2), w, upper=True)[..., 0]
             step = torch.where((info == 0)[..., None], step, torch.zeros_like(step))
             q_new = q + step
             if params.clip_limits:
@@ -207,7 +213,7 @@ def solve_local(
 
     if ps.n_obstacles:
         mult = torch.zeros(batch + (len(radii) * tpl.n,), dtype=dt, device=dev)
-        rho = torch.tensor(params.al_rho0, dtype=dt, device=dev)
+        rho = torch.full((), params.al_rho0, dtype=dt, device=dev)  # a fill: no host copy
         q = q0
         iters = torch.zeros(batch, dtype=torch.int32, device=dev)
         for _ in range(params.al_iters):

@@ -190,14 +190,35 @@ class _Costs(collections.namedtuple("_Costs", "cost grad hessian_at residual_max
     to Z) and max relative residual, each over (B, N, d) points."""
 
 
+# the EdgeProblems `solve` has built, by the bytes of their masks, dim and
+# anchors. Never evicted: a captured CUDA graph reads the device tables
+# cached on its EdgeProblem (utils/compiled.py), which live as long as it.
+_EDGE_PROBLEMS: dict = {}
+
+
+def _edge_problem(masks, d, anchors):
+    """edge_ops.build_edge_problem(*masks, dim=d, anchors=anchors), built
+    once per content of (masks, d, anchors) and the same EdgeProblem after:
+    the per-EdgeProblem device tables then stay cached too."""
+    def digest(x):
+        x = np.asarray(x)
+        return x.shape, x.dtype.str, x.tobytes()
+
+    key = (d, *(digest(m) for m in masks),
+           None if anchors is None else tuple((k, digest(v)) for k, v in sorted(anchors.items())))
+    ep = _EDGE_PROBLEMS.get(key)
+    if ep is None:
+        ep = _EDGE_PROBLEMS[key] = edge_ops.build_edge_problem(*masks, dim=d, anchors=anchors)
+    return ep
+
+
 def _costs(backend, D, masks, d, anchors):
     """The cost functions of `backend` on the goals D (B, N, N): "dense",
     the masked (N, N) algebra of solvers/costs.py, or "edge", the compiled
     edge form of ops/edge.py. The masks and anchors go to D's device once."""
     dt, dev = D.dtype, D.device
     if backend == "edge":
-        ep = edge_ops.on_device(edge_ops.build_edge_problem(*masks, dim=d, anchors=anchors),
-                                dt, dev)
+        ep = edge_ops.on_device(_edge_problem(masks, d, anchors), dt, dev)
         dg_e = ep.edge_values(D)
         return _Costs(lambda Y: edge_ops.cost(ep, Y, dg_e),
                       lambda Y: edge_ops.egrad(ep, Y, dg_e),
@@ -253,7 +274,7 @@ def solve(
     if backend == "kernel" and Y0.dtype == torch.float64:
         backend = "dense"
     if backend == "kernel":
-        ep = edge_ops.build_edge_problem(*masks, dim=d, anchors=anchors)
+        ep = _edge_problem(masks, d, anchors)
         out = solve_tr(
             ep, Yf, ep.edge_values(D).contiguous(),
             maxiter=p.maxiter,
@@ -296,7 +317,7 @@ def generate_initialization(lb, ub, omega, dim, generator=None, frac=None):
     G = dgp.gram_from_distance_matrix(D_rand)
     G = (G + G.transpose(-1, -2)) / 2.0
     X = dgp.mds(G, eps=1e-8)
-    omega = torch.as_tensor(np.asarray(omega), device=lb.device)
+    omega = torch.as_tensor(omega, device=lb.device)  # a tensor on lb's device: no copy
     return dgp.linear_projection(X, omega, dim)
 
 

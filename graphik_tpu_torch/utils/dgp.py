@@ -103,12 +103,28 @@ def sample_distance_matrix(lb, ub, generator=None, frac=None):
 def best_fit_transform(A, B):
     """Least-squares rigid transform (R, t) with B ~= R A + t, for (..., n,
     dim) point sets. Like the JAX package's, it does not correct the det < 0
-    reflection case: the planar joint recovery depends on that."""
+    reflection case: the planar joint recovery depends on that.
+
+    At dim = 2 it takes the closed form of the SVD's R = V U^T, with no
+    SVD (which synchronises with the host on a card): R maximises tr(R H)
+    over O(2), H the cross-covariance; a rotation by atan2(H01 - H10, H00 +
+    H11) reaches |(H00 + H11, H01 - H10)| and a reflection [[c, s], [s, -c]]
+    at atan2(H01 + H10, H00 - H11) reaches |(H00 - H11, H01 + H10)|, and the
+    squares of the two differ by 4 det H, so the SVD's R is the rotation
+    when det H > 0 and the reflection when det H < 0."""
     ca = A.mean(dim=-2, keepdim=True)
     cb = B.mean(dim=-2, keepdim=True)
     H = (A - ca).transpose(-1, -2) @ (B - cb)
-    U, _, Vt = torch.linalg.svd(H)
-    R = Vt.transpose(-1, -2) @ U.transpose(-1, -2)
+    if A.shape[-1] == 2:
+        h00, h01, h10, h11 = H[..., 0, 0], H[..., 0, 1], H[..., 1, 0], H[..., 1, 1]
+        rot = h00 * h11 - h01 * h10 >= 0
+        ang = torch.where(rot, torch.atan2(h01 - h10, h00 + h11), torch.atan2(h01 + h10, h00 - h11))
+        c, s = torch.cos(ang), torch.sin(ang)
+        R = torch.stack([torch.stack([c, torch.where(rot, -s, s)], dim=-1),
+                         torch.stack([s, torch.where(rot, c, -c)], dim=-1)], dim=-2)
+    else:
+        U, _, Vt = torch.linalg.svd(H)
+        R = Vt.transpose(-1, -2) @ U.transpose(-1, -2)
     t = cb[..., 0, :] - torch.einsum("...ij,...j->...i", R, ca[..., 0, :])
     return R, t
 

@@ -252,7 +252,7 @@ def se3_make(R, t):
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)  # a fill: setitem would copy the scalar from the host
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -312,7 +312,7 @@ def se3_rotz(theta):
 def se3_trans_axis(d, axis=2, dtype=torch.float64, device=None):
     """Pure translation by the float `d` along a principal axis."""
     T = torch.eye(4, dtype=dtype, device=device)
-    T[axis, 3] = d
+    T[axis, 3].fill_(d)  # a fill: setitem would copy the scalar from the host
     return T
 
 
@@ -380,7 +380,7 @@ def se2_make(R, t):
     t = t.expand(batch + (2,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = torch.zeros(batch + (1, 3), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 2] = 1.0
+    bottom[..., 0, 2].fill_(1.0)  # a fill: setitem would copy the scalar from the host
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -449,7 +449,7 @@ def se2_adjoint(T):
     col = torch.stack([t[..., 1], -t[..., 0]], dim=-1)
     top = torch.cat([se2_rot(T), col[..., :, None]], dim=-1)
     bottom = torch.zeros(T.shape[:-2] + (1, 3), dtype=T.dtype, device=T.device)
-    bottom[..., 0, 2] = 1.0
+    bottom[..., 0, 2].fill_(1.0)  # a fill: setitem would copy the scalar from the host
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -39,7 +39,6 @@ SKIP_MODULES = {
 }
 # (JAX module, name) the port leaves out
 SKIP_NAMES = {
-    ("api", "solve_ik_jit"): "the jitted stage split, a TPU dispatch workaround; the port runs eagerly",
     ("ops.linalg", "chol_unrolled"): "unrolled Cholesky, a TPU workaround; the port uses torch.linalg",
     ("ops.linalg", "chol_solve_unrolled"): "unrolled Cholesky solve, a TPU workaround",
     ("ops.linalg", "spd_solve_unrolled"): "unrolled SPD solve, a TPU workaround",

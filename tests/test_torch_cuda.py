@@ -611,3 +611,95 @@ def test_edge_f32_card_matches_cpu(cuda):
     assert _hand_launches() == before
     assert torch.equal(o_g["num_inner"].cpu(), o_c["num_inner"])
     assert float((o_g["Y"].cpu() - o_c["Y"]).abs().max()) <= 1e-4
+
+
+def _compiled_and_eager(name):
+    """(structure, the compiled solver, the same solver with every stage
+    eager, restarts or 0) of a main path: UR10, the table, planar10, the
+    tree with 3 restarts."""
+    from graphik_tpu_torch.parallel import mesh
+    from graphik_tpu_torch.robots.library import load_planar_chain, load_tree5
+
+    polish = LocalParams(maxiter=10, tol_grad=1e-8)
+    prod = TRParams.production(maxiter=100, maxinner=24)
+    if name == "tree":
+        ps = load_tree5()[1]
+        params = TRParams.production(maxiter=300)
+        return (ps, mesh.make_restart_solver(ps, n_restarts=3, params=params),
+                mesh.RestartSolver(ps, params, n_restarts=3), 3)
+    if name == "table":
+        ps = ProblemStructure.from_template(load_ur10()[0], obstacles=table_environment())
+        prod = TRParams.production(maxiter=250, maxinner=32)
+    else:
+        ps = load_ur10()[1] if name == "ur10" else load_planar_chain(10, limits=np.pi / 2)[1]
+    kw = dict(params=prod, polish_params=polish, smooth_iters=2)
+    return ps, api.make_solver(ps, **kw), api.Solver(ps, **kw), 0
+
+
+@pytest.mark.parametrize("name", ["ur10", "table", "planar10", "tree"])
+def test_compiled_equals_eager_bitwise(cuda, name):
+    """The compiled solver's solve and finish (CUDA graphs) against the
+    eager stages on the same prepared inputs, bitwise, over two calls at
+    each of two batch shapes: the first call of a shape (warm-up and
+    capture) and a replay. Every call launches the TR kernel once, and a
+    kept result does not change on later calls."""
+    ps, comp, eager, R = _compiled_and_eager(name)
+    gen = torch.Generator().manual_seed(20)
+    rgen = torch.Generator(device=cuda).manual_seed(21)
+    kept = []
+    for B in (256, 256, 128, 128):
+        T_goal = api.random_goals(ps, (B // max(R, 1),), gen, dtype=torch.float32,
+                                  device=cuda)[0]
+        D, Y0 = eager.prepare(T_goal, *((rgen,) if R else ()))
+        before = tr_solve.solve_tr_cuda.launches
+        sol = comp.solve(Y0, D)
+        out = comp.finish(sol, T_goal)
+        assert tr_solve.solve_tr_cuda.launches == before + 1
+        sol_e = eager.solve(Y0, D)
+        out_e = eager.finish(sol_e, T_goal)
+        for a, b in ((sol, sol_e), (out, out_e)):
+            assert set(a) == set(b)
+            for key in a:
+                assert torch.equal(a[key], b[key]), (B, key)
+        kept.append((out, {k: v.clone() for k, v in out.items()}))
+    for out, copy in kept:  # outputs are not aliased across calls
+        for key in out:
+            assert torch.equal(out[key], copy[key]), key
+    assert len(comp.graphs.graphs) == 4  # solve and finish at each shape
+
+
+def test_compiled_replays_count_launches(cuda):
+    """The launch counters count replays: three calls of the compiled UR10
+    solver at one shape (the first warms up and captures) read one
+    anchor-free launch each, and the table's one anchored launch each."""
+    for name, attr in (("ur10", "launches"), ("table", "anchored_launches")):
+        ps, comp, _, _ = _compiled_and_eager(name)
+        T_goal = api.random_goals(ps, (64,), torch.Generator().manual_seed(22),
+                                  dtype=torch.float32, device=cuda)[0]
+        for _ in range(3):
+            before = getattr(tr_solve.solve_tr_cuda, attr)
+            comp(T_goal)
+            assert getattr(tr_solve.solve_tr_cuda, attr) == before + 1, name
+
+
+def test_capture_of_a_synchronising_op_raises(cuda):
+    """A stage that synchronises with the host cannot be captured: the
+    capture raises CaptureError naming the line that called the operator,
+    keeps no graph and does not run the stage eagerly instead, at every
+    call. Prepare's torch.linalg.eigh is such an op, which is why prepare
+    stays eager."""
+    from graphik_tpu_torch.utils import compiled
+
+    graphs = compiled.StageGraphs()
+    x = torch.arange(8.0, device=cuda)
+    for _ in range(2):
+        with pytest.raises(compiled.CaptureError, match=r"float\(t\.sum\(\)\)"):
+            graphs.run("sync", lambda t: {"y": t * float(t.sum())}, x)
+    assert graphs.graphs == {}
+    _, ps = load_ur10()
+    solver = api.make_solver(ps, smooth_iters=2)
+    T_goal = api.random_goals(ps, (16,), torch.Generator().manual_seed(23),
+                              dtype=torch.float32, device=cuda)[0]
+    with pytest.raises(compiled.CaptureError, match=r"utils/dgp\.py:\d+: .*torch\.linalg\.eigh"):
+        solver.graphs.run("prepare", lambda T: dict(zip(("D", "Y0"), solver.prepare(T))), T_goal)
+    assert float(torch.ones(4, device=cuda).sum()) == 4.0  # the card still works

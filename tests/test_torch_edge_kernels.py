@@ -23,6 +23,7 @@ from graphik_tpu.ops import edge as jedge
 from graphik_tpu.robots import library as jlib
 from graphik_tpu_torch.ops import edge as tedge
 from graphik_tpu_torch.robots import library as tlib
+from graphik_tpu_torch.utils import compiled
 from tests.test_trees import tree_template
 
 torch.set_num_threads(1)
@@ -143,13 +144,13 @@ def test_edge_tables_cache():
         assert (codes[len(lst):, i] == 2 * 64).all()  # the zero place, W EPL = 64
     on_meta = tedge.cached_edge_tables(tep, meta)
     assert all(t.device == meta for t in on_meta)
-    assert set(tedge._TABLES[tep]) == {cpu, meta}
+    assert {k[1] for k in compiled._CACHE[tep] if k[0] == "edge_tables"} == {cpu, meta}
     other = _problems("ur10")[1]  # equal arrays, another problem: its own entry
     assert tedge.cached_edge_tables(other, cpu)[0] is not first[0]
-    n = len(tedge._TABLES)
+    n = len(compiled._CACHE)
     del other
     gc.collect()
-    assert len(tedge._TABLES) == n - 1
+    assert len(compiled._CACHE) == n - 1
 
 
 @pytest.mark.parametrize("robot", ROBOTS)

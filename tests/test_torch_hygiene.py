@@ -45,6 +45,76 @@ def test_no_jax_imports(path):
             assert top not in ("jax", "jaxlib", "graphik_tpu"), (path, name)
 
 
+# calls whose string arguments name a file or directory to read
+_PATH_CALLS = {"join", "open", "Path", "exists", "isfile", "isdir", "listdir", "glob", "load",
+               "loadtxt", "read_text", "abspath", "realpath"}
+
+
+def _names_jax_tree(node):
+    """Whether a string constant inside `node` names the JAX package's
+    directory (graphik_tpu, not graphik_tpu_torch)."""
+    return any(isinstance(c, ast.Constant) and isinstance(c.value, str)
+               and any(part == "graphik_tpu" for part in c.value.replace("\\", "/").split("/"))
+               for c in ast.walk(node))
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_path_into_the_jax_package(path):
+    """No port module (nor chip_smoke.py) builds a path into graphik_tpu/:
+    no call that opens, joins or lists paths takes a string naming it, and
+    no string is the bare directory name."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and node.value == "graphik_tpu":
+            raise AssertionError(f"{path}:{node.lineno}: the JAX package's directory name")
+        if isinstance(node, ast.Call):
+            fn = node.func.attr if isinstance(node.func, ast.Attribute) else getattr(node.func, "id", "")
+            if fn in _PATH_CALLS:
+                args = [*node.args, *(k.value for k in node.keywords)]
+                assert not any(_names_jax_tree(a) for a in args), (path, node.lineno)
+
+
+def test_robot_specs_are_the_jax_packages_byte_for_byte():
+    """graphik_tpu_torch/robots/specs/ holds the port's own copy of every
+    spec of graphik_tpu/robots/specs/, each file byte for byte the same,
+    and the library reads the port's copy."""
+    mine = os.path.join(ROOT, "graphik_tpu_torch", "robots", "specs")
+    theirs = os.path.join(ROOT, "graphik_tpu", "robots", "specs")
+    assert os.path.samefile(tlib.SPEC_DIR, mine)
+    names = sorted(os.listdir(theirs))
+    assert names and sorted(os.listdir(mine)) == names
+    for name in names:
+        with open(os.path.join(mine, name), "rb") as a, open(os.path.join(theirs, name), "rb") as b:
+            assert a.read() == b.read(), name
+
+
+def test_robot_library_works_without_the_jax_package(tmp_path):
+    """A copy of graphik_tpu_torch alone, in a directory with nothing else
+    of the repo, loads every robot of its library."""
+    import shutil
+
+    shutil.copytree(os.path.join(ROOT, "graphik_tpu_torch"), tmp_path / "graphik_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = (
+        "import os\n"
+        "from graphik_tpu_torch.robots import library as lib\n"
+        "assert lib.SPEC_DIR.startswith(os.getcwd()), lib.SPEC_DIR\n"
+        "for load in (lib.load_ur10, lib.load_kuka, lib.load_kuka_lwr, lib.load_schunk_lwa4d,\n"
+        "             lib.load_schunk_lwa4p, lib.load_panda, lib.load_panda_truncated,\n"
+        "             lib.load_jaco, lib.load_tree5):\n"
+        "    tpl, ps = load()\n"
+        "    assert ps.N > tpl.n\n"
+        "try:\n"
+        "    import graphik_tpu\n"
+        "    raise AssertionError('the JAX package is importable here')\n"
+        "except ModuleNotFoundError:\n"
+        "    pass\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env, check=True, timeout=120)
+
+
 def test_import_is_lazy_and_needs_no_nvcc():
     """Importing the kernel module builds nothing and needs no CUDA
     toolkit: the build module is loaded only at the first launch."""

@@ -70,17 +70,17 @@ def test_sharded_pads_with_goal_zero(ur10, goals):
     """The padding lanes are copies of goal 0 and are cut off: 13 goals
     over 3 shards solve 15 instances and return 13."""
     calls = []
-    real = tapi.solve_ik
+    real = tapi.Solver.__call__
 
-    def spy(structure, T_goal, **kw):
+    def spy(solver, T_goal, Y_init=None):
         calls.append(T_goal.clone())
-        return real(structure, T_goal, **kw)
+        return real(solver, T_goal, Y_init)
 
-    tapi.solve_ik = spy
+    tapi.Solver.__call__ = spy
     try:
         out = tmesh.solve_ik_sharded(ur10, goals, [CPU] * 3, params=TRParams(maxiter=2))
     finally:
-        tapi.solve_ik = real
+        tapi.Solver.__call__ = real
     assert [c.shape[0] for c in calls] == [5, 5, 5]
     assert torch.equal(calls[-1][-2:], goals[:1].expand(2, *goals.shape[1:]))
     assert out["q"].shape[0] == 13
