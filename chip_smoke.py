@@ -70,12 +70,17 @@ Phases (any failure exits non-zero; no phase swallows an exception):
  11. dense CIDGIK on UR10 (ur10_cidgik): solvers/cidgik.solve_cidgik at
      B = 1024 with CidgikParams.production(admm_iters=700,
      admm_iters_rest=300), then the bench's finish (pose error, limits,
-     30-step LM polish); eager PyTorch, no hand-written kernel. The kernel
-     launches and device-busy share of each stage from one profiled call
-     (also the warm-up), then one timed call with the ADMM and finish
-     walls, success at or above the floor, the raw-ADMM rate at 1 cm,
-     median |eig_sum| and feas, finite outputs of the right shapes; a
-     16-goal batch on the card
+     30-step LM polish); no hand-written kernel. Compiled - the ADMM's
+     50-step pieces as CUDA graphs of the template (compiled.Loop), the
+     finish through a StageGraphs, as bench.py jits stage_finish - against
+     eager (compiled.eager_loops(), the finish eager) on the same goals:
+     the first compiled call (warm-up + capture), then for each form the
+     kernel launches, host launches and device-busy share of each stage
+     from one profiled call and the ADMM and finish walls of one timed
+     call, every output bitwise equal, ADMM steps and host reads equal;
+     success at or above the floor, the raw-ADMM rate at 1 cm, median
+     |eig_sum| and feas, finite outputs of the right shapes, the graph
+     pools' memory; a 16-goal batch on the card
      against the same call on the CPU (ADMM (200, 2 x 100)): status equal,
      eig_sum and feas within EIG_TOL and FEAS_TOL, points within 1e-3 on at
      least 15 lanes;
@@ -91,10 +96,14 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      block's norm;
  14. Riemannian conjugate gradient on UR10 (ur10_cg): make_solver with
      CGParams.production() at B = 8192, the UR10 path's polish and
-     smoothing: the solve stage's launches and device-busy share from one
-     profiled call (also the warm-up), then one timed call with per-stage
-     walls, success at or above the floor, no TR kernel launched, the
-     solve's host reads, and 64 goals on the card against the CPU: solve_cg from the
+     smoothing; compiled (the loop's pieces between host reads and the
+     finish as CUDA graphs) against the same solver eager on the same
+     prepared inputs (`compiled_vs_eager`): the first compiled call
+     (warm-up + capture), then for each form the solve's launches, host
+     launches and device-busy share from one profiled call and one timed
+     solve and finish, every output bitwise equal, host reads equal;
+     success at or above the floor, no TR kernel launched, the graph
+     pools' memory, and 64 goals on the card against the CPU: solve_cg from the
      same Y0 at float64 (20 iterations) and float32 (5), iterations equal
      per lane and Y and cost within CG_TOL64 / CG_TOL32, then the whole
      solver's success counts;
@@ -118,12 +127,14 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      (its metrics equal to summarize of its own solve); and
      dryrun_multigpu over every card;
  17. the trust region's "dense" and "edge" backends (`tr_backends_phase`;
-     eager PyTorch, no hand-written kernel launched on any of them):
-     make_solver on UR10 at float64 (its "kernel" runs "dense") at
-     B = 8192 with the UR10 path's parameters (no graph: the float64
-     path is eager): the launches an iteration and device-busy share from
-     one profiled solve (with one finish, the warm-up), the solve alone
-     timed with its host reads, then 2 timed calls with per-stage walls,
+     no hand-written kernel launched on any of them), each compiled (the
+     loop's pieces between host reads and the finish as CUDA graphs)
+     against the same solver eager on the same prepared inputs
+     (`compiled_vs_eager`: every output bitwise equal, host reads equal,
+     walls, graph pools): make_solver on UR10 at float64 (its "kernel"
+     runs "dense") at B = 8192 with the UR10 path's parameters, with the
+     launches, host launches and device-busy share of each form's solve
+     from one profiled call, then 2 compiled calls with per-stage walls,
      success >= 0.85, float64 finite outputs; 64 goals on the card against the CPU (one
      iteration from the same Y0: inner steps equal, Y within 1e-12; then
      the whole solver: per-goal success equal on >= 61); the table at
@@ -148,8 +159,10 @@ Phases 3, 6, 8-10, 15 and 16 run the compiled solver (make_solver,
 make_restart_solver, solve_ik_sharded): the warm call is the first call
 at the batch shape, which runs the solve and finish eagerly and captures
 them; the timed calls replay the graphs, and each launches the TR kernel
-once, inside the graph. Phases 11-14 and 17 are eager paths (CIDGIK, CG,
-the float64 and "edge" solves): no graph.
+once, inside the graph. Phases 11-14 and 17 run the compiled forms of the
+paths without a kernel (CIDGIK, CG, the float64 and "edge" solves): their
+loops replay CUDA graphs of the steps between two host reads, their
+finishes one graph; each is held bitwise to its eager form.
 
 A floor is the lower end of the JAX package's 95% Wilson interval on that
 configuration's 1000 goals (tools/torch_parity.py jax --config <name>), less
@@ -165,6 +178,7 @@ CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -347,26 +361,58 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def cidgik_call(solve, comp, ps_c, T_goal, params):
-    """One call of the bench's CIDGIK path (bench.py:379-453): `solve`
-    (solve_cidgik or solve_cidgik_sparse), then the finish - the raw pose
-    error, the limits of the realization and polish_solution's 30-step LM.
-    Returns (ADMM wall, finish wall, outputs)."""
+def cidgik_finish(ps_c):
+    """The bench's CIDGIK finish (bench.py:379-453, its stage_finish): the
+    raw pose error, the limits of the realization and polish_solution's
+    30-step LM, as a stage function of (q, T_goal)."""
     from graphik_tpu_torch import api
 
+    def finish(q, T_goal):
+        e_pos0, e_rot0 = api.pose_error(ps_c, q, T_goal)
+        viol, ok = ps_c.check_distance_limits(ps_c.realization(q))
+        q, e_pos, e_rot, viol, ok = api.polish_solution(ps_c, q, T_goal, e_pos0, e_rot0, viol, ok)
+        return {"q_polished": q, "e_pos0": e_pos0, "e_rot0": e_rot0, "e_pos": e_pos,
+                "e_rot": e_rot, "ok": ok}
+    return finish
+
+
+def cidgik_call(solve, comp, ps_c, T_goal, params, graphs):
+    """One call of the bench's CIDGIK path: `solve` (solve_cidgik or
+    solve_cidgik_sparse; its ADMM through the template's loop graphs unless
+    inside compiled.eager_loops()), then the finish, through `graphs` (a
+    StageGraphs, as bench.py:418-426 jits stage_finish) or eagerly (None).
+    Returns (ADMM wall, finish wall, outputs)."""
     sync(T_goal.device)
     t0 = time.perf_counter()
     out = solve(comp, T_goal, params=params)
     sync(T_goal.device)
     t1 = time.perf_counter()
-    e_pos0, e_rot0 = api.pose_error(ps_c, out["q"], T_goal)
-    viol, ok = ps_c.check_distance_limits(ps_c.realization(out["q"]))
-    q, e_pos, e_rot, viol, ok = api.polish_solution(ps_c, out["q"], T_goal, e_pos0, e_rot0,
-                                                    viol, ok)
+    finish = cidgik_finish(ps_c)
+    fin = finish(out["q"], T_goal) if graphs is None else graphs.run("finish", finish, out["q"],
+                                                                     T_goal)
     sync(T_goal.device)
     t2 = time.perf_counter()
-    return t1 - t0, t2 - t1, dict(out, q_polished=q, e_pos0=e_pos0, e_rot0=e_rot0,
-                                  e_pos=e_pos, e_rot=e_rot, ok=ok)
+    return t1 - t0, t2 - t1, dict(out, **fin)
+
+
+def pool_bytes(stage_graphs):
+    """Bytes held by the memory pools of the StageGraphs in `stage_graphs`:
+    the caching allocator's segments of those pools (one snapshot)."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    check(all("segment_pool_id" in seg for seg in segs), "memory_snapshot has no segment_pool_id")
+    pools = {tuple(p) for g in stage_graphs for p in g.pools.values()}
+    return sum(seg["total_size"] for seg in segs if tuple(seg["segment_pool_id"]) in pools)
+
+
+def differing(a, b):
+    """{key: lanes that differ} of two output dicts (empty: bitwise equal)."""
+    import torch
+
+    check(set(a) == set(b), f"output keys differ: {sorted(set(a) ^ set(b))}")
+    return {k: int((a[k] != b[k]).reshape(a[k].shape[0], -1).any(-1).sum())
+            for k in a if not torch.equal(a[k], b[k])}
 
 
 def profiled(fn, dev):
@@ -614,17 +660,8 @@ def first_call(tag, solver, T_goal, *gen):
 
 def graph_pool_bytes(solvers):
     """Bytes held by the memory pools of each compiled solver's CUDA
-    graphs: the caching allocator's segments of those pools (one
-    snapshot)."""
-    import torch
-
-    segs = torch.cuda.memory_snapshot()
-    check(all("segment_pool_id" in seg for seg in segs), "memory_snapshot has no segment_pool_id")
-    by_pool = {}
-    for seg in segs:
-        pool = tuple(seg["segment_pool_id"])
-        by_pool[pool] = by_pool.get(pool, 0) + seg["total_size"]
-    return [sum(by_pool.get(tuple(p), 0) for p in s.graphs.pools.values()) for s in solvers]
+    graphs (one snapshot each)."""
+    return [pool_bytes([s.graphs]) for s in solvers]
 
 
 def compiled_phase(dev, paths):
@@ -707,20 +744,26 @@ def compiled_phase(dev, paths):
 
 def cidgik_phases(dev, gen, cfgs):
     """The CIDGIK paths: for each (tag, phase, structure, B, production
-    overrides, sparse), one profiled call (the launches and device-busy
-    share of each stage; also the warm-up) and one timed call with the
-    ADMM and finish walls, success at or above the floor, finite outputs
-    of the right shapes (and, with obstacles, successful lanes clear of every
-    sphere), the launches and device-busy share of each stage from one
-    profiled call, and a 16-goal batch on `dev` against the same call on the
-    CPU; on the sparse path, also torch.linalg.eigh of its clique blocks on
-    `dev` against the CPU's float64. Returns one record per path."""
+    overrides, sparse), the compiled form - the ADMM through the
+    template's loop graphs (SYNC_EVERY steps a graph between two host
+    reads), the finish through a StageGraphs - and the eager form
+    (compiled.eager_loops(), the finish eager) on the same goals: a first
+    compiled call (warm-up and capture), one profiled call of each form
+    (the launches, host launches and device-busy share of each stage) and
+    one timed call of each, whose outputs must be bitwise equal, with equal
+    ADMM steps and host reads; success at or above the floor, finite
+    outputs of the right shapes (and, with obstacles, successful lanes
+    clear of every sphere), the graph pools' memory, and a 16-goal batch on
+    `dev` against the same call on the CPU; on the sparse path, also
+    torch.linalg.eigh of its clique blocks on `dev` against the CPU's
+    float64. Returns one record per path."""
     import torch
 
     from graphik_tpu_torch import api
     from graphik_tpu_torch.ops import edge as edge_ops
     from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda
     from graphik_tpu_torch.solvers import cidgik, cidgik_sparse
+    from graphik_tpu_torch.utils import compiled
 
     records = []
     for tag, phase, ps_c, B_c, overrides, sparse in cfgs:
@@ -747,36 +790,48 @@ def cidgik_phases(dev, gen, cfgs):
             return api.random_goals(ps_, (B,), gen, dtype=torch.float32, device=device)[0]
 
         T_goal = goals_c(B_c)
-        # launches and device-busy share of each stage, from one profiled
-        # call, which is also the timed call's warm-up; busy share = its
-        # device time over the timed call's wall
-        out_p = {}
-        k_a, c_a, busy_a, _ = profiled(lambda: out_p.update(solve(comp, T_goal, params=params)),
-                                       dev)
-        q0 = out_p["q"]
-
-        def finish_only():
-            e0, r0 = api.pose_error(ps_c, q0, T_goal)
-            v0, ok0 = ps_c.check_distance_limits(ps_c.realization(q0))
-            api.polish_solution(ps_c, q0, T_goal, e0, r0, v0, ok0)
-
-        k_f, c_f, busy_f, _ = profiled(finish_only, dev)
+        fin_graphs = compiled.StageGraphs()
+        forms = {"compiled": (contextlib.nullcontext, fin_graphs),
+                 "eager": (compiled.eager_loops, None)}
+        # the first compiled call: each ADMM piece and the finish run once
+        # eagerly (the warm-up) and are captured
+        t_cap = cidgik_call(solve, comp, ps_c, T_goal, params, fin_graphs)[:2]
+        log(f"[{phase}] {tag} first compiled call (warm-up + capture): ADMM {t_cap[0] * 1e3:.1f} "
+            f"ms, finish {t_cap[1] * 1e3:.1f} ms")
+        # per form: the launches and device-busy share of each stage from one
+        # profiled call (the eager one is also the eager timed call's
+        # warm-up), then one timed call
         counters = (solve_tr_cuda, edge_ops.cost_and_egrad_cuda, edge_ops.ehess_cuda)
         for f in counters:
             f.launches = 0
-        cidgik.solve_cidgik.admm_steps = 0
-        t_admm, t_fin, o, steps = cidgik_call(solve, comp, ps_c, T_goal, params) + (
-            cidgik.solve_cidgik.admm_steps,)
+        finish = cidgik_finish(ps_c)
+        prof, timed = {}, {}
+        for name, (mode, graphs) in forms.items():
+            out_p = {}
+            with mode():
+                p_a = profiled(lambda: out_p.update(solve(comp, T_goal, params=params)), dev)
+                q0 = out_p["q"]
+                p_f = profiled(lambda: finish(q0, T_goal) if graphs is None
+                               else graphs.run("finish", finish, q0, T_goal), dev)
+                cidgik.solve_cidgik.admm_steps = cidgik.solve_cidgik.host_reads = 0
+                t_admm, t_fin, o = cidgik_call(solve, comp, ps_c, T_goal, params, graphs)
+            prof[name] = (p_a, p_f)
+            timed[name] = (t_admm, t_fin, o, cidgik.solve_cidgik.admm_steps,
+                           cidgik.solve_cidgik.host_reads)
         hand = sum(f.launches for f in counters)
-        log(f"[{phase}] {tag}: hand-written kernel launches during the timed call: {hand}")
+        log(f"[{phase}] {tag}: hand-written kernel launches during the phase's calls: {hand}")
         check(hand == 0, f"{tag}: the CIDGIK path launched a hand-written kernel")
+        t_admm, t_fin, o, steps, reads = timed["compiled"]
+        differ = differing(o, timed["eager"][2])
+        log(f"[{phase}] {tag}: compiled against eager on the same goals: outputs bitwise equal "
+            f"{not differ} {differ or ''}; ADMM steps {steps} / {timed['eager'][3]}, host reads "
+            f"{reads} / {timed['eager'][4]}")
+        check(not differ, f"{tag}: the compiled CIDGIK outputs differ from the eager ones")
+        check(steps == timed["eager"][3] and reads == timed["eager"][4],
+              f"{tag}: the compiled CIDGIK path's steps or host reads differ from the eager ones")
         shapes = {"q": (B_c, ps_c.n), "T_base": (B_c, 4, 4), "points": (B_c, ps_c.N, 3),
                   "status": (B_c,), "eig_sum": (B_c,), "feas": (B_c,), "q_polished": (B_c, ps_c.n),
                   "e_pos": (B_c,), "e_rot": (B_c,)}
-        if ps_c.n_obstacles:
-            centers = torch.tensor(np.stack([c for c, _ in ps_c.obstacles]), dtype=torch.float32,
-                                   device=dev)
-            radii = torch.tensor([r for _, r in ps_c.obstacles], dtype=torch.float32, device=dev)
         for k, shape in shapes.items():
             check(tuple(o[k].shape) == shape, f"{tag}: {k} has shape {tuple(o[k].shape)}")
             check(bool(torch.isfinite(o[k].double()).all()), f"{tag}: non-finite {k}")
@@ -787,14 +842,17 @@ def cidgik_phases(dev, gen, cfgs):
         aux = cidgik_sparse._sparse_split_aux(op, anc) if sparse else cidgik._split_aux(op, anc)
         n_schur = int(aux["schur_info"].ne(0).sum())
         b_ms = cidgik_flops(op, blocks, B_c, steps) / PEAK_F32 * 1e3
-        log(f"[{phase}] {tag} timed call: ADMM {t_admm * 1e3:.1f} ms ({steps} iterations), finish "
-            f"{t_fin * 1e3:.1f} ms, total {(t_admm + t_fin) * 1e3:.1f} ms, "
-            f"{B_c / (t_admm + t_fin):.1f} solves/s; success {rate:.4f} (floor {FLOORS[tag]}), "
-            f"raw ADMM @1cm {raw:.4f}, median |eig_sum| {float(o['eig_sum'].abs().median()):.3e}, "
-            f"median feas {float(o['feas'].median()):.3e}, status INFEASIBLE on "
+        pool = pool_bytes([cidgik._graphs(comp), fin_graphs]) / 2**20
+        log(f"[{phase}] {tag} timed compiled call: ADMM {t_admm * 1e3:.1f} ms ({steps} "
+            f"iterations), finish {t_fin * 1e3:.1f} ms, total {(t_admm + t_fin) * 1e3:.1f} ms, "
+            f"{B_c / (t_admm + t_fin):.1f} solves/s (eager: ADMM {timed['eager'][0] * 1e3:.1f} ms, "
+            f"finish {timed['eager'][1] * 1e3:.1f} ms, {B_c / sum(timed['eager'][:2]):.1f} "
+            f"solves/s); success {rate:.4f} (floor {FLOORS[tag]}), raw ADMM @1cm {raw:.4f}, median "
+            f"|eig_sum| {float(o['eig_sum'].abs().median()):.3e}, median feas "
+            f"{float(o['feas'].median()):.3e}, status INFEASIBLE on "
             f"{int(o['status'].ne(cidgik.FEASIBLE).sum())}; ADMM flop bound (products and "
             f"Newton-Schulz) {b_ms:.3f} ms at {PEAK_F32 / 1e12:.0f} TFLOP/s; lanes whose goal-row "
-            f"Schur complement failed its Cholesky: {n_schur}")
+            f"Schur complement failed its Cholesky: {n_schur}; graph pools {pool:.1f} MiB")
         check(rate >= FLOORS[tag], f"{tag}: success below its floor")
         if ps_c.n_obstacles:
             centers = torch.tensor(np.stack([c for c, _ in ps_c.obstacles]), dtype=torch.float32,
@@ -806,10 +864,24 @@ def cidgik_phases(dev, gen, cfgs):
             log(f"[{phase}] {tag}: least clearance over successful lanes {worst:.3e} m (>= -1e-3)")
             check(worst >= -1e-3, f"{tag}: a successful lane enters an obstacle")
 
-        log(f"[{phase}] {tag} profiled call: ADMM {k_a} kernel launches + {c_a} copies/sets, "
-            f"device busy {busy_a:.1f} ms = {busy_a / (t_admm * 1e3):.3f} of the timed ADMM wall; "
-            f"finish {k_f} launches + {c_f} copies/sets, busy {busy_f:.1f} ms = "
-            f"{busy_f / (t_fin * 1e3):.3f} of the timed finish wall")
+        stats = {}
+        for name in forms:
+            (k_a, c_a, busy_a, h_a), (k_f, c_f, busy_f, h_f) = prof[name]
+            ta, tf = timed[name][:2]
+            stats[name] = {"admm_ms": ta * 1e3, "finish_ms": tf * 1e3,
+                           "solves_per_s": B_c / (ta + tf),
+                           "launches_admm": k_a, "launches_per_iteration": k_a / steps,
+                           "host_launches_admm": h_a, "host_launches_per_iteration": h_a / steps,
+                           "launches_finish": k_f, "host_launches_finish": h_f,
+                           "busy_admm": busy_a / (ta * 1e3), "busy_finish": busy_f / (tf * 1e3),
+                           "host_reads": timed[name][4]}
+            st = stats[name]
+            log(f"[{phase}] {tag} {name}: ADMM {k_a} kernel launches + {c_a} copies/sets "
+                f"({st['launches_per_iteration']:.1f} an iteration), {h_a} host launches "
+                f"({st['host_launches_per_iteration']:.2f} an iteration), device busy "
+                f"{busy_a:.1f} ms = {st['busy_admm']:.3f} of the timed ADMM wall; finish {k_f} "
+                f"launches + {c_f} copies/sets, {h_f} host launches, busy {busy_f:.1f} ms = "
+                f"{st['busy_finish']:.3f} of the timed finish wall; host reads {st['host_reads']}")
 
         # a 16-goal batch on the card against the same call on the CPU, at a
         # reduced budget shared by both
@@ -838,9 +910,10 @@ def cidgik_phases(dev, gen, cfgs):
               and d_feas <= FEAS_TOL, f"{tag}: the card and the CPU disagree on the 16-goal batch")
         record = {"path": tag, "B": B_c, "admm_ms": t_admm * 1e3, "finish_ms": t_fin * 1e3,
                   "solves_per_s": B_c / (t_admm + t_fin), "success": rate,
-                  "admm_iterations": steps, "admm_bound_ms": b_ms,
-                  "launches_admm": k_a, "launches_finish": k_f,
-                  "busy_admm": busy_a / (t_admm * 1e3), "busy_finish": busy_f / (t_fin * 1e3),
+                  "admm_iterations": steps, "admm_bound_ms": b_ms, "host_reads": reads,
+                  "first_call_ms": {"admm": t_cap[0] * 1e3, "finish": t_cap[1] * 1e3},
+                  "graph_pool_mib": pool, "bitwise_vs_eager": not differ,
+                  "compiled": stats["compiled"], "eager": stats["eager"],
                   "schur_failed": n_schur,
                   "card_vs_cpu": {"points_close": n_close, "d_eig_sum": d_eig,
                                   "d_eig_sum_over_bound": float(d_eig_l[w] / eig_tol[w]),
@@ -885,14 +958,86 @@ def eigh_check(phase, comp, ps_c, out, dev):
     return errs
 
 
+def compiled_vs_eager(phase, tag, dev, solver, T_goal, counter, profile=True):
+    """A compiled solver whose solve is a loop of CUDA-graphed pieces (CG,
+    the TR's "dense" / "edge" backends; utils/compiled.py Loop) and whose
+    finish is one graph, against the same solver eager on the same
+    prepared inputs: the first compiled call (warm-up and capture), then
+    for each form one profiled solve (with `profile`: launches, host
+    launches, device-busy share; the eager one is also the eager timed
+    call's warm-up) and one timed solve and finish. Checks every output
+    bitwise equal and the host reads (`counter.host_reads`) equal. Returns
+    (record, the compiled call's (sol, out))."""
+    eager = dataclasses.replace(solver, graphs=None)
+    sync(dev)
+    t0 = time.perf_counter()
+    D_goal, Y0 = solver.prepare(T_goal)
+    sync(dev)
+    t_prep = time.perf_counter() - t0
+    first = []
+    sol = solver.solve(Y0, D_goal)
+    sync(dev)
+    first.append(time.perf_counter() - t0 - t_prep)
+    solver.finish(sol, T_goal)
+    sync(dev)
+    first.append(time.perf_counter() - t0 - t_prep - first[0])
+    log(f"[{phase}] {tag} first compiled call (warm-up + capture of the loop's pieces and the "
+        f"finish): solve {first[0] * 1e3:.1f} ms, finish {first[1] * 1e3:.1f} ms")
+    rec = {"B": int(Y0.shape[0]), "prepare_ms": t_prep * 1e3,
+           "first_call_ms": {"solve": first[0] * 1e3, "finish": first[1] * 1e3}}
+    outs = {}
+    for name, s in (("compiled", solver), ("eager", eager)):
+        if profile:
+            k_s, c_s, busy, host = profiled(lambda: s.solve(Y0, D_goal), dev)
+        counter.host_reads = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        sol = s.solve(Y0, D_goal)
+        sync(dev)
+        t1 = time.perf_counter()
+        reads = counter.host_reads
+        out = s.finish(sol, T_goal)
+        sync(dev)
+        t2 = time.perf_counter()
+        outs[name] = (sol, out)
+        n_it = int(sol["iterations"].max())  # the iterations the batch ran
+        r = rec[name] = {"solve_ms": (t1 - t0) * 1e3, "finish_ms": (t2 - t1) * 1e3,
+                         "solves_per_s": rec["B"] / (t_prep + t2 - t0), "host_reads": reads,
+                         "iterations": n_it}
+        msg = ""
+        if profile:
+            r.update(launches_solve=k_s, launches_per_iteration=k_s / n_it, host_launches_solve=host,
+                     host_launches_per_iteration=host / n_it, busy_solve=busy / r["solve_ms"])
+            msg = (f"; profiled solve: {k_s} kernel launches + {c_s} copies/sets "
+                   f"({k_s / n_it:.1f} an iteration), {host} host launches ({host / n_it:.2f} an "
+                   f"iteration), device busy {busy:.1f} ms = {busy / r['solve_ms']:.3f} of the "
+                   f"solve wall")
+        log(f"[{phase}] {tag} {name}: solve {r['solve_ms']:.1f} ms ({n_it} iterations, {reads} "
+            f"host reads), finish {r['finish_ms']:.1f} ms{msg}")
+    differ = dict(differing(outs["compiled"][0], outs["eager"][0]),
+                  **differing(outs["compiled"][1], outs["eager"][1]))
+    pool = pool_bytes([solver.graphs]) / 2**20
+    rec.update(bitwise_vs_eager=not differ, graph_pool_mib=pool)
+    log(f"[{phase}] {tag}: compiled against eager on the same inputs: every output of solve and "
+        f"finish bitwise equal {not differ} {differ or ''}; host reads "
+        f"{rec['compiled']['host_reads']} / {rec['eager']['host_reads']}; solve "
+        f"{rec['eager']['solve_ms'] / rec['compiled']['solve_ms']:.2f}x, finish "
+        f"{rec['eager']['finish_ms'] / rec['compiled']['finish_ms']:.2f}x faster compiled; "
+        f"graph pools {pool:.1f} MiB")
+    check(not differ, f"{tag}: the compiled solver's outputs differ from the eager ones")
+    check(rec["compiled"]["host_reads"] == rec["eager"]["host_reads"],
+          f"{tag}: the compiled solve's host reads differ from the eager ones")
+    return rec, outs["compiled"]
+
+
 def cg_phase(dev, gen, ps, polish):
     """The CG path (ur10_cg): make_solver with CGParams.production() at
-    B_CG, one profiled solve (also the warm-up) and one timed call with
-    per-stage walls, success at or
-    above the floor, no TR kernel launched, the solve's host reads, the
-    solve stage's launches and busy share from one profiled call, and 64
-    goals on `dev` against the CPU: solve_cg's trajectories from the same
-    Y0 at float64 and float32, then the whole solver. Returns its record."""
+    B_CG, compiled (its loop's pieces and the finish as CUDA graphs) against
+    eager on the same inputs (compiled_vs_eager: walls, launches, host reads,
+    busy share, every output bitwise), success at or above the floor, no TR
+    kernel launched, and 64 goals on `dev` against the CPU: solve_cg's
+    trajectories from the same Y0 at float64 and float32, then the whole
+    solver. Returns its record."""
     import torch
 
     from graphik_tpu_torch import api
@@ -910,43 +1055,25 @@ def cg_phase(dev, gen, ps, polish):
         return api.random_goals(ps, (B,), gen, dtype=torch.float32, device=device)[0]
 
     T_goal = goals(B_CG)
-    # the solve stage's launches and device-busy share, from one profiled
-    # call, which is also the timed call's warm-up
-    D_goal, Y0 = solver.prepare(T_goal)
-    k_s, c_s, busy_s, _ = profiled(lambda: solver.solve(Y0, D_goal), dev)
     solve_tr_cuda.launches = 0
-    riemannian.solve_cg.host_reads = 0
-    sync(dev)
-    t0 = time.perf_counter()
-    D_goal, Y0 = solver.prepare(T_goal)
-    sync(dev)
-    t1 = time.perf_counter()
-    sol = solver.solve(Y0, D_goal)
-    sync(dev)
-    t2 = time.perf_counter()
-    out = solver.finish(sol, T_goal)
-    sync(dev)
-    t3 = time.perf_counter()
-    reads = riemannian.solve_cg.host_reads
+    rec, (_, out) = compiled_vs_eager("14", tag, dev, solver, T_goal, riemannian.solve_cg)
     tr = solve_tr_cuda.launches
-    log(f"[14] {tag}: TR kernel launches during the timed call: {tr}")
+    log(f"[14] {tag}: TR kernel launches during the phase's calls: {tr}")
     check(tr == 0, f"{tag}: the CG path launched the TR kernel")
     for k in ("q", "Y", "e_pos", "e_rot", "cost", "iterations"):
         check(out[k].shape[0] == B_CG and bool(torch.isfinite(out[k].double()).all()),
               f"{tag}: {k} has the wrong shape or is not finite")
     check(not bool(out["num_inner"].any()), f"{tag}: num_inner is not zero")
     summ = api.summarize(out)
-    wall = t3 - t0
     it = out["iterations"].double()
-    log(f"[14] {tag} timed call: prepare {(t1 - t0) * 1e3:.1f} ms, solve {(t2 - t1) * 1e3:.1f} ms "
-        f"({reads} host reads; iterations mean {float(it.mean()):.1f}, max {int(it.max())}), "
-        f"finish {(t3 - t2) * 1e3:.1f} ms, total {wall * 1e3:.1f} ms, {B_CG / wall:.1f} solves/s; "
-        f"success {summ['success_rate']:.4f} (floor {FLOORS[tag]}), pose only "
-        f"{summ['pose_only_rate']:.4f}, median e_pos {summ['median_pos_err']:.3e} m")
+    c = rec["compiled"]
+    log(f"[14] {tag} compiled call: prepare {rec['prepare_ms']:.1f} ms, solve {c['solve_ms']:.1f} "
+        f"ms ({c['host_reads']} host reads; iterations mean {float(it.mean()):.1f}, max "
+        f"{int(it.max())}), finish {c['finish_ms']:.1f} ms, {c['solves_per_s']:.1f} solves/s "
+        f"(eager {rec['eager']['solves_per_s']:.1f}); success {summ['success_rate']:.4f} (floor "
+        f"{FLOORS[tag]}), pose only {summ['pose_only_rate']:.4f}, median e_pos "
+        f"{summ['median_pos_err']:.3e} m")
     check(summ["success_rate"] >= FLOORS[tag], f"{tag}: success below its floor")
-    log(f"[14] {tag} profiled solve: {k_s} kernel launches + {c_s} copies/sets "
-        f"({k_s / float(it.max()):.1f} launches an iteration), device busy {busy_s:.1f} ms = "
-        f"{busy_s / ((t2 - t1) * 1e3):.3f} of the timed solve wall")
 
     T64 = goals(64, device=torch.device("cpu"))
     D64, Y64 = solver.prepare(T64)
@@ -974,11 +1101,9 @@ def cg_phase(dev, gen, ps, polish):
         f"(|d| <= {CG_CARD_CPU_GOALS})")
     check(abs(s_g - s_c) <= CG_CARD_CPU_GOALS, f"{tag}: card and CPU success differ")
     log(f"[14] {tag}: phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"path": tag, "B": B_CG, "prepare_ms": (t1 - t0) * 1e3, "solve_ms": (t2 - t1) * 1e3,
-            "finish_ms": (t3 - t2) * 1e3, "solves_per_s": B_CG / wall,
-            "success": summ["success_rate"], "mean_iterations": float(it.mean()),
-            "host_reads_solve": reads, "launches_solve": k_s, "busy_solve": busy_s / ((t2 - t1) * 1e3),
-            "card_vs_cpu_successes": [s_g, s_c], "card_vs_cpu_trajectory": traj}
+    rec.update(path=tag, success=summ["success_rate"], mean_iterations=float(it.mean()),
+               card_vs_cpu_successes=[s_g, s_c], card_vs_cpu_trajectory=traj)
+    return rec
 
 
 def ring_phase(dev, gen, polish, graphed):
@@ -1212,7 +1337,8 @@ def sharded_phase(dev, gen, ps, params, polish):
 
 def tr_backends_phase(dev, gen, ps, ps_t, polish):
     """Phase 17: the trust region's "dense" and "edge" backends on the card
-    (eager PyTorch, no hand-written kernel). Returns the phase's record."""
+    (no hand-written kernel), compiled against eager. Returns the phase's
+    record."""
     import torch
 
     from graphik_tpu_torch import api
@@ -1259,26 +1385,15 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish):
         return {"prepare_ms": tp * 1e3, "solve_ms": ts * 1e3, "finish_ms": tf * 1e3,
                 "solves_per_s": B / wall, "success": summ["success_rate"]}
 
-    # (a) UR10 at float64
+    # (a) UR10 at float64: compiled against eager on the same inputs, then
+    # two compiled calls of their own goals
     tag = "ur10_f64"
     prod = TRParams.production(maxiter=100, maxinner=24)
     solver = api.make_solver(ps, params=prod, polish_params=polish, smooth_iters=2)
     log(f"[17] {tag}: UR10, float64, B = {B_F64}; {prod}")
-    # the solve's launches and device-busy share, from one profiled call;
-    # that call and one finish are the warm-up of the timed calls
-    T_p = goals(ps, B_F64, torch.float64)
-    D_goal, Y0 = solver.prepare(T_p)
     zero_counts()
-    prof_out = {}
-    k_s, c_s, busy, _ = profiled(lambda: prof_out.update(solver.solve(Y0, D_goal)), dev)
-    solver.finish(prof_out, T_p)
-    riemannian.solve.host_reads = 0
-    sync(dev)
-    t0 = time.perf_counter()
-    sol = solver.solve(Y0, D_goal)
-    sync(dev)
-    t_solve = time.perf_counter() - t0
-    reads = riemannian.solve.host_reads
+    rec, (sol, _) = compiled_vs_eager("17", tag, dev, solver, goals(ps, B_F64, torch.float64),
+                                      riemannian.solve)
     calls = []
     for i in range(2):
         tp, ts, tf, _, o = staged(solver, goals(ps, B_F64, torch.float64))
@@ -1286,16 +1401,9 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish):
         calls.append(walls(tag, i, tp, ts, tf, summ, B_F64))
         check(summ["success_rate"] >= 0.85, f"{tag}: success below 0.85")
     no_kernel(tag)
-    n_it = int(sol["iterations"].max())  # the outer iterations the batch ran
-    steps = float(sol["num_inner"].double().mean())
-    log(f"[17] {tag} solve alone: {t_solve * 1e3:.1f} ms, {n_it} iterations (mean "
-        f"{float(sol['iterations'].double().mean()):.1f}, inner steps a lane {steps:.1f}), "
-        f"{reads} host reads; profiled: {k_s} kernel launches + {c_s} copies/sets "
-        f"({k_s / n_it:.1f} launches an iteration), device busy {busy:.1f} ms = "
-        f"{busy / (t_solve * 1e3):.3f} of the solve wall")
-    rec = {"B": B_F64, "calls": calls, "solve_ms": t_solve * 1e3, "iterations": n_it,
-           "host_reads": reads, "launches_solve": k_s, "launches_per_iteration": k_s / n_it,
-           "busy_solve": busy / (t_solve * 1e3)}
+    log(f"[17] {tag}: mean iterations {float(sol['iterations'].double().mean()):.1f}, inner steps "
+        f"a lane {float(sol['num_inner'].double().mean()):.1f}")
+    rec["calls"] = calls
 
     # (b) the same solver on 64 goals, on the card and on the CPU
     log(f"[17] {tag}: took {time.perf_counter() - t_phase:.1f} s")
@@ -1326,15 +1434,20 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish):
     rec["card_vs_cpu"] = {"d_Y_one_iteration": d_Y, "goals_same": n_same,
                           "successes": [int(h_g.sum()), int(h_c.sum())]}
 
-    # (c) the table at float64 on "dense"
+    # (c) the table at float64 on "dense": compiled against eager on the
+    # same inputs
     tag = "ur10_table_f64"
     tparams = TRParams.production(maxiter=250, maxinner=32)
     solver_t = api.make_solver(ps_t, params=tparams, polish_params=polish, smooth_iters=2)
     zero_counts()
-    tp, ts, tf, _, o = staged(solver_t, goals(ps_t, B_F64_TABLE, torch.float64))
+    rec_t, (_, o) = compiled_vs_eager("17", tag, dev, solver_t,
+                                      goals(ps_t, B_F64_TABLE, torch.float64), riemannian.solve,
+                                      profile=False)
     no_kernel(tag)
     summ = checked(tag, o, B_F64_TABLE, torch.float64)
-    rec_t = walls(tag, 0, tp, ts, tf, summ, B_F64_TABLE)
+    c = rec_t["compiled"]
+    rec_t.update(walls(tag, 0, rec_t["prepare_ms"] / 1e3, c["solve_ms"] / 1e3,
+                       c["finish_ms"] / 1e3, summ, B_F64_TABLE))
     check(summ["success_rate"] >= TABLE_SUCCESS_MIN, f"{tag}: success below {TABLE_SUCCESS_MIN}")
     centers = torch.tensor(np.stack([c for c, _ in ps_t.obstacles]), dtype=torch.float64,
                            device=dev)
@@ -1342,8 +1455,7 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish):
     p = ps_t.realization(o["q"])[:, 1:ps_t.n + 1]
     clear = torch.linalg.norm(p[:, :, None, :] - centers, dim=-1) - radii
     worst = float(clear[o["success"]].min())
-    log(f"[17] {tag}: least clearance over successful lanes {worst:.3e} m (>= -1e-3); "
-        f"{riemannian.solve.host_reads} host reads")
+    log(f"[17] {tag}: least clearance over successful lanes {worst:.3e} m (>= -1e-3)")
     check(worst >= -1e-3, f"{tag}: a successful lane enters an obstacle")
     rec_t.update(B=B_F64_TABLE, clearance=worst)
 
@@ -1356,10 +1468,13 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish):
                for b in ("edge", "kernel")}
     T_p = goals(ps_p, B_EDGE, torch.float32)
     zero_counts()
-    tp, ts, tf, _, o_e = staged(solvers["edge"], T_p)
+    rec_e, (_, o_e) = compiled_vs_eager("17", tag, dev, solvers["edge"], T_p, riemannian.solve,
+                                        profile=False)
     no_kernel(tag)
     s_e = checked(tag, o_e, B_EDGE, torch.float32)
-    rec_e = walls(tag, 0, tp, ts, tf, s_e, B_EDGE)
+    c = rec_e["compiled"]
+    rec_e.update(walls(tag, 0, rec_e["prepare_ms"] / 1e3, c["solve_ms"] / 1e3,
+                       c["finish_ms"] / 1e3, s_e, B_EDGE))
     s_k = api.summarize(solvers["kernel"](T_p))["success_rate"]
     log(f"[17] {tag}: success {s_e['success_rate']:.4f}, the kernel path's on the same goals "
         f"{s_k:.4f} (|d| <= {EDGE_GAP})")

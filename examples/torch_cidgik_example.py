@@ -27,7 +27,7 @@ def main(batch=16, seed=0, device=None, params=None):
     tpl, graph = load_ur10()
     comp = compile_cidgik(graph)
     T_goal, _ = api.random_goals(graph, (batch,), torch.Generator().manual_seed(seed),
-                                 device=device)
+                                 dtype=torch.float64, device=device)
     out = solve_cidgik(comp, T_goal, params=params or CidgikParams.production())
     e_pos, e_rot = api.pose_error(graph, out["q"], T_goal)
     hit = ((e_pos < 1e-2) & (e_rot < 1e-2)).double().mean().item()
@@ -81,7 +81,7 @@ def main_floor(batch=8, seed=3, device=None, params=None):
     tpl, graph = load_ur10()
     comp = compile_cidgik(graph, floor_mode=True)
     T_goal, _ = api.random_goals(graph, (batch,), torch.Generator().manual_seed(seed),
-                                 device=device)
+                                 dtype=torch.float64, device=device)
     out = solve_cidgik(comp, T_goal, params=params or CidgikParams.production())
     Tb = out["T_base"].double()
     # goal expressed in each solution's own base frame (per-ee axis kept)

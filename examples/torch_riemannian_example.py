@@ -30,7 +30,7 @@ def main(batch=64, seed=0, device=None, params=TRParams(maxiter=1000)):
     print(f"UR10 with {graph.n_obstacles} obstacles, N = {graph.N} nodes")
 
     gen = torch.Generator().manual_seed(seed)
-    T_goal, _ = api.random_goals(graph, (batch,), gen, device=device)
+    T_goal, _ = api.random_goals(graph, (batch,), gen, dtype=torch.float32, device=device)
     stats = summarize(api.solve_ik(graph, T_goal, params=params))
     print("success rate (pos<1mm, rot<1deg, limits ok):", stats["success_rate"])
     print("median pos err:", stats["median_pos_err"])

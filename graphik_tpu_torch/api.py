@@ -13,14 +13,15 @@ ProblemStructure.reduced_spec) and the obstacle positions are padded back
 into Y after the solve.
 
 `solve_ik` runs every stage eagerly. `make_solver` and `solve_ik_jit`
-return the compiled solver, as the JAX package's jitted ones: on a card,
-its solve and finish stages of the float32 TR-kernel path (K3, or K4 with
-anchors) run as CUDA graphs, captured on the first call of each input
-shape and replayed after (utils/compiled.py), with the eager stages'
-results bit for bit. Prepare stays eager: its `torch.linalg.eigh`
-synchronises with the host. Every other path (CGParams, the TR's "dense"
-and "edge" backends, float64) reads the host in its solve loop and runs
-eagerly, as do CPU tensors.
+return the compiled solver, as the JAX package's jitted ones, for every
+params and dtype: on a card its finish runs as a CUDA graph, captured on
+the first call of each input shape and replayed after (utils/compiled.py);
+its solve too on the float32 TR-kernel path (K3, or K4 with anchors); the
+other solves (CGParams, the TR's "dense" and "edge" backends, so every
+float64 solve) run their loops through CUDA graphs of their pieces between
+the host reads the loop makes (compiled.Loop). Every result is the eager
+stages' bit for bit. Prepare stays eager: its `torch.linalg.eigh`
+synchronises with the host. CPU tensors run every stage eagerly.
 Layouts match the JAX package: Y is (B, N, d), T_goal is (B, n_ee, hd, hd)
 with hd = d + 1, and the output dicts carry the same keys.
 """
@@ -70,7 +71,8 @@ def pose_error(structure: ProblemStructure, q, T_goal):
 
 
 def solve_reduced(structure, Y0, D_goal, omega_np, psi_L, psi_U,
-                  params: Union[TRParams, CGParams] = TRParams(), use_limits: bool = True):
+                  params: Union[TRParams, CGParams] = TRParams(), use_limits: bool = True,
+                  graphs: Optional[compiled.StageGraphs] = None):
     """Riemannian solve with the anchored-obstacle reduction.
 
     The params' type selects the solver: TRParams the trust region
@@ -79,7 +81,8 @@ def solve_reduced(structure, Y0, D_goal, omega_np, psi_L, psi_U,
     leave the variable set and their bound edges become anchored hinge
     terms. Y0 and D_goal may be reduced (Nr nodes) or full-graph. The
     returned Y is padded back to the full node count with the obstacle
-    positions.
+    positions. graphs: the StageGraphs the solve's loop runs through on a
+    card (riemannian.solve); None runs it eagerly.
     """
     solve_fn = riemannian.solve_cg if isinstance(params, CGParams) else riemannian.solve
     spec = structure.reduced_spec()
@@ -89,6 +92,7 @@ def solve_reduced(structure, Y0, D_goal, omega_np, psi_L, psi_U,
             psi_L if use_limits else None,
             psi_U if use_limits else None,
             params=params,
+            graphs=graphs,
         )
     Nr = spec["Nr"]
     sol = solve_fn(
@@ -99,6 +103,7 @@ def solve_reduced(structure, Y0, D_goal, omega_np, psi_L, psi_U,
         psi_U[:Nr, :Nr] if use_limits else None,
         params=params,
         anchors=spec if use_limits else None,
+        graphs=graphs,
     )
     Yr = sol["Y"]
     obs = compiled.device_const(structure, "obstacle_positions", structure.pos_fixed[Nr:],
@@ -136,8 +141,9 @@ def polish_solution(structure, q, T_goal, e_pos, e_rot, max_viol, limits_ok,
 class Solver:
     """The staged pipeline of `make_solver`; call it on T_goal, or run the
     stages one by one (prepare -> solve -> finish) to time them. With
-    `graphs` (the compiled solver), solve and finish of the float32
-    TR-kernel path run as CUDA graphs on a card; without, eagerly."""
+    `graphs` (the compiled solver) on a card, finish runs as a CUDA graph,
+    and solve too on the float32 TR-kernel path, or else through the
+    graphs of its loop's pieces; without, eagerly."""
 
     structure: ProblemStructure
     params: Union[TRParams, CGParams] = TRParams()
@@ -176,19 +182,22 @@ class Solver:
         return inst["D_goal"], Y0
 
     def _graphed(self, Y):
-        """Whether a stage on Y runs as a CUDA graph: the compiled solver's
-        float32 TR-kernel path on a card."""
-        return (self.graphs is not None and Y.device.type == "cuda" and Y.dtype == torch.float32
-                and isinstance(self.params, TRParams) and self.params.backend == "kernel")
+        """Whether a stage on Y runs as a CUDA graph: the compiled solver
+        on a card."""
+        return self.graphs is not None and Y.device.type == "cuda"
 
     def solve(self, Y0, D_goal):
-        if self._graphed(Y0):
+        """The Riemannian solve from Y0: on the float32 TR-kernel path one
+        stage graph, on the others a loop through the graphs of its
+        pieces."""
+        if (self._graphed(Y0) and Y0.dtype == torch.float32 and isinstance(self.params, TRParams)
+                and self.params.backend == "kernel"):
             return self.graphs.run("solve", self._solve, Y0, D_goal)
-        return self._solve(Y0, D_goal)
+        return self._solve(Y0, D_goal, self.graphs)
 
-    def _solve(self, Y0, D_goal):
-        return solve_reduced(self.structure, Y0, D_goal, self.omega, self.psi_L,
-                             self.psi_U, params=self.params, use_limits=self.use_limits)
+    def _solve(self, Y0, D_goal, graphs=None):
+        return solve_reduced(self.structure, Y0, D_goal, self.omega, self.psi_L, self.psi_U,
+                             params=self.params, use_limits=self.use_limits, graphs=graphs)
 
     def finish(self, sol, T_goal):
         """Joint recovery, FK validation, pose error and the polish."""
@@ -240,8 +249,10 @@ def make_solver(structure: ProblemStructure, params: Union[TRParams, CGParams] =
     """The compiled batched solver for `structure`: solver(T_goal) -> dict
     of per-instance q, Y, e_pos, e_rot, limit_violation, success, cost,
     gradnorm, iterations, num_inner, the same as `solve_ik`'s. On a card
-    the float32 TR-kernel path's solve and finish run as CUDA graphs, one
-    captured per input shape on its first call (utils/compiled.py).
+    the finish runs as a CUDA graph, one captured per input shape on its
+    first call (utils/compiled.py), and so does the float32 TR-kernel
+    path's solve; every other solve runs its loop through the graphs of its
+    pieces (compiled.Loop), for every params and dtype.
     params: TRParams for the trust-region solver, CGParams for the
     conjugate-gradient one. A tensor T_goal runs on its own device; goals
     with no device run on `device` (None: the card, which raises when there
@@ -282,9 +293,11 @@ def solve_ik(structure: ProblemStructure, T_goal, params: Union[TRParams, CGPara
 
 def random_goals(structure: ProblemStructure, batch_shape=(),
                  generator: Optional[torch.Generator] = None,
-                 dtype=torch.float64, device=None):
-    """Random reachable goal poses via FK at random configurations, on
-    `device` (None: the card, which raises when there is none).
+                 dtype=None, device=None):
+    """Random reachable goal poses via FK at random configurations, in
+    `dtype` (None: torch.get_default_dtype(), as the JAX package draws in
+    its default float) on `device` (None: the card, which raises when there
+    is none).
 
     Returns (T_goal (..., n_ee, hd, hd), q_goal (..., n)).
     """

@@ -258,7 +258,7 @@ class ProblemStructure:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         q = kinematics.random_configuration(self.template, (n_samples,), generator,
-                                            device="cpu")
+                                            dtype=torch.float64, device="cpu")
         pos = self.realization(q)  # (S, N, dim)
         D = torch.sqrt(torch.clamp(dgp.distance_matrix_from_pos(pos), min=0.0))
         D_min = D.amin(dim=0).numpy()

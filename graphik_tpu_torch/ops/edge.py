@@ -231,7 +231,7 @@ def residual_max(ep: EdgeProblem, Y, dgoal_e):
     equality-edge scale."""
     _, _, s0, e1, e2 = _edge_terms(ep, Y, dgoal_e)
     om = _t(ep.omega, Y)
-    eq_cnt = max(float(ep.omega.sum()), 1.0)
+    eq_cnt = torch.clamp(om.sum(), min=1.0)  # on the device: no read of the host
     fl = ((om * dgoal_e).sum(dim=-1) / eq_cnt)[..., None]
     r = s0.abs() / torch.maximum(dgoal_e, fl)
     r = torch.maximum(r, e1 / torch.maximum(_t(ep.psi_L, Y), fl))

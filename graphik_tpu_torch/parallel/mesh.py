@@ -71,8 +71,9 @@ def shard_batch(x, mesh: Sequence[torch.device]):
 
 # (structure, params, keyword arguments) -> the compiled solver of its
 # sharded solves, which keeps its structure and graphs alive; past
-# _SHARDED_SOLVERS_MAX entries the oldest goes, as the JAX package bounds
-# its memoized runners (graphik_tpu/parallel/distributed.py).
+# _SHARDED_SOLVERS_MAX entries the least recently used goes, as the JAX
+# package bounds its memoized runners (graphik_tpu/parallel/distributed.py),
+# and its graphs and their memory pools are released at once.
 _SHARDED_SOLVERS: "collections.OrderedDict" = collections.OrderedDict()
 _SHARDED_SOLVERS_MAX = 16
 
@@ -86,8 +87,9 @@ def _sharded_solver(structure: ProblemStructure, params: TRParams = TRParams(), 
     solver = _SHARDED_SOLVERS.get(key)
     if solver is None:
         solver = _SHARDED_SOLVERS[key] = api.make_solver(structure, params, **kwargs)
-        if len(_SHARDED_SOLVERS) > _SHARDED_SOLVERS_MAX:
-            _SHARDED_SOLVERS.popitem(last=False)
+        while len(_SHARDED_SOLVERS) > _SHARDED_SOLVERS_MAX:
+            _SHARDED_SOLVERS.popitem(last=False)[1].graphs.release()
+    _SHARDED_SOLVERS.move_to_end(key)
     return solver
 
 
@@ -213,9 +215,10 @@ def make_restart_solver(structure: ProblemStructure, n_restarts: int = 4,
     """The compiled batched multi-restart solver: solver(T_goal, generator)
     -> the selected per-goal dict of `api.make_solver`'s keys plus
     "restart_index". Prepare (which draws from the generator) runs eagerly;
-    on a card, solve and finish with the pick run as CUDA graphs, one
-    captured per batch length, as the JAX package jits one finish per batch
-    length. Devices as in `api.make_solver`."""
+    on a card, solve and finish with the pick run as `api.make_solver`'s
+    (CUDA graphs, one captured per batch length, as the JAX package jits
+    one finish per batch length), for every params and dtype. Devices as in
+    `api.make_solver`."""
     return RestartSolver(structure, params, use_limits, dtype, polish=polish,
                          polish_params=polish_params, smooth_iters=smooth_iters,
                          device=device, graphs=compiled.StageGraphs(), n_restarts=n_restarts)

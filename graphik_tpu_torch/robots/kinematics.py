@@ -183,13 +183,16 @@ def entry_device(device=None) -> torch.device:
 
 def random_configuration(template: RobotTemplate, batch_shape=(),
                          generator: Optional[torch.Generator] = None,
-                         dtype=torch.float64, device=None):
-    """Uniform joint angles within limits, on `device` (default: the card).
+                         dtype=None, device=None):
+    """Uniform joint angles within limits, in `dtype` (None:
+    torch.get_default_dtype(), the JAX package's default float) on `device`
+    (default: the card).
 
     The draw happens on `generator`'s own device (so one seed gives the
     same goals whatever `device` is) and the result moves to `device`.
     """
     device = entry_device(device)
+    dtype = torch.get_default_dtype() if dtype is None else dtype
     lb = torch.as_tensor(template.lb[1:], dtype=dtype, device=device)
     ub = torch.as_tensor(template.ub[1:], dtype=dtype, device=device)
     gen_device = generator.device if generator is not None else device

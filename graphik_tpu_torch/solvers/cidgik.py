@@ -25,7 +25,13 @@ Two ADMM engines, as in the JAX package:
 Both loops keep their stop flags on the device: a stopped lane (or batch)
 keeps its state through `torch.where`, and the host reads the flag only
 every `SYNC_EVERY` iterations to leave the loop early, so the iterate is
-the JAX package's while_loop's.
+the JAX package's while_loop's. The SYNC_EVERY steps between two reads
+are one piece of a compiled.Loop: on a card a CUDA graph, captured once
+per template and shape and replayed (the template owns its graphs, and
+they go with it), as the JAX package's loops run as one device program
+whether or not their caller jits them; on the CPU, eager. The eigh cone
+projection (cone_ns_iters = 0) cannot be captured: that ADMM runs its
+pieces eagerly on a card too.
 
 Eigendecompositions are `torch.linalg.eigh` of the symmetrised matrix (the
 JAX package's fixed-sweep Jacobi is a TPU workaround); `eigh_sweeps` is
@@ -45,6 +51,7 @@ import torch
 from graphik_tpu_torch.graphs.problem import ProblemStructure
 from graphik_tpu_torch.ops.linalg import psd_project_ns, spd_inverse_factor
 from graphik_tpu_torch.robots import kinematics
+from graphik_tpu_torch.utils import compiled
 
 FEASIBLE = 0
 INFEASIBLE = 1
@@ -217,6 +224,23 @@ def compile_cidgik(ps: ProblemStructure, floor_mode: bool = False) -> CidgikComp
     )
 
 
+def _graphs(comp):
+    """The StageGraphs that hold the template's loop graphs: made on first
+    use, and freed with the template."""
+    graphs = getattr(comp, "_loop_graphs", None)
+    if graphs is None:
+        graphs = comp._loop_graphs = compiled.StageGraphs()
+    return graphs
+
+
+def _dev(owner, key, build, dtype, device):
+    """build() (host numpy) as a tensor of dtype on device, made once per
+    (owner, key, dtype, device) (compiled.cached): a template's constants
+    are copied from the host once."""
+    return compiled.cached(owner, (key, dtype, device),
+                           lambda: torch.as_tensor(np.asarray(build()), dtype=dtype, device=device))
+
+
 # ---------------------------------------------------------------------------
 # Constraint matrices (numpy builders shared by both engines)
 # ---------------------------------------------------------------------------
@@ -274,18 +298,20 @@ def _constraint_matrices(comp: CidgikCompiled, anchors_pos):
     batch = anchors_pos.shape[:-2]
     dt, dev = anchors_pos.dtype, anchors_pos.device
 
-    def const(x, tail):
-        return torch.as_tensor(np.asarray(x), dtype=dt, device=dev).expand(batch + tail)
+    def const(key, build, tail):
+        return _dev(comp, key, build, dt, dev).expand(batch + tail)
 
-    def ff_mats(pairs):
-        return const(np.stack([_ff_mat(u, v, d, s) for u, v in pairs]), (len(pairs), s, s))
+    def ff_mats(key, pairs):
+        return const(key, lambda: np.stack([_ff_mat(u, v, d, s) for u, v in pairs]),
+                     (len(pairs), s, s))
 
-    def fa_mats(pairs):
+    def fa_mats(key, pairs):
         # G_uu - 2 a^T x_u, a the instance's anchor; returns (A, ||a||^2)
         m = len(pairs)
-        a_pos = anchors_pos[..., torch.as_tensor(pairs[:, 1], device=dev), :]  # (..., m, d)
+        a_pos = anchors_pos[..., _dev(comp, (key, "anchor"), lambda: pairs[:, 1], torch.long,
+                                      dev), :]  # (..., m, d)
         k = torch.arange(m, device=dev)
-        u = torch.as_tensor(d + pairs[:, 0], device=dev)
+        u = _dev(comp, (key, "u"), lambda: d + pairs[:, 0], torch.long, dev)
         j = torch.arange(d, device=dev)
         out = torch.zeros(batch + (m, s, s), dtype=dt, device=dev)
         out[..., k, u, u] = 1.0
@@ -293,30 +319,30 @@ def _constraint_matrices(comp: CidgikCompiled, anchors_pos):
         out[..., k[:, None], j[None, :], u[:, None]] = -a_pos
         return out, (a_pos**2).sum(-1)
 
-    mats, rhs = _static_eq_rows(comp)
-    A_eq = [const(np.stack(mats), (len(mats), s, s))]
-    b_eq = [const(rhs, (len(rhs),))]
+    n_static = len(_static_eq_rows(comp)[1])
+    A_eq = [const("eq_static", lambda: np.stack(_static_eq_rows(comp)[0]), (n_static, s, s))]
+    b_eq = [const("eq_static_b", lambda: _static_eq_rows(comp)[1], (n_static,))]
     if len(comp.eq_ff):
-        A_eq.append(ff_mats(comp.eq_ff))
-        b_eq.append(const(comp.eq_ff_b, (len(comp.eq_ff),)))
+        A_eq.append(ff_mats("eq_ff", comp.eq_ff))
+        b_eq.append(const("eq_ff_b", lambda: comp.eq_ff_b, (len(comp.eq_ff),)))
     if len(comp.eq_fa):
         # a structure edge to a goal anchor keeps its rigid length (the goal
         # only moves the anchor): b = d^2 - ||a||^2 for every one
-        A, a2 = fa_mats(comp.eq_fa)
+        A, a2 = fa_mats("eq_fa", comp.eq_fa)
         A_eq.append(A)
-        b_eq.append(const(comp.eq_fa_d2, (len(comp.eq_fa),)) - a2)
+        b_eq.append(const("eq_fa_d2", lambda: comp.eq_fa_d2, (len(comp.eq_fa),)) - a2)
     A_eq, b_eq = torch.cat(A_eq, dim=-3), torch.cat(b_eq, dim=-1)
 
     A_in, lo, hi = [], [], []
     if len(comp.in_ff):
-        A_in.append(ff_mats(comp.in_ff))
-        lo.append(const(comp.in_ff_lo, (len(comp.in_ff),)))
-        hi.append(const(comp.in_ff_hi, (len(comp.in_ff),)))
+        A_in.append(ff_mats("in_ff", comp.in_ff))
+        lo.append(const("in_ff_lo", lambda: comp.in_ff_lo, (len(comp.in_ff),)))
+        hi.append(const("in_ff_hi", lambda: comp.in_ff_hi, (len(comp.in_ff),)))
     if len(comp.in_fa):
-        A, a2 = fa_mats(comp.in_fa)
+        A, a2 = fa_mats("in_fa", comp.in_fa)
         A_in.append(A)
-        lo.append(const(comp.in_fa_lo, (len(comp.in_fa),)) - a2)
-        hi.append(const(comp.in_fa_hi, (len(comp.in_fa),)) - a2)
+        lo.append(const("in_fa_lo", lambda: comp.in_fa_lo, (len(comp.in_fa),)) - a2)
+        hi.append(const("in_fa_hi", lambda: comp.in_fa_hi, (len(comp.in_fa),)) - a2)
     if A_in:
         A_in, lo, hi = torch.cat(A_in, dim=-3), torch.cat(lo, dim=-1), torch.cat(hi, dim=-1)
     else:
@@ -415,26 +441,71 @@ def _cone_project(W, t, lo, hi, params, pad_mask=None):
     return Wp, torch.clamp(t, min=lo, max=hi)
 
 
-def _run_admm(step, state, res, iters, running_of):
-    """Up to `iters` ADMM steps with a device-side stop flag.
-
-    step(state, k) -> (new_state, res); running_of(res) -> bool tensor, per
-    lane (B,) or for the batch (). A step is kept only where the flag, taken
-    from the previous residual, is set (res starts at inf), so the result
-    is a while_loop's; the host reads the flag every SYNC_EVERY steps.
-    Each step taken adds one to `solve_cidgik.admm_steps` (the sparse
-    solver's steps too).
-    """
-    running = running_of(res)
-    for k in range(iters):
-        if k and k % SYNC_EVERY == 0 and not bool(running.any()):
-            break
-        new, pri = step(state, k)
-        solve_cidgik.admm_steps += 1
-        state = tuple(_select(running, n, o) for n, o in zip(new, state))
+def _admm_chunk(state, consts, make_step, static, ks):
+    """ADMM steps, one for each entry of ks (the step's index modulo the
+    period the step depends on), as a compiled.Loop piece. The state holds
+    the engine's carry (x0, x1, ...), the last residual `res`, the stop
+    flag `running` taken from it and `flag`, whether any lane still runs.
+    A step is kept only where the flag is set."""
+    step, running_of = make_step(consts, *static)
+    n = sum(1 for k in state if k.startswith("x"))
+    carry = tuple(state[f"x{i}"] for i in range(n))
+    res, running = state["res"], state["running"]
+    for k in ks:
+        new, pri = step(carry, k)
+        carry = tuple(_select(running, a, b) for a, b in zip(new, carry))
         res = _select(running, pri, res)
         running = running_of(res)
-    return state
+    out = {f"x{i}": v for i, v in enumerate(carry)}
+    out.update(res=res, running=running, flag=running.any())
+    return out
+
+
+def _run_admm(make_step, static, consts, carry, iters, graphs, period=1):
+    """Up to `iters` ADMM steps with a device-side stop flag.
+
+    make_step(consts, *static) -> (step, running_of): step(carry, k) ->
+    (new_carry, res), running_of(res) -> bool tensor, per lane (B,) or for
+    the batch (). A step is kept only where the flag, taken from the
+    previous residual, is set (res starts at inf), so the result is a
+    while_loop's; the host reads the flag every SYNC_EVERY steps, and the
+    steps between two reads are one piece of a compiled.Loop over `graphs`
+    (static: what make_step depends on besides the consts, hashable; the
+    step sees its index modulo `period`). Each step taken adds one to
+    `solve_cidgik.admm_steps` (the sparse solver's steps too), each read to
+    `solve_cidgik.host_reads`. Returns the carry.
+    """
+    res = torch.full(carry[0].shape[:1], math.inf, dtype=carry[0].dtype,
+                     device=carry[0].device)
+    running = make_step(consts, *static)[1](res)
+    state = {f"x{i}": v for i, v in enumerate(carry)}
+    state.update(res=res, running=running, flag=running.any())
+    loop = compiled.Loop(graphs, "admm", state, consts)
+    k = 0
+    while k < iters:
+        if k:
+            solve_cidgik.host_reads += 1
+            if not loop.read("flag"):
+                break
+        n = min(SYNC_EVERY, iters - k)
+        loop.run(_admm_chunk, make_step, static, tuple(j % period for j in range(k, k + n)))
+        solve_cidgik.admm_steps += n
+        k += n
+    return loop.take(*(f"x{i}" for i in range(len(carry))))
+
+
+def _admm_graphs(graphs, params):
+    """The graphs an ADMM with `params` runs through: none when its cone
+    projection is an eigendecomposition (cone_ns_iters = 0), which
+    synchronises with the host and cannot be captured (as prepare's eigh);
+    that loop runs its pieces eagerly, on a card too."""
+    return graphs if params.cone_ns_iters else None
+
+
+def _admm_params(params):
+    """params without the iteration cap, which no step reads: the rounds of
+    one solve share their loop graphs."""
+    return dataclasses.replace(params, admm_iters=0, admm_iters_rest=None)
 
 
 def _per_lane(v, like):
@@ -442,31 +513,15 @@ def _per_lane(v, like):
     return v.reshape(v.shape + (1,) * (like.ndim - v.ndim))
 
 
-def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params, pad_mask=None):
-    """One linear-cost SDP per instance by two-block ADMM (the vmap engine).
-
-    Batched over the leading dim B: A_eq (B, m_eq, *z), A_in (B, m_in, *z),
-    C, Z0 (B, *z), t0 (B, m_in), U0 = (Uz, ut), where z is (s, s), or
-    (K, ds, ds) for the sparse solver's stacked clique blocks (its cone is
-    their product, with `pad_mask` as in _cone_project). Splitting: P =
-    (Z, t) with the affine set {A_eq(Z) = b, A_in(Z) - t = 0} and the cone
-    PSD x [lo, hi]; the affine projection solves with the Cholesky of the
-    constraint Gram, formed once per call. Each lane stops on its own
-    primal residual. Returns (Z, t, (Uz, ut), feas).
-    """
-    B, m_eq = A_eq.shape[0], A_eq.shape[1]
-    m_in = A_in.shape[1]
-    dt, dev = Z0.dtype, Z0.device
-    zdims = tuple(range(1, Z0.ndim))
-    m = m_eq + m_in
-    A_all = torch.cat([A_eq, A_in], dim=1).reshape(B, m, -1)
+def _vmap_step(consts, params):
+    """The vmap engine's step over its consts (A_all, Gmm, Linv, b_eq, lo,
+    hi, C and, for stacked blocks, pad_mask): (step, running_of)."""
+    A_all, Gmm, Linv, b_eq, C = (consts[k] for k in ("A_all", "Gmm", "Linv", "b_eq", "C"))
+    lo, hi, pad_mask = consts["lo"], consts["hi"], consts.get("pad_mask")
+    B, m_eq = b_eq.shape
+    dt = C.dtype
+    zdims = tuple(range(1, C.ndim))
     A_allT = A_all.transpose(1, 2)
-    eye_m = torch.eye(m, dtype=dt, device=dev)
-    Gmm = A_all @ A_allT
-    Gmm[:, m_eq:, m_eq:] += eye_m[m_eq:, m_eq:]
-    tr = torch.diagonal(Gmm, dim1=-2, dim2=-1).sum(-1)
-    Gmm = Gmm + (1e-9 * tr / m)[:, None, None] * eye_m
-    Linv = spd_inverse_factor(Gmm)
     LinvT = Linv.transpose(1, 2)
 
     def solve_gram(r):
@@ -509,10 +564,41 @@ def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params, pad_mask=No
             ut_new = ut_new * adj[:, None]
         return (Z2, t2, Uz_new, ut_new, rho_new), pri
 
-    state = (Z0, t0, U0[0], U0[1], torch.full((B,), params.rho, dtype=dt, device=dev))
-    res = torch.full((B,), math.inf, dtype=dt, device=dev)
-    Z, t, Uz, ut, _ = _run_admm(step, state, res, params.admm_iters,
-                                lambda r: r > params.admm_tol)
+    return step, lambda r: r > params.admm_tol
+
+
+def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params, pad_mask=None,
+                    graphs=None):
+    """One linear-cost SDP per instance by two-block ADMM (the vmap engine).
+
+    Batched over the leading dim B: A_eq (B, m_eq, *z), A_in (B, m_in, *z),
+    C, Z0 (B, *z), t0 (B, m_in), U0 = (Uz, ut), where z is (s, s), or
+    (K, ds, ds) for the sparse solver's stacked clique blocks (its cone is
+    their product, with `pad_mask` as in _cone_project). Splitting: P =
+    (Z, t) with the affine set {A_eq(Z) = b, A_in(Z) - t = 0} and the cone
+    PSD x [lo, hi]; the affine projection solves with the Cholesky of the
+    constraint Gram, formed once per call. Each lane stops on its own
+    primal residual; the loop runs over `graphs` (_run_admm). Returns (Z,
+    t, (Uz, ut), feas).
+    """
+    B, m_eq = A_eq.shape[0], A_eq.shape[1]
+    m_in = A_in.shape[1]
+    dt, dev = Z0.dtype, Z0.device
+    m = m_eq + m_in
+    A_all = torch.cat([A_eq, A_in], dim=1).reshape(B, m, -1)
+    eye_m = torch.eye(m, dtype=dt, device=dev)
+    Gmm = A_all @ A_all.transpose(1, 2)
+    Gmm[:, m_eq:, m_eq:] += eye_m[m_eq:, m_eq:]
+    tr = torch.diagonal(Gmm, dim1=-2, dim2=-1).sum(-1)
+    Gmm = Gmm + (1e-9 * tr / m)[:, None, None] * eye_m
+    consts = {"A_all": A_all, "Gmm": Gmm, "Linv": spd_inverse_factor(Gmm), "b_eq": b_eq,
+              "lo": lo, "hi": hi, "C": C}
+    if pad_mask is not None:
+        consts["pad_mask"] = pad_mask
+    carry = (Z0, t0, U0[0], U0[1], torch.full((B,), params.rho, dtype=dt, device=dev))
+    Z, t, Uz, ut, _ = _run_admm(_vmap_step, (_admm_params(params),), consts, carry,
+                                params.admm_iters, _admm_graphs(graphs, params),
+                                period=params.adapt_every or 1)
 
     # primal feasibility of the returned cone-feasible iterate
     v = _bmv(A_all, Z.reshape(B, -1))
@@ -651,30 +737,33 @@ def _goal_row_data(op, anchors_pos, As_diag, As_rowvec, same):
     op: the operator (g_d, d2_d, lo_d, hi_d, m_eq_d, m_in_d, Linv_ss, G_ss,
     b_eq_s, lo_s, hi_s); As_diag (m_s, m_d) and As_rowvec (m_s, m_d, d): the
     static rows' coefficients at each goal row's diagonal and row-vector
-    entries; same (m_d, m_d): goal-row pairs that stamp the same entries.
-    anchors_pos: (B, n_anchor, d).
+    entries; same (m_d, m_d): goal-row pairs that stamp the same entries;
+    each a function of op alone, given as a function that builds it.
+    anchors_pos: (B, n_anchor, d). The static data is copied from the host
+    once per operator, dtype and device.
     """
     dt, dev = anchors_pos.dtype, anchors_pos.device
     m_d, m_eq_d = op.m_d, op.m_eq_d
 
-    def const(x):
-        return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+    def const(key, build, dtype=dt):
+        return _dev(op, key, build, dtype, dev)
 
-    a_d = anchors_pos[:, torch.as_tensor(op.g_d, device=dev), :]  # (B, m_d, d)
+    a_d = anchors_pos[:, const("g_d", lambda: op.g_d, torch.long), :]  # (B, m_d, d)
     a2 = (a_d * a_d).sum(-1)
     nrm_d = torch.sqrt(1.0 + 2.0 * a2)
     is_eq = torch.arange(m_d, device=dev) < m_eq_d
-    b_d = torch.where(is_eq, const(op.d2_d) - a2, 0.0) / nrm_d
-    lo_d = (const(op.lo_d[m_eq_d:]) - a2[:, m_eq_d:]) / nrm_d[:, m_eq_d:]
-    hi_d = (const(op.hi_d[m_eq_d:]) - a2[:, m_eq_d:]) / nrm_d[:, m_eq_d:]
+    b_d = torch.where(is_eq, const("d2_d", lambda: op.d2_d) - a2, 0.0) / nrm_d
+    lo_d = (const("lo_d", lambda: op.lo_d[m_eq_d:]) - a2[:, m_eq_d:]) / nrm_d[:, m_eq_d:]
+    hi_d = (const("hi_d", lambda: op.hi_d[m_eq_d:]) - a2[:, m_eq_d:]) / nrm_d[:, m_eq_d:]
 
-    G_sd = (const(As_diag)[None] - 2.0 * torch.einsum("bjk,ijk->bij", a_d, const(As_rowvec))
+    G_sd = (const("As_diag", As_diag)[None]
+            - 2.0 * torch.einsum("bjk,ijk->bij", a_d, const("As_rowvec", As_rowvec))
             ) / nrm_d[:, None, :]  # (B, m_s, m_d)
-    G_dd = const(same) * (1.0 + 2.0 * a_d @ a_d.transpose(1, 2)) / (nrm_d[:, :, None] * nrm_d[:, None, :])
-    slack = np.concatenate([np.zeros(m_eq_d), np.ones(op.m_in_d)])
-    G_dd = G_dd + torch.diag(const(slack))
+    G_dd = const("same", same) * (1.0 + 2.0 * a_d @ a_d.transpose(1, 2)) / (nrm_d[:, :, None] * nrm_d[:, None, :])
+    G_dd = G_dd + torch.diag(const("slack", lambda: np.concatenate([np.zeros(m_eq_d),
+                                                                  np.ones(op.m_in_d)])))
 
-    Linv = const(op.Linv_ss)
+    Linv = const("Linv_ss", lambda: op.Linv_ss)
     W = Linv.T @ (Linv @ G_sd)  # G_ss^-1 G_sd
     S = G_dd - G_sd.transpose(1, 2) @ W
     tr = torch.diagonal(S, dim1=-2, dim2=-1).sum(-1)
@@ -687,9 +776,10 @@ def _goal_row_data(op, anchors_pos, As_diag, As_rowvec, same):
     return {
         "a_d": a_d, "nrm_d": nrm_d, "b_d": b_d, "lo_d": lo_d, "hi_d": hi_d,
         "G_sd": G_sd, "G_dd": G_dd, "Ls_schur": Ls, "Sinv": Sinv, "schur_info": info,
-        "Linv": Linv, "G_ssT": const(op.G_ss.T), "b_eq_s": const(op.b_eq_s),
-        "lo": torch.cat([const(op.lo_s).expand(B, op.m_in_s), lo_d], dim=1),
-        "hi": torch.cat([const(op.hi_s).expand(B, op.m_in_s), hi_d], dim=1),
+        "Linv": Linv, "G_ssT": const("G_ssT", lambda: op.G_ss.T),
+        "b_eq_s": const("b_eq_s", lambda: op.b_eq_s),
+        "lo": torch.cat([const("lo_s", lambda: op.lo_s).expand(B, op.m_in_s), lo_d], dim=1),
+        "hi": torch.cat([const("hi_s", lambda: op.hi_s).expand(B, op.m_in_s), hi_d], dim=1),
     }
 
 
@@ -700,17 +790,24 @@ def _split_aux(op: _SplitOperator, anchors_pos):
 
     anchors_pos: (B, n_anchor, d); the dtype and device of the solve.
     """
+    u_d = np.asarray(op.u_d)
+    aux = _goal_row_data(op, anchors_pos, lambda: op.As_diag[:, u_d],
+                         lambda: op.As_rowvec[:, u_d, :], lambda: u_d[:, None] == u_d[None, :])
+    dt, dev = anchors_pos.dtype, anchors_pos.device
+    aux["A_extT"] = _dev(op, "A_extT", lambda: _split_reads(op)[0].T, dt, dev)
+    aux["A_adj"] = _dev(op, "A_adj", lambda: _split_reads(op)[1], dt, dev)
+    return aux
+
+
+def _split_reads(op: _SplitOperator):
+    """(A_ext, A_adj): the static rows and the dynamic rows' reads of Z
+    (Z[d+u, d+u], Z[d+u, :d]) and writes to dZ (the same entries and their
+    transposes), as 0/1 matrices over the flattened Z, so that apply_A and
+    the adjoint are one product each with the static rows."""
     d = op.As_rowvec.shape[-1]
     s = math.isqrt(op.A_flat.shape[1])
     m_d = op.m_d
     u_d = np.asarray(op.u_d)
-    aux = _goal_row_data(op, anchors_pos, op.As_diag[:, u_d], op.As_rowvec[:, u_d, :],
-                         u_d[:, None] == u_d[None, :])
-
-    # The dynamic rows' reads of Z (Z[d+u, d+u], Z[d+u, :d]) and writes to
-    # dZ (the same entries and their transposes), as 0/1 matrices over the
-    # flattened Z, so that apply_A and the adjoint are one product each with
-    # the static rows.
     k = np.arange(m_d)
     P_diag = np.zeros((m_d, s * s))
     P_diag[k, (d + u_d) * (s + 1)] = 1.0
@@ -720,12 +817,8 @@ def _split_aux(op: _SplitOperator, anchors_pos):
         P_row[k, j, (d + u_d) * s + j] = 1.0
         P_sym[k, j, (d + u_d) * s + j] += 1.0
         P_sym[k, j, j * s + d + u_d] += 1.0
-    A_ext = np.concatenate([op.A_flat, P_diag, P_row.reshape(-1, s * s)])
-    A_adj = np.concatenate([op.A_flat, P_diag, P_sym.reshape(-1, s * s)])
-    dt, dev = anchors_pos.dtype, anchors_pos.device
-    aux["A_extT"] = torch.as_tensor(A_ext.T, dtype=dt, device=dev)
-    aux["A_adj"] = torch.as_tensor(A_adj, dtype=dt, device=dev)
-    return aux
+    return (np.concatenate([op.A_flat, P_diag, P_row.reshape(-1, s * s)]),
+            np.concatenate([op.A_flat, P_diag, P_sym.reshape(-1, s * s)]))
 
 
 def _gram_solver(aux, refine_steps: int):
@@ -772,22 +865,24 @@ def _split_feas(op, v_s, v_d, lo, hi):
     return feas
 
 
-def _solve_sdp_admm_split(op: _SplitOperator, aux, C, Z0, t0, U0, params, d: int):
-    """Batched linear-cost SDP solve over the split operator.
+# the per-solve data a split engine's step reads (_goal_row_data's), and
+# the dense engine's products with the flattened Z
+_SPLIT_CONSTS = ("a_d", "nrm_d", "b_d", "lo", "hi", "b_eq_s", "G_sd", "G_dd", "Sinv", "Linv",
+                 "G_ssT")
+_DENSE_SPLIT_CONSTS = _SPLIT_CONSTS + ("A_extT", "A_adj")
 
-    aux: _split_aux's dict. Z0, C (B, s, s), t0 (B, m_in), U0 = (Uz, ut).
-    The batch stops together once the largest primal residual is at most
-    admm_tol. Returns (Z, t, (Uz, ut), feas), batched.
-    """
-    B, s = Z0.shape[0], Z0.shape[-1]
+
+def _dense_split_ops(consts, op: _SplitOperator, d: int):
+    """(apply_A, affine_project) of the dense split engine over its consts
+    (_DENSE_SPLIT_CONSTS): Z (B, s, s), t (B, m_in)."""
+    B = consts["a_d"].shape[0]
+    s = math.isqrt(consts["A_extT"].shape[0])
     m_s, m_eq_s, m_in_s = op.m_s, op.m_eq_s, op.m_in_s
     m_d, m_eq_d = op.m_d, op.m_eq_d
-    a_d, nrm_d, b_d = aux["a_d"], aux["nrm_d"], aux["b_d"]
-    lo, hi = aux["lo"], aux["hi"]
-    A_extT, A_adj = aux["A_extT"], aux["A_adj"]
-    b_eq_s = aux["b_eq_s"].expand(B, m_eq_s)
-    b_eq_d = b_d[:, :m_eq_d]
-    solve_gram = _gram_solver(aux, params.refine_steps)
+    a_d, nrm_d = consts["a_d"], consts["nrm_d"]
+    A_extT, A_adj = consts["A_extT"], consts["A_adj"]
+    b_eq_s = consts["b_eq_s"].expand(B, m_eq_s)
+    b_eq_d = consts["b_d"][:, :m_eq_d]
 
     def apply_A(Z, t):
         """Residuals r = [A(Z) - b; A_in(Z) - t], ordered [eq_s | in_s] and
@@ -806,31 +901,53 @@ def _solve_sdp_admm_split(op: _SplitOperator, aux, C, Z0, t0, U0, params, d: int
         dZ = (coef @ A_adj).reshape(B, s, s)
         return dZ, torch.cat([y_s[:, m_eq_s:], y_d[:, m_eq_d:]], dim=1)
 
-    def affine_project(Z, t):
+    def affine_project(Z, t, solve_gram):
         y_s, y_d = solve_gram(*apply_A(Z, t))
         dZ, dt_vec = adjoint(y_s, y_d)
         return Z - dZ, t + dt_vec
 
-    alpha, rho = params.relax, params.rho
-    C_rho = C / rho
+    return apply_A, affine_project
+
+
+def _dense_split_step(consts, params, op: _SplitOperator, d: int):
+    """The dense split engine's step over its consts (and C_rho = C / rho):
+    (step, running_of), the batch stopping together."""
+    _, affine_project = _dense_split_ops(consts, op, d)
+    solve_gram = _gram_solver(consts, params.refine_steps)
+    lo, hi, C_rho = consts["lo"], consts["hi"], consts["C_rho"]
+    alpha = params.relax
 
     def step(state, k):
         Z, t, Uz, ut = state
-        Z1, t1 = affine_project(Z - Uz - C_rho, t - ut)
+        Z1, t1 = affine_project(Z - Uz - C_rho, t - ut, solve_gram)
         Zr = alpha * Z1 + (1.0 - alpha) * Z
         tr_ = alpha * t1 + (1.0 - alpha) * t
         Z2, t2 = _cone_project(Zr + Uz, tr_ + ut, lo, hi, params)
         pri = torch.sqrt(((Z1 - Z2) ** 2).sum(dim=(-2, -1)) + ((t1 - t2) ** 2).sum(-1))
         return (Z2, t2, Uz + Zr - Z2, ut + tr_ - t2), pri
 
-    res = torch.full((B,), math.inf, dtype=Z0.dtype, device=Z0.device)
-    Z, t, Uz, ut = _run_admm(step, (Z0, t0, U0[0], U0[1]), res, params.admm_iters,
-                             lambda r: r.amax() > params.admm_tol)
+    return step, lambda r: r.amax() > params.admm_tol
+
+
+def _solve_sdp_admm_split(op: _SplitOperator, aux, C, Z0, t0, U0, params, d: int,
+                          graphs=None):
+    """Batched linear-cost SDP solve over the split operator.
+
+    aux: _split_aux's dict. Z0, C (B, s, s), t0 (B, m_in), U0 = (Uz, ut).
+    The batch stops together once the largest primal residual is at most
+    admm_tol; the loop runs over `graphs` (_run_admm). Returns (Z, t, (Uz,
+    ut), feas), batched.
+    """
+    consts = {k: aux[k] for k in _DENSE_SPLIT_CONSTS}
+    consts["C_rho"] = C / params.rho
+    Z, t, Uz, ut = _run_admm(_dense_split_step, (_admm_params(params), op, d), consts,
+                             (Z0, t0, U0[0], U0[1]), params.admm_iters,
+                             _admm_graphs(graphs, params))
 
     # primal feasibility of the returned cone-feasible iterate: with t = 0,
     # apply_A gives the raw constraint values (b subtracted on eq rows only)
-    v_s, v_d = apply_A(Z, torch.zeros_like(t))
-    return Z, t, (Uz, ut), _split_feas(op, v_s, v_d, lo, hi)
+    v_s, v_d = _dense_split_ops(consts, op, d)[0](Z, torch.zeros_like(t))
+    return Z, t, (Uz, ut), _split_feas(op, v_s, v_d, aux["lo"], aux["hi"])
 
 
 def _fantope(Z, d):
@@ -873,7 +990,7 @@ def realign_floor_solution(ps, points, T_goal):
     y = torch.linalg.cross(z, x, dim=-1)
     R = torch.stack([x, y, z], dim=-1)  # columns: base axes in the world frame
     P = (points - p0[..., None, :]) @ R
-    pos_fixed = torch.as_tensor(ps.pos_fixed, dtype=dt, device=dev)
+    pos_fixed = compiled.device_const(ps, "pos_fixed", ps.pos_fixed, dt, dev)
     P[..., ps.idx_x, :] = pos_fixed[ps.idx_x]
     P[..., ps.idx_y, :] = pos_fixed[ps.idx_y]
     bd = points.shape[:-2]
@@ -937,8 +1054,10 @@ def _convex_iteration(admm, fantope, rounds, Z, C, lo, hi, params: CidgikParams)
     feas = torch.full((B,), math.inf, dtype=dt, device=dev)
     eig_sum = torch.full((B,), math.inf, dtype=dt, device=dev)
     for r, round_params in enumerate(rounds):
-        if r and bool(done.all()):  # every lane is frozen: the rest change nothing
-            break
+        if r:
+            solve_cidgik.host_reads += 1
+            if bool(done.all()):  # every lane is frozen: the rest change nothing
+                break
         Z_new, t_new, U_new, feas_new = admm(C, Z, t, U, round_params)
         C_new, eig_new = fantope(Z_new)
         cost = (C * Z_new).sum(dim=zdims)
@@ -1015,7 +1134,8 @@ def solve_nearest_point_sdp(comp: CidgikCompiled, anchors_pos, targets,
     t = _bmv(A_in.reshape(B, m_in, s * s), Z.reshape(B, s * s))
     t = torch.clamp(t, min=lo, max=hi)
     U = (torch.zeros_like(Z), torch.zeros_like(t))
-    Z, _, _, feas = _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z, t, U, params)
+    Z, _, _, feas = _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z, t, U, params,
+                                    graphs=_graphs(comp))
     Z = Z.reshape(batch + (s, s))
     return {"points": Z[..., d:, :d], "Z": Z, "feas": feas.reshape(batch)}
 
@@ -1034,11 +1154,14 @@ def solve_cidgik(comp: CidgikCompiled, T_goal, params: CidgikParams = CidgikPara
     it is the solved base pose on the floor and q is extracted in that base
     frame, so the world pose of q's FK is T_base @ fk(q).
 
-    engine: "split" (default) or "vmap" (the per-instance oracle).
+    engine: "split" (default) or "vmap" (the per-instance oracle). On a
+    card each ADMM runs through the template's loop graphs (_run_admm).
 
     `solve_cidgik.admm_steps` counts the ADMM iterations that every solve
     of this module has run (a stopped lane or batch still counts until the
-    host reads its flag); set it to 0 to start a count.
+    host reads its flag), `solve_cidgik.host_reads` the reads of the host
+    (the ADMM's stop flag, and the convex iteration's once a round); set
+    them to 0 to start a count.
     """
     if engine not in ("split", "vmap"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -1049,7 +1172,9 @@ def solve_cidgik(comp: CidgikCompiled, T_goal, params: CidgikParams = CidgikPara
     d, s = comp.d, comp.s
     batch = pos_all.shape[:-2]
     B = math.prod(batch)
-    anc = pos_all[..., torch.as_tensor(comp.anchor_idx, device=dev), :].reshape(B, -1, d)
+    anc = pos_all[..., _dev(comp, "anchor_idx", lambda: comp.anchor_idx, torch.long, dev), :]
+    anc = anc.reshape(B, -1, d)
+    graphs = _graphs(comp)
 
     Z = torch.zeros((B, s, s), dtype=dt, device=dev)
     Z[:, :d, :d] = torch.eye(d, dtype=dt, device=dev)
@@ -1061,18 +1186,19 @@ def solve_cidgik(comp: CidgikCompiled, T_goal, params: CidgikParams = CidgikPara
         lo, hi = aux["lo"], aux["hi"]
 
         def admm(C, Z, t, U, round_params):
-            return _solve_sdp_admm_split(op, aux, C, Z, t, U, round_params, d)
+            return _solve_sdp_admm_split(op, aux, C, Z, t, U, round_params, d, graphs)
     else:
         A_eq, b_eq, A_in, lo, hi = _constraint_matrices(comp, anc)
 
         def admm(C, Z, t, U, round_params):
-            return _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z, t, U, round_params)
+            return _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z, t, U, round_params,
+                                   graphs=graphs)
 
     Z, feas, eig_sum = _convex_iteration(admm, lambda Z: _fantope(Z, d),
                                          _rounds(params, engine), Z, C, lo, hi, params)
 
     points = pos_all.reshape(B, ps.N, d).clone()
-    points[:, torch.as_tensor(comp.free_idx, device=dev), :] = Z[:, d:, :d]
+    points[:, _dev(comp, "free_idx", lambda: comp.free_idx, torch.long, dev), :] = Z[:, d:, :d]
     status = torch.where(feas <= params.feas_tol, FEASIBLE, INFEASIBLE)
     points = points.reshape(batch + (ps.N, d))
     q, T_base = _extract_joints(ps, comp, points, T_goal)
@@ -1087,3 +1213,4 @@ def solve_cidgik(comp: CidgikCompiled, T_goal, params: CidgikParams = CidgikPara
 
 
 solve_cidgik.admm_steps = 0
+solve_cidgik.host_reads = 0

@@ -49,10 +49,14 @@ from graphik_tpu_torch.solvers.cidgik import (
     CidgikParams,
     _bmv,
     _cone_project,
+    _admm_graphs,
+    _admm_params,
     _convex_iteration,
+    _dev,
     _extract_joints,
     _goal_anchors,
     _goal_row_data,
+    _graphs,
     _gram_solver,
     _on_device,
     _rounds,
@@ -318,9 +322,13 @@ def _anchored_stamps(comp: CidgikSparseCompiled, cl, row, anc, anchors_pos):
     A = torch.zeros(batch + (m, K, ds, ds), dtype=dt, device=dev)
     if m == 0:
         return A, torch.zeros(batch + (0,), dtype=dt, device=dev)
-    r = torch.as_tensor(np.asarray(row) + d, device=dev)
-    k = torch.as_tensor(np.asarray(cl), device=dev)
-    a_pos = anchors_pos[..., torch.as_tensor(np.asarray(anc), device=dev), :]  # (..., m, d)
+    def idx(name, x):
+        x = np.asarray(x, np.int64)
+        return _dev(comp, (name, x.tobytes()), lambda: x, torch.long, dev)
+
+    r = idx("stamp_rows", np.asarray(row) + d)
+    k = idx("stamp_cliques", cl)
+    a_pos = anchors_pos[..., idx("stamp_anchors", anc), :]  # (..., m, d)
     mi = torch.arange(m, device=dev)
     j = torch.arange(d, device=dev)
     A[..., mi, k, r, r] = 1.0
@@ -336,18 +344,18 @@ def _constraint_tensors(comp: CidgikSparseCompiled, anchors_pos):
     batch = anchors_pos.shape[:-2]
     dt, dev = anchors_pos.dtype, anchors_pos.device
 
-    def const(x):
-        x = torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+    def const(name):
+        x = _dev(comp, name, lambda: getattr(comp, name), dt, dev)
         return x.expand(batch + x.shape)
 
     A_fa, a2 = _anchored_stamps(comp, comp.fa_clique, comp.fa_row, comp.fa_anchor, anchors_pos)
-    A_eq = torch.cat([const(comp.A_eq_static), A_fa], dim=-4)
-    b_eq = torch.cat([const(comp.b_eq_static), const(comp.fa_d2) - a2], dim=-1)
+    A_eq = torch.cat([const("A_eq_static"), A_fa], dim=-4)
+    b_eq = torch.cat([const("b_eq_static"), const("fa_d2") - a2], dim=-1)
     A_ina, a2i = _anchored_stamps(comp, comp.ina_clique, comp.ina_row, comp.ina_anchor,
                                   anchors_pos)
-    A_in = torch.cat([const(comp.A_in_static), A_ina], dim=-4)
-    lo = torch.cat([const(comp.in_lo), const(comp.ina_lo) - a2i], dim=-1)
-    hi = torch.cat([const(comp.in_hi), const(comp.ina_hi) - a2i], dim=-1)
+    A_in = torch.cat([const("A_in_static"), A_ina], dim=-4)
+    lo = torch.cat([const("in_lo"), const("ina_lo") - a2i], dim=-1)
+    hi = torch.cat([const("in_hi"), const("ina_hi") - a2i], dim=-1)
 
     def rownorm(A):
         return torch.sqrt(torch.clamp((A * A).sum(dim=(-3, -2, -1)), min=1e-12))
@@ -360,16 +368,18 @@ def _constraint_tensors(comp: CidgikSparseCompiled, anchors_pos):
     return A_eq, b_eq, A_in, lo, hi
 
 
-def _solve_sdp_admm_blocks(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params, pad_mask=None):
+def _solve_sdp_admm_blocks(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params, pad_mask=None,
+                           graphs=None):
     """The per-lane engine over the product of the clique cones: the dense
     vmap engine (cidgik._solve_sdp_admm) on stacked blocks, batched over
     lanes (A_eq (B, m_eq, K, ds, ds), Z0 (B, K, ds, ds), ...), each lane
     stopping on its own residual. pad_mask (K, ds, ds) zeroes the padded
     rows and columns before and after each cone projection. The JAX
     package's sparse engine has no rho adaptation, so adapt_every is
-    ignored. Returns (Z, t, (Uz, ut), feas)."""
+    ignored. The loop runs over `graphs`. Returns (Z, t, (Uz, ut), feas)."""
     params = dataclasses.replace(params, adapt_every=0)
-    return _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params, pad_mask=pad_mask)
+    return _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params, pad_mask=pad_mask,
+                           graphs=graphs)
 
 
 def _fantope_blocks(Z, d, member):
@@ -552,14 +562,15 @@ def _sparse_split_aux(op: _SparseSplitOperator, anchors_pos):
 
     anchors_pos: (B, n_anchor, d); the dtype and device of the solve.
     """
-    same = (op.k_d[:, None] == op.k_d[None, :]) & (op.r_d[:, None] == op.r_d[None, :])
-    aux = _goal_row_data(op, anchors_pos, op.As_diag, op.As_rowvec, same)
+    aux = _goal_row_data(op, anchors_pos, lambda: op.As_diag, lambda: op.As_rowvec,
+                         lambda: ((op.k_d[:, None] == op.k_d[None, :])
+                                  & (op.r_d[:, None] == op.r_d[None, :])))
     dt, dev = anchors_pos.dtype, anchors_pos.device
     B, m_d = anchors_pos.shape[0], op.m_d
     d = op.As_rowvec.shape[-1]
     K, ds = op.K_ds
-    k_d = torch.as_tensor(op.k_d, device=dev)
-    r = torch.as_tensor(op.r_d + d, device=dev)
+    k_d = _dev(op, "k_d", lambda: op.k_d, torch.long, dev)
+    r = _dev(op, "r_d", lambda: op.r_d + d, torch.long, dev)
     mi = torch.arange(m_d, device=dev)
     j = torch.arange(d, device=dev)
     a_d = aux["a_d"]
@@ -568,27 +579,23 @@ def _sparse_split_aux(op: _SparseSplitOperator, anchors_pos):
     D[:, mi[:, None], k_d[:, None], r[:, None], j[None, :]] = -a_d
     D[:, mi[:, None], k_d[:, None], j[None, :], r[:, None]] = -a_d
     aux["D_flat"] = (D / aux["nrm_d"][:, :, None, None, None]).reshape(B, m_d, K * ds * ds)
-    aux["A_flat"] = torch.as_tensor(op.A_flat, dtype=dt, device=dev)
+    aux["A_flat"] = _dev(op, "A_flat", lambda: op.A_flat, dt, dev)
     return aux
 
 
-def _solve_sdp_admm_sparse_split(op: _SparseSplitOperator, aux, C, Z0, t0, U0, params,
-                                 pad_mask):
-    """Batched linear-cost SDP solve over the split sparse operator.
+_SPARSE_SPLIT_CONSTS = ("a_d", "nrm_d", "b_d", "lo", "hi", "b_eq_s", "G_sd", "G_dd", "Sinv",
+                        "Linv", "G_ssT", "A_flat", "D_flat")
 
-    aux: _sparse_split_aux's dict. Z0, C (B, K, ds, ds), t0 (B, m_in),
-    U0 = (Uz, ut), pad_mask (K, ds, ds). The batch stops together once its
-    largest primal residual is at most admm_tol. Returns (Z, t, (Uz, ut),
-    feas), batched.
-    """
-    B = Z0.shape[0]
+
+def _sparse_split_ops(consts, op: _SparseSplitOperator):
+    """(apply_A, affine_project) of the sparse split engine over its consts
+    (_SPARSE_SPLIT_CONSTS): the flattened Z (B, K*ds*ds), t (B, m_in)."""
+    B = consts["a_d"].shape[0]
     m_eq_s, m_in_s, m_eq_d = op.m_eq_s, op.m_in_s, op.m_eq_d
-    lo, hi = aux["lo"], aux["hi"]
-    A_flat, D_flat = aux["A_flat"], aux["D_flat"]
+    A_flat, D_flat = consts["A_flat"], consts["D_flat"]
     A_flatT = A_flat.T
-    b_eq_s = aux["b_eq_s"].expand(B, m_eq_s)
-    b_eq_d = aux["b_d"][:, :m_eq_d]
-    solve_gram = _gram_solver(aux, params.refine_steps)
+    b_eq_s = consts["b_eq_s"].expand(B, m_eq_s)
+    b_eq_d = consts["b_d"][:, :m_eq_d]
 
     def apply_A(Zf, t):
         """Residuals r = [A(Z) - b; A_in(Z) - t] of the flattened Z, ordered
@@ -598,18 +605,27 @@ def _solve_sdp_admm_sparse_split(op: _SparseSplitOperator, aux, C, Z0, t0, U0, p
         r_d = _bmv(D_flat, Zf) - torch.cat([b_eq_d, t[:, m_in_s:]], dim=1)
         return r_s, r_d
 
-    def affine_project(Zf, t):
+    def affine_project(Zf, t, solve_gram):
         y_s, y_d = solve_gram(*apply_A(Zf, t))
         dZ = y_s @ A_flat + (y_d[:, None, :] @ D_flat)[:, 0]
         return Zf - dZ, t + torch.cat([y_s[:, m_eq_s:], y_d[:, m_eq_d:]], dim=1)
 
-    alpha, rho = params.relax, params.rho
-    shape = Z0.shape
-    Cf_rho = C.reshape(B, -1) / rho
+    return apply_A, affine_project
+
+
+def _sparse_split_step(consts, params, op: _SparseSplitOperator, shape):
+    """The sparse split engine's step over its consts (and Cf_rho, the
+    flattened C / rho, and pad_mask): (step, running_of), the batch
+    stopping together; shape: the stacked blocks' (B, K, ds, ds)."""
+    _, affine_project = _sparse_split_ops(consts, op)
+    solve_gram = _gram_solver(consts, params.refine_steps)
+    lo, hi, Cf_rho, pad_mask = consts["lo"], consts["hi"], consts["Cf_rho"], consts["pad_mask"]
+    B = shape[0]
+    alpha = params.relax
 
     def step(state, k):
         Zf, t, Uz, ut = state
-        Z1, t1 = affine_project(Zf - Uz - Cf_rho, t - ut)
+        Z1, t1 = affine_project(Zf - Uz - Cf_rho, t - ut, solve_gram)
         Zr = alpha * Z1 + (1.0 - alpha) * Zf
         tr_ = alpha * t1 + (1.0 - alpha) * t
         W2, t2 = _cone_project((Zr + Uz).reshape(shape), tr_ + ut, lo, hi, params, pad_mask)
@@ -617,14 +633,31 @@ def _solve_sdp_admm_sparse_split(op: _SparseSplitOperator, aux, C, Z0, t0, U0, p
         pri = torch.sqrt(((Z1 - Z2) ** 2).sum(-1) + ((t1 - t2) ** 2).sum(-1))
         return (Z2, t2, Uz + Zr - Z2, ut + tr_ - t2), pri
 
-    res = torch.full((B,), math.inf, dtype=Z0.dtype, device=Z0.device)
-    Zf, t, Uz, ut = _run_admm(step, (Z0.reshape(B, -1), t0, U0[0].reshape(B, -1), U0[1]), res,
-                              params.admm_iters, lambda r: r.amax() > params.admm_tol)
+    return step, lambda r: r.amax() > params.admm_tol
+
+
+def _solve_sdp_admm_sparse_split(op: _SparseSplitOperator, aux, C, Z0, t0, U0, params,
+                                 pad_mask, graphs=None):
+    """Batched linear-cost SDP solve over the split sparse operator.
+
+    aux: _sparse_split_aux's dict. Z0, C (B, K, ds, ds), t0 (B, m_in),
+    U0 = (Uz, ut), pad_mask (K, ds, ds). The batch stops together once its
+    largest primal residual is at most admm_tol; the loop runs over
+    `graphs` (cidgik._run_admm). Returns (Z, t, (Uz, ut), feas), batched.
+    """
+    B = Z0.shape[0]
+    shape = tuple(Z0.shape)
+    consts = {k: aux[k] for k in _SPARSE_SPLIT_CONSTS}
+    consts.update(Cf_rho=C.reshape(B, -1) / params.rho, pad_mask=pad_mask)
+    Zf, t, Uz, ut = _run_admm(_sparse_split_step, (_admm_params(params), op, shape), consts,
+                              (Z0.reshape(B, -1), t0, U0[0].reshape(B, -1), U0[1]),
+                              params.admm_iters, _admm_graphs(graphs, params))
 
     # primal feasibility of the returned cone-feasible iterate: with t = 0,
     # apply_A gives the raw constraint values (b subtracted on eq rows only)
-    v_s, v_d = apply_A(Zf, torch.zeros_like(t))
-    return Zf.reshape(shape), t, (Uz.reshape(shape), ut), _split_feas(op, v_s, v_d, lo, hi)
+    v_s, v_d = _sparse_split_ops(consts, op)[0](Zf, torch.zeros_like(t))
+    return (Zf.reshape(shape), t, (Uz.reshape(shape), ut),
+            _split_feas(op, v_s, v_d, aux["lo"], aux["hi"]))
 
 
 # ---------------------------------------------------------------------------
@@ -660,15 +693,17 @@ def solve_cidgik_sparse(comp: CidgikSparseCompiled, T_goal,
     d, K, ds = comp.d, comp.K, comp.ds
     batch = pos_all.shape[:-2]
     B = math.prod(batch)
-    anc = pos_all[..., torch.as_tensor(comp.anchor_idx, device=dev), :].reshape(B, -1, d)
+    anc = pos_all[..., _dev(comp, "anchor_idx", lambda: comp.anchor_idx, torch.long, dev), :]
+    anc = anc.reshape(B, -1, d)
+    graphs = _graphs(comp)
 
     valid = _valid_slots(comp.member, d)
-    pad_mask = torch.as_tensor(valid[:, :, None] * valid[:, None, :], dtype=dt, device=dev)
+    pad_mask = _dev(comp, "pad_mask", lambda: valid[:, :, None] * valid[:, None, :], dt, dev)
     Z = torch.zeros((B, K, ds, ds), dtype=dt, device=dev)
     Z[:, :, :d, :d] = torch.eye(d, dtype=dt, device=dev)
     # the initial rank-forcing cost: the identity on the valid slots only, so
     # that no dual charge builds up against padded coordinates
-    C = torch.diag_embed(torch.as_tensor(valid, dtype=dt, device=dev)).expand(B, K, ds, ds)
+    C = torch.diag_embed(_dev(comp, "valid_slots", lambda: valid, dt, dev)).expand(B, K, ds, ds)
 
     if engine == "split":
         op = _build_sparse_split_operator(comp)
@@ -676,13 +711,14 @@ def solve_cidgik_sparse(comp: CidgikSparseCompiled, T_goal,
         lo, hi = aux["lo"], aux["hi"]
 
         def admm(C, Z, t, U, round_params):
-            return _solve_sdp_admm_sparse_split(op, aux, C, Z, t, U, round_params, pad_mask)
+            return _solve_sdp_admm_sparse_split(op, aux, C, Z, t, U, round_params, pad_mask,
+                                                graphs)
     else:
         A_eq, b_eq, A_in, lo, hi = _constraint_tensors(comp, anc)
 
         def admm(C, Z, t, U, round_params):
             return _solve_sdp_admm_blocks(A_eq, b_eq, A_in, lo, hi, C, Z, t, U, round_params,
-                                          pad_mask=pad_mask)
+                                          pad_mask=pad_mask, graphs=graphs)
 
     Z, feas, eig_sum = _convex_iteration(admm, lambda Z: _fantope_blocks(Z, d, comp.member),
                                          _rounds(params, engine), Z, C, lo, hi, params)
@@ -692,9 +728,9 @@ def solve_cidgik_sparse(comp: CidgikSparseCompiled, T_goal,
     for k, c in enumerate(comp.cliques):
         X[:, c] += Z[:, k, d:d + len(c), :d]
     count = np.bincount(np.concatenate(comp.cliques), minlength=comp.n_free)
-    X = X / torch.as_tensor(count, dtype=dt, device=dev)[:, None]
+    X = X / _dev(comp, "clique_count", lambda: count, dt, dev)[:, None]
     points = pos_all.reshape(B, ps.N, d).clone()
-    points[:, torch.as_tensor(comp.free_idx, device=dev), :] = X
+    points[:, _dev(comp, "free_idx", lambda: comp.free_idx, torch.long, dev), :] = X
     status = torch.where(feas <= params.feas_tol, FEASIBLE, INFEASIBLE)
     points = points.reshape(batch + (ps.N, d))
     q, T_base = _extract_joints(ps, comp, points, T_goal)

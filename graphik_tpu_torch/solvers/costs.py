@@ -72,8 +72,12 @@ def _anchor_residuals(Y, anchors):
 
 
 def _anchor_scatter(Y, idx, vals):
-    """Scatter-add (..., A, d) rows back to (..., N, d) at idx."""
-    return torch.zeros_like(Y).index_add_(-2, _idx(idx, Y), vals)
+    """Scatter-add (..., A, d) rows back to (..., N, d) at idx, as the
+    product with the (A, N) one-hot of idx: the same order of summation at
+    every call (index_add_ on a card adds in the order its atomics land)."""
+    idx = _idx(idx, Y)
+    onehot = (idx[:, None] == torch.arange(Y.shape[-2], device=Y.device)).to(Y.dtype)
+    return onehot.transpose(0, 1) @ vals
 
 
 def cost(Y, D_goal, omega, psi_L, psi_U, L_mask, U_mask, anchors=None):

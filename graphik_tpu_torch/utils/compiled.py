@@ -27,16 +27,31 @@ graph records how many launches of each counter it holds, the capture's
 own count is taken back (a capture launches nothing), and every replay
 adds the graph's count.
 
+The JAX package also runs every solver loop as a `lax.while_loop` or
+`lax.scan`: one device program, whether its caller jits it or not. The
+port's counterpart is `Loop`: a loop's carried state lives in buffers on
+the device, and the loop advances it by pieces - a fixed number of steps
+in which a finished lane keeps its state through `torch.where`, so the
+result does not depend on how the steps are cut into pieces - each piece
+captured once into a CUDA graph that reads and writes those buffers in
+place, and replayed. Between pieces the host reads the flags the loop
+decides on, as many times as the eager loop reads them; what goes away is
+the launches in between. CPU tensors, a loop without graphs, and loops
+inside `eager_loops()` run the same pieces eagerly.
+
 `device_const` (and `cached`, for tables built from several arrays) makes
 a host constant - a numpy array of a structure, a template or an edge
 problem - on a device once and hands the same tensor to every later call:
 a copy from pageable host memory cannot be captured, and a stage that
 reads its constants from this cache copies nothing from the host once it
-has run.
+has run. A graph reads those tensors, so the `StageGraphs` that captures
+it keeps each owner whose constants the capture read alive for as long as
+it keeps the graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import traceback
 import weakref
@@ -50,11 +65,18 @@ _TORCH = os.path.dirname(os.path.abspath(torch.__file__))
 _CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
+# the owners whose cached values the capture in progress has read (a stack:
+# one set a capture)
+_READ_BY_CAPTURE: list = []
+
+
 def cached(owner, key, build):
     """build(), made on the first call for (owner, key) and the same
     object on every later one. `key` names the value within its owner: an
     owner's data never changes, so one key always means one value. The
     value must not refer to its owner, or the entry would keep it alive."""
+    if _READ_BY_CAPTURE:
+        _READ_BY_CAPTURE[-1].add(owner)
     per_owner = _CACHE.get(owner)
     if per_owner is None:
         per_owner = _CACHE[owner] = {}
@@ -134,11 +156,15 @@ def _calling_line(err):
 
 
 class _Graph:
-    """One captured stage: its graph, static inputs and outputs, and the
-    launches of each counter it holds."""
+    """One captured stage or loop piece: its graph, static inputs and
+    outputs, and the launches of each counter it holds."""
 
     def __init__(self, graph, inputs, outputs, launches):
         self.graph, self.inputs, self.outputs, self.launches = graph, inputs, outputs, launches
+
+    def replay(self):
+        self.graph.replay()
+        _add_counters(self.launches)
 
 
 class StageGraphs:
@@ -146,11 +172,14 @@ class StageGraphs:
     device): `run(name, fn, *args)` is fn(*args), through a CUDA graph on a
     card. The args are tensors or dicts of tensors on one device; fn
     returns a dict of tensors and reads nothing else that changes between
-    calls."""
+    calls. It also holds the buffers and graphs of the `Loop`s run with
+    it, and every owner of a cached constant that its graphs read."""
 
     def __init__(self):
         self.graphs = {}
+        self.loops = {}  # (name, device, state and constant signature) -> _LoopBuffers
         self.pools = {}  # device -> the memory pool its graphs share
+        self.owners = set()  # owners of the cached constants its graphs read
         self._streams = {}  # device -> the side stream of warm-ups and captures
 
     def run(self, name, fn, *args):
@@ -158,21 +187,37 @@ class StageGraphs:
         dev = leaves[0].device
         if dev.type != "cuda":
             return fn(*args)
-        key = (name, dev, layout, tuple((tuple(t.shape), t.dtype) for t in leaves))
+        key = (name, dev, layout, _signature(leaves))
         with torch.cuda.device(dev):
             g = self.graphs.get(key)
             if g is None:
-                self.graphs[key], out = self._capture(name, fn, leaves, layout, dev)
-                return out
+                inputs = [t.clone() for t in leaves]
+                stage_args = _unflatten(inputs, layout)
+                g, warm = self._capture(name, dev, lambda: fn(*stage_args))
+                g.inputs = inputs
+                self.graphs[key] = g
+                return {k: v.clone() for k, v in warm.items()}
             for buf, t in zip(g.inputs, leaves):
                 buf.copy_(t)
-            g.graph.replay()
-            _add_counters(g.launches)
+            g.replay()
             return {k: v.clone() for k, v in g.outputs.items()}
 
-    def _capture(self, name, fn, leaves, layout, dev):
-        """Warm-up and capture of fn on a copy of the inputs -> (the graph,
-        clones of the warm-up's outputs)."""
+    def release(self):
+        """Drop every graph, loop buffer and held owner, and give the
+        graphs' memory pools back to the card (torch.cuda.empty_cache: a
+        pool's memory returns only once no graph uses it)."""
+        had_pools = bool(self.pools)
+        for g in list(self.graphs.values()) + [p for b in self.loops.values()
+                                                 for p in b.pieces.values()]:
+            g.graph.reset()
+        self.graphs, self.loops, self.pools, self.owners, self._streams = {}, {}, {}, set(), {}
+        if had_pools:
+            torch.cuda.empty_cache()
+
+    def _capture(self, name, dev, fn):
+        """Warm-up and capture of fn() (a dict of tensors) -> (the graph,
+        the warm-up's outputs). The warm-up runs fn once eagerly on a side
+        stream: its launches are real and stay counted."""
         current = torch.cuda.current_stream(dev)
         side = self._streams.get(dev)
         if side is None:
@@ -180,22 +225,22 @@ class StageGraphs:
         pool = self.pools.get(dev)
         if pool is None:
             pool = self.pools[dev] = torch.cuda.graph_pool_handle()
-        inputs = [t.clone() for t in leaves]
-        args = _unflatten(inputs, layout)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            warm = fn(*args)  # the warm-up: its launches are real and stay counted
+            warm = fn()
         torch.cuda.synchronize(dev)
         before = _read_counters()
         graph = torch.cuda.CUDAGraph()
         failure = None
+        _READ_BY_CAPTURE.append(set())
         with torch.cuda.stream(side):
             graph.capture_begin(pool=pool)
             try:
-                outputs = fn(*args)
+                outputs = fn()
             except Exception as err:
                 failure = err
             finally:
+                self.owners |= _READ_BY_CAPTURE.pop()
                 captured = [a - b for a, b in zip(_read_counters(), before)]
                 _add_counters([-n for n in captured])
                 try:
@@ -207,7 +252,132 @@ class StageGraphs:
             # the pool's next capture would refuse it: the next capture takes
             # a new pool and stream
             del self.pools[dev], self._streams[dev]
-            raise CaptureError(f"capturing stage {name!r} into a CUDA graph failed at "
+            raise CaptureError(f"capturing {name!r} into a CUDA graph failed at "
                                f"{_calling_line(failure)}: {failure}") from failure
         current.wait_stream(side)
-        return _Graph(graph, inputs, outputs, captured), {k: v.clone() for k, v in warm.items()}
+        return _Graph(graph, None, outputs, captured), warm
+
+
+def _signature(tensors):
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+# loops made while this is set run eagerly on a card too (eager_loops)
+_EAGER_LOOPS = [False]
+
+
+@contextlib.contextmanager
+def eager_loops():
+    """Within this block every `Loop` runs its pieces eagerly, on a card
+    too: the form a loop's graphs are held against."""
+    before = _EAGER_LOOPS[0]
+    _EAGER_LOOPS[0] = True
+    try:
+        yield
+    finally:
+        _EAGER_LOOPS[0] = before
+
+
+class _LoopBuffers:
+    """A loop's state and constant buffers on its device, and the graphs of
+    its pieces, keyed by (piece, static arguments)."""
+
+    def __init__(self, state, consts):
+        self.state = {k: v.clone() for k, v in state.items()}
+        self.consts = {k: v.clone() for k, v in consts.items()}
+        self.pieces = {}
+
+
+class Loop:
+    """A device loop's carried state, advanced by pieces, as a
+    `lax.while_loop` carries its state through its body.
+
+    state, consts: dicts of tensors on one device - what the loop carries,
+    and what its pieces read and never write. `run(piece, *static)` is
+    state.update(piece(state, consts, *static)): a piece returns new values
+    for some of the state's keys, with the same shapes and dtypes. `static`
+    holds every Python value the piece depends on (counts, parameters,
+    flags of the step indices), hashable; the piece is a module-level
+    function. The host reads the loop's flags with `read`, and takes its
+    results with `take`.
+
+    With `graphs` (a StageGraphs) on a card, the state and constants live
+    in buffers that `graphs` keeps per (name, shapes and dtypes): making a
+    Loop copies the values in, each (piece, static) is captured on its
+    first run - run once eagerly on the buffers (the warm-up, whose results
+    that run keeps), then captured - and replayed in place after; a capture
+    that fails raises CaptureError. Otherwise (CPU tensors, no graphs, or
+    inside `eager_loops()`) each piece runs eagerly.
+    """
+
+    def __init__(self, graphs, name, state, consts=None):
+        consts = {} if consts is None else consts
+        dev = next(iter(state.values())).device
+        if graphs is None or dev.type != "cuda" or _EAGER_LOOPS[0]:
+            self._graphs, self.state, self.consts = None, dict(state), dict(consts)
+            return
+        self._graphs, self._dev, self._name = graphs, dev, name
+        key = (name, dev, tuple(state), _signature(state.values()), tuple(consts),
+               _signature(consts.values()))
+        bufs = graphs.loops.get(key)
+        if bufs is None:
+            bufs = graphs.loops[key] = _LoopBuffers(state, consts)
+        else:
+            for group, new in ((bufs.state, state), (bufs.consts, consts)):
+                for k, v in new.items():
+                    group[k].copy_(v)
+        self._bufs, self.state, self.consts = bufs, bufs.state, bufs.consts
+
+    def run(self, piece, *static):
+        if self._graphs is None:
+            self.state.update(_checked(self.state, piece(self.state, self.consts, *static)))
+            return
+        key = (piece, static)
+        g = self._bufs.pieces.get(key)
+        if g is not None:
+            with torch.cuda.device(self._dev):
+                g.replay()
+            return
+        state, consts = self.state, self.consts
+
+        def fn():
+            out = _unaliased(state, _checked(state, piece(state, consts, *static)))
+            for k, v in out.items():
+                if v is not state[k]:
+                    state[k].copy_(v)
+            return {}
+
+        with torch.cuda.device(self._dev):
+            self._bufs.pieces[key], _ = self._graphs._capture(
+                f"{self._name}: {piece.__name__}{static}", self._dev, fn)
+
+    def read(self, key):
+        """The state's `key` on the host (a Python number or list): one
+        read, which waits for the device."""
+        return self.state[key].tolist()
+
+    def take(self, *keys):
+        """The state's values of `keys` (a tuple), copies when they live in
+        the loop's buffers, which the next run of the loop overwrites."""
+        if self._graphs is None:
+            return tuple(self.state[k] for k in keys)
+        return tuple(self.state[k].clone() for k in keys)
+
+
+def _checked(state, out):
+    for k, v in out.items():
+        old = state.get(k)
+        if old is None or v.shape != old.shape or v.dtype != old.dtype:
+            raise ValueError(f"a loop piece returned {k!r} as {tuple(v.shape)} {v.dtype}, "
+                             f"not as the state's "
+                             f"{None if old is None else (tuple(old.shape), old.dtype)}")
+    return out
+
+
+def _unaliased(state, out):
+    """out, with a copy of each value (other than a buffer itself) that
+    shares memory with a buffer: copying the values into the buffers one
+    after another would otherwise read one that was already overwritten."""
+    ptrs = {v.untyped_storage().data_ptr() for v in state.values()}
+    return {k: v.clone() if v is not state[k] and v.untyped_storage().data_ptr() in ptrs else v
+            for k, v in out.items()}

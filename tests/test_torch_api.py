@@ -125,8 +125,10 @@ def test_make_solver_end_to_end_f32():
 
 def test_random_goals_reproducible():
     _, tps = tlib.load_ur10()
-    T1, q1 = tapi.random_goals(tps, (5,), torch.Generator().manual_seed(3), device="cpu")
-    T2, q2 = tapi.random_goals(tps, (5,), torch.Generator().manual_seed(3), device="cpu")
+    T1, q1 = tapi.random_goals(tps, (5,), torch.Generator().manual_seed(3),
+                               dtype=torch.float64, device="cpu")
+    T2, q2 = tapi.random_goals(tps, (5,), torch.Generator().manual_seed(3),
+                               dtype=torch.float64, device="cpu")
     assert T1.shape == (5, 1, 4, 4) and q1.shape == (5, 6)
     assert torch.equal(T1, T2) and torch.equal(q1, q2)
 
@@ -143,7 +145,8 @@ def test_entry_points_default_to_the_card():
     _, tps = tlib.load_ur10()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tapi.random_goals(tps, (2,))
-    T_goal = tapi.random_goals(tps, (2,), torch.Generator().manual_seed(4), device="cpu")[0]
+    T_goal = tapi.random_goals(tps, (2,), torch.Generator().manual_seed(4),
+                              dtype=torch.float64, device="cpu")[0]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tapi.make_solver(tps, **SHORT)(T_goal.numpy())
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -154,7 +157,8 @@ def test_cpu_when_asked():
     """device="cpu" gives the draw the generator makes, and numpy goals on
     the CPU solve as CPU tensors do."""
     _, tps = tlib.load_ur10()
-    T_goal, q = tapi.random_goals(tps, (3,), torch.Generator().manual_seed(5), device="cpu")
+    T_goal, q = tapi.random_goals(tps, (3,), torch.Generator().manual_seed(5),
+                                 dtype=torch.float64, device="cpu")
     u = torch.rand((3, 6), generator=torch.Generator().manual_seed(5), dtype=torch.float64)
     lb, ub = torch.from_numpy(tps.template.lb[1:]), torch.from_numpy(tps.template.ub[1:])
     assert q.device.type == "cpu" and torch.equal(q, lb + u * (ub - lb))

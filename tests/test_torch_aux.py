@@ -326,7 +326,7 @@ def test_distance_bounds_from_sampling():
     assert (t.omega_struct >= tps.omega_struct).all()
     close(t.D_struct[tps.omega_struct], tps.D_struct[tps.omega_struct], atol=1e-9)
     q = tkin.random_configuration(tps.template, (2000,), torch.Generator().manual_seed(1),
-                                  device="cpu")
+                                  dtype=torch.float64, device="cpu")
     pos = tps.realization(q).numpy()
     D = np.sqrt(((pos[:, :, None] - pos[:, None]) ** 2).sum(-1))
     close(t.L_edges, D.min(0), atol=1e-12)

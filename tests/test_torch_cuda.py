@@ -10,6 +10,8 @@ machine without it:
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -576,7 +578,8 @@ def test_dense_f64_card_matches_cpu(cuda):
     _, ps = load_ur10()
     solver = api.make_solver(ps, TRParams.production(maxiter=100, maxinner=24),
                              polish_params=LocalParams(maxiter=10, tol_grad=1e-8), smooth_iters=2)
-    T = api.random_goals(ps, (16,), torch.Generator().manual_seed(12), device="cpu")[0]
+    T = api.random_goals(ps, (16,), torch.Generator().manual_seed(12), dtype=torch.float64,
+                         device="cpu")[0]
     D, Y0 = solver.prepare(T)
     one = TRParams.production(maxiter=1, maxinner=24)
     o_g, o_c = (riemannian.solve(Y0.to(d_), D.to(d_), solver.omega, solver.psi_L, solver.psi_U,
@@ -703,3 +706,181 @@ def test_capture_of_a_synchronising_op_raises(cuda):
     with pytest.raises(compiled.CaptureError, match=r"utils/dgp\.py:\d+: .*torch\.linalg\.eigh"):
         solver.graphs.run("prepare", lambda T: dict(zip(("D", "Y0"), solver.prepare(T))), T_goal)
     assert float(torch.ones(4, device=cuda).sum()) == 4.0  # the card still works
+
+
+def _same(a, b, what):
+    assert set(a) == set(b), what
+    for key in a:
+        assert torch.equal(a[key], b[key]), (what, key)
+
+
+def _cidgik_finish(ps):
+    """The bench's CIDGIK finish (bench.py stage_finish): the raw pose
+    error, the limits of the realization and the 30-step LM polish."""
+    def finish(q, T_goal):
+        e_pos, e_rot = api.pose_error(ps, q, T_goal)
+        viol, ok = ps.check_distance_limits(ps.realization(q))
+        keys = ("q", "e_pos", "e_rot", "limit_violation", "success")
+        return dict(zip(keys, api.polish_solution(ps, q, T_goal, e_pos, e_rot, viol, ok)))
+    return finish
+
+
+@pytest.mark.parametrize("case", ["dense", "table", "sparse", "vmap"])
+def test_cidgik_loop_graphs_equal_eager(cuda, case):
+    """CIDGIK on the card runs its ADMM through its template's loop graphs:
+    two calls (capture, then replays) bitwise equal to the eager pieces
+    (compiled.eager_loops) on the same goals, with the same ADMM step
+    count and no further capture on the second; then the finish through a
+    StageGraphs, bitwise the eager finish, at float32 and float64. With
+    the eigh cone projection (cone_ns_iters = 0), which cannot be
+    captured, the ADMM runs eagerly on the card: no piece is captured."""
+    from graphik_tpu_torch.solvers import cidgik, cidgik_sparse
+    from graphik_tpu_torch.utils import compiled
+
+    tpl, ps = load_ur10()
+    if case == "table":
+        ps = ProblemStructure.from_template(tpl, obstacles=table_environment())
+    if case == "sparse":
+        comp, solve = cidgik_sparse.compile_cidgik_sparse(ps), cidgik_sparse.solve_cidgik_sparse
+    else:
+        comp, solve = cidgik.compile_cidgik(ps), cidgik.solve_cidgik
+    kw = dict(params=cidgik.CidgikParams.production(admm_iters=120, admm_iters_rest=60,
+                                                    max_outer=3))
+    if case == "vmap":
+        kw = dict(engine="vmap", params=cidgik.CidgikParams(admm_iters=120, max_outer=2,
+                                                            adapt_every=10, admm_tol=4e-3,
+                                                            cone_ns_iters=16))
+    for dtype in (torch.float32, torch.float64):
+        T = api.random_goals(ps, (32,), torch.Generator().manual_seed(30), dtype=dtype,
+                             device=cuda)[0]
+        pieces = None
+        for call in range(2):
+            cidgik.solve_cidgik.admm_steps = 0
+            before = _hand_launches()
+            out = solve(comp, T, **kw)
+            steps = cidgik.solve_cidgik.admm_steps
+            loops = cidgik._graphs(comp).loops
+            n_pieces = sum(len(b.pieces) for b in loops.values())
+            assert n_pieces > 0 and (pieces is None or n_pieces == pieces), (case, call)
+            pieces = n_pieces
+            cidgik.solve_cidgik.admm_steps = 0
+            with compiled.eager_loops():
+                ref = solve(comp, T, **kw)
+            assert cidgik.solve_cidgik.admm_steps == steps
+            assert _hand_launches() == before
+            _same(out, ref, (case, dtype, call))
+        graphs = compiled.StageGraphs()
+        finish = _cidgik_finish(comp.structure)
+        for call in range(2):
+            _same(graphs.run("finish", finish, out["q"], T), finish(out["q"], T),
+                  (case, dtype, "finish", call))
+    eigh = dict(kw, params=dataclasses.replace(kw["params"], cone_ns_iters=0, max_outer=1))
+    n_loops = len(cidgik._graphs(comp).loops)
+    assert solve(comp, T, **eigh)["q"].device.type == "cuda"
+    assert len(cidgik._graphs(comp).loops) == n_loops
+
+
+@pytest.mark.parametrize("case", ["ur10_f64", "table_f64", "planar10_edge", "cg", "cg_f64"])
+def test_loop_graphs_of_the_compiled_solver_equal_eager(cuda, case):
+    """The compiled solver's loop paths (the TR's "dense" / "edge" backends,
+    so every float64 solve, and CG): solve (its loop's pieces as CUDA
+    graphs) and finish (one graph) bitwise the eager stages on the same
+    prepared inputs, over two calls (capture, then replays with no new
+    capture), with the same host reads and no hand-written kernel."""
+    from graphik_tpu_torch.robots.library import load_planar_chain
+    from graphik_tpu_torch.solvers import riemannian
+    from graphik_tpu_torch.solvers.riemannian import CGParams
+
+    tpl, ps = load_ur10()
+    dtype = torch.float64
+    params = TRParams.production(maxiter=60, maxinner=24)
+    if case == "table_f64":
+        ps = ProblemStructure.from_template(tpl, obstacles=table_environment())
+        params = TRParams.production(maxiter=60, maxinner=32)
+    elif case == "planar10_edge":
+        ps = load_planar_chain(10, limits=np.pi / 2)[1]
+        params, dtype = TRParams.production(maxiter=60, maxinner=24, backend="edge"), torch.float32
+    elif case.startswith("cg"):
+        params = CGParams.production(maxiter=150)
+        dtype = torch.float64 if case == "cg_f64" else torch.float32
+    kw = dict(params=params, polish_params=LocalParams(maxiter=10, tol_grad=1e-8), smooth_iters=2)
+    solver, eager = api.make_solver(ps, **kw), api.Solver(ps, **kw)
+    counter = riemannian.solve_cg if case.startswith("cg") else riemannian.solve
+    pieces = None
+    for call in range(2):
+        T = api.random_goals(ps, (64,), torch.Generator().manual_seed(31 + call), dtype=dtype,
+                             device=cuda)[0]
+        D, Y0 = eager.prepare(T)
+        before = _hand_launches()
+        counter.host_reads = 0
+        sol = solver.solve(Y0, D)
+        reads = counter.host_reads
+        out = solver.finish(sol, T)
+        counter.host_reads = 0
+        sol_e = eager.solve(Y0, D)
+        assert counter.host_reads == reads > 0
+        out_e = eager.finish(sol_e, T)
+        assert _hand_launches() == before
+        _same(sol, sol_e, (case, call, "solve"))
+        _same(out, out_e, (case, call, "finish"))
+        n_pieces = sum(len(b.pieces) for b in solver.graphs.loops.values())
+        assert n_pieces > 0 and (pieces is None or n_pieces == pieces), case
+        assert len(solver.graphs.graphs) == 1  # the finish
+        pieces = n_pieces
+
+
+def test_compiled_solver_outlives_the_edge_problem_cache(cuda):
+    """A compiled solver's graphs hold the EdgeProblem whose tables they
+    read: after the module cache has let go of it, the solver still
+    replays bitwise equal to its first call."""
+    import gc
+    import weakref
+
+    from graphik_tpu_torch.solvers import riemannian
+
+    tpl, _ = load_ur10()
+    ps = ProblemStructure.from_template(tpl, obstacles=[(np.array([0.6, 0.3, 0.4]), 0.2)])
+    solver = api.make_solver(ps, TRParams.production(maxiter=50, maxinner=24),
+                             polish_params=LocalParams(maxiter=10, tol_grad=1e-8), smooth_iters=2)
+    T = api.random_goals(ps, (256,), torch.Generator().manual_seed(32), dtype=torch.float32,
+                         device=cuda)[0]
+    first = solver(T)
+    held = [weakref.ref(o) for o in solver.graphs.owners if type(o) is edge_ops.EdgeProblem]
+    assert held
+    riemannian._EDGE_PROBLEMS.clear()
+    riemannian._EDGE_PROBLEMS_RECENT.clear()
+    gc.collect()
+    assert all(r() is not None for r in held)
+    for _ in range(2):
+        _same(solver(T), first, "replay")
+
+
+def test_evicted_sharded_solver_releases_its_pool(cuda, monkeypatch):
+    """A sharded solver that falls out of the memo releases its graphs at
+    once: torch.cuda.memory_reserved falls by its graph pool's size, within
+    5%."""
+    import collections
+
+    from graphik_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "_SHARDED_SOLVERS", collections.OrderedDict())
+    monkeypatch.setattr(mesh, "_SHARDED_SOLVERS_MAX", 1)
+    _, ps = load_ur10()
+    T = api.random_goals(ps, (8192,), torch.Generator().manual_seed(33), dtype=torch.float32,
+                         device=cuda)[0]
+    kw = dict(polish_params=LocalParams(maxiter=10, tol_grad=1e-8), smooth_iters=2)
+    mesh.solve_ik_sharded(ps, T, [cuda], params=TRParams.production(maxiter=20), **kw)
+    (solver,) = mesh._SHARDED_SOLVERS.values()
+    # the graphs' static inputs live outside the pool: hold them, so that
+    # only the pool's memory is given back
+    inputs = [b for g in solver.graphs.graphs.values() for b in g.inputs]
+    pools = {tuple(p) for p in solver.graphs.pools.values()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) in pools)
+    before = torch.cuda.memory_reserved()
+    mesh._sharded_solver(ps, TRParams.production(maxiter=21), **kw)  # evicts the first
+    fell = before - torch.cuda.memory_reserved()
+    assert pool > 0 and abs(fell - pool) <= 0.05 * pool, (fell, pool)
+    assert solver.graphs.graphs == {} and len(inputs) > 0

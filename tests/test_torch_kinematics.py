@@ -106,10 +106,10 @@ def test_jacobian(ur10, node):
 def test_random_configuration_within_limits(ur10):
     _, tt = ur10
     g = torch.Generator().manual_seed(0)
-    q = tkin.random_configuration(tt, (1000,), g, device="cpu")
+    q = tkin.random_configuration(tt, (1000,), g, dtype=torch.float64, device="cpu")
     assert q.shape == (1000, tt.n) and q.dtype == torch.float64
     lb, ub = torch.from_numpy(tt.lb[1:]), torch.from_numpy(tt.ub[1:])
     assert bool(((q >= lb) & (q <= ub)).all())
     again = tkin.random_configuration(tt, (1000,), torch.Generator().manual_seed(0),
-                                      device="cpu")
+                                      dtype=torch.float64, device="cpu")
     assert torch.equal(q, again)

@@ -150,7 +150,8 @@ def test_pose_error_and_random_goals(n):
     close(te, je)
     close(tr, jr)
     assert float(tr.max()) > 1e-3  # the noise makes real rotation errors
-    Tg, qg = tapi.random_goals(tps, (4,), torch.Generator().manual_seed(0), device="cpu")
+    Tg, qg = tapi.random_goals(tps, (4,), torch.Generator().manual_seed(0),
+                              dtype=torch.float64, device="cpu")
     assert Tg.shape == (4, 1, 3, 3) and qg.shape == (4, n)
 
 

@@ -177,7 +177,8 @@ def test_prepare_replays_fracs():
 
 def test_restarts_need_a_generator():
     _, tps = tlib.load_planar_chain(6, limits=np.pi / 2)
-    T = tapi.random_goals(tps, (2,), torch.Generator().manual_seed(1), device="cpu")[0]
+    T = tapi.random_goals(tps, (2,), torch.Generator().manual_seed(1), dtype=torch.float64,
+                         device="cpu")[0]
     with pytest.raises(ValueError, match="Generator"):
         tmesh.make_restart_solver(tps, n_restarts=2)(T)
 

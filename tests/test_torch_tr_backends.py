@@ -157,10 +157,13 @@ def test_tcg_model_increase_exit_against_jax(check):
 
     eta_j, Heta_j, j_j, stop_j = (np.asarray(x) for x in jax.vmap(one)(A, g, Delta))
     At = torch.from_numpy(A)
-    eta, Heta, steps, boundary = triem._tcg_batch(
-        lambda v: (At @ v.reshape(v.shape[0], n, 1)).reshape(v.shape),
-        torch.from_numpy(g), torch.from_numpy(Delta), torch.ones(len(g), dtype=torch.bool),
-        triem.TRParams(**p), n)
+    tp = triem.TRParams(**p)
+    gt = torch.from_numpy(g)
+    t = triem._tcg_steps(triem._tcg_start(gt, torch.ones(len(g), dtype=torch.bool), tp), gt,
+                         torch.from_numpy(Delta),
+                         lambda v: (At @ v.reshape(v.shape[0], n, 1)).reshape(v.shape), tp,
+                         tuple(j >= tp.mininner for j in range(n)))
+    eta, Heta, steps, boundary = t["eta"], t["Heta"], t["steps"], t["boundary"]
     assert (stop_j == jriem.MODEL_INCREASED).any() == check
     np.testing.assert_array_equal(steps.numpy(), j_j)
     np.testing.assert_array_equal(boundary.numpy(), stop_j <= jriem.EXCEEDED_TR)
@@ -173,7 +176,8 @@ def test_edge_matches_dense_in_the_port():
     api (as tests/test_riemannian.py holds CG's two backends): planar6, two
     goals, float64, one start, no polish."""
     _, ps = tlib.load_planar_chain(6, limits=np.pi / 2)
-    T, _ = tapi.random_goals(ps, (2,), torch.Generator().manual_seed(9), device="cpu")
+    T, _ = tapi.random_goals(ps, (2,), torch.Generator().manual_seed(9), dtype=torch.float64,
+                             device="cpu")
     Y_init = ps.realization(torch.zeros(ps.n, dtype=torch.float64))
     outs = {b: tapi.solve_ik(ps, T, params=triem.TRParams(maxiter=400, backend=b),
                              Y_init=Y_init, polish=False)

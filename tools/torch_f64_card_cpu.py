@@ -55,7 +55,8 @@ def main():
 
     n = args.goals
     for seed in args.seeds:
-        T = api.random_goals(ps, (n,), torch.Generator().manual_seed(seed), device="cpu")[0]
+        T = api.random_goals(ps, (n,), torch.Generator().manual_seed(seed), dtype=torch.float64,
+                         device="cpu")[0]
         Dc, Yc = solver.prepare(T)
         Dg, Yg = solver.prepare(T.to(dev))
         print(f"{seed} prepare: |dD| {float((Dg.cpu() - Dc).abs().max()):.3e} "

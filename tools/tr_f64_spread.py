@@ -53,7 +53,7 @@ def main():
 
     for seed in args.seeds:
         T = api.random_goals(ps, (args.goals,), torch.Generator().manual_seed(seed),
-                             device="cpu")[0]
+                             dtype=torch.float64, device="cpu")[0]
         D, Y0 = solver.prepare(T)
         noise = torch.randn(Y0.shape, generator=torch.Generator().manual_seed(100 + seed),
                             dtype=torch.float64)
