@@ -13,13 +13,14 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      TR step (cost rtol 2e-5 / atol 1e-6, Y atol 1e-4, num_inner equal),
      then the production params: every lane's outputs bitwise equal
      (1000/1000), all finite;
-  3. the UR10 path - api.make_solver (the compiled solver: solve and
-     finish as CUDA graphs, utils/compiled.py) on UR10 at B = 8192 with
+  3. the UR10 path - api.make_solver (the compiled solver: prepare, solve
+     and finish as CUDA graphs, utils/compiled.py) on UR10 at B = 8192 with
      TRParams.production(maxiter=100, maxinner=24), a 10-step LM polish and
      2-squaring bound smoothing: the first call (warm-up and capture, its
      stage walls logged), then 3 timed calls (replays) with per-stage
      walls; success >= 0.85 (1 mm / 1 deg, limit-feasible), all
-     outputs finite, the kernel launched on every call; plus a 64-goal
+     outputs finite, the TR kernel launched on every call and K5 twice
+     (prepare's two eigendecompositions), inside the graphs; plus a 64-goal
      batch on the card against the same solver on the CPU (plain version);
   4. the TR kernel's and its plain version's times at the UR10 path's
      shapes (CUDA events);
@@ -31,7 +32,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
   6. the table path - make_solver on UR10 + the 100-sphere table at
      B = 8192 with TRParams.production(maxiter=250, maxinner=32): one warm
      call, 3 timed calls with per-stage walls and the prepare stage's peak
-     memory; the anchored kernel launched once per call; success >= 0.78
+     memory; the anchored kernel launched once per call (K5 twice);
+     success >= 0.78
      on each call; every successful lane keeps p1..p6 at least
      radius - 1e-3 from every center; outputs finite, of the right shapes;
      one anchored TR step bitwise equal to the plain version at B = 8192,
@@ -70,7 +72,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
  11. dense CIDGIK on UR10 (ur10_cidgik): solvers/cidgik.solve_cidgik at
      B = 1024 with CidgikParams.production(admm_iters=700,
      admm_iters_rest=300), then the bench's finish (pose error, limits,
-     30-step LM polish); no hand-written kernel. Compiled - the ADMM's
+     30-step LM polish); none of K1-K4. Compiled - the ADMM's
      50-step pieces as CUDA graphs of the template (compiled.Loop), the
      finish through a StageGraphs, as bench.py jits stage_finish - against
      eager (compiled.eager_loops(), the finish eager) on the same goals:
@@ -90,10 +92,13 @@ Phases (any failure exits non-zero; no phase swallows an exception):
  13. sparse (chordal) CIDGIK on UR10 (ur10_cidgik_sparse):
      solvers/cidgik_sparse.solve_cidgik_sparse at B = 1024 with
      production(700, 300), then the bench's finish, as phase 11 but with
-     eig_sum held per lane to sparse_eig_bound; and torch.linalg.eigh on the card on
-     the path's stacked clique blocks (the middle block zero-padded)
-     against the CPU's float64: finite, eigenvalues within 1e-5 x each
-     block's norm;
+     eig_sum held per lane to sparse_eig_bound; and K5 on the card on the
+     path's stacked clique blocks (the middle block zero-padded): bitwise
+     its plain version, against the CPU's float64 eigenvalues within 1e-5
+     x each block's norm. Phases 11-13 run the Fantope step on K5 once a
+     round; phase 11 also runs the ADMM with the eigh cone projection
+     (cone_ns_iters = 0, K5 every step) at B = 64, compiled against eager
+     (`eigh_cone_check`): bitwise, its pieces captured, then replayed;
  14. Riemannian conjugate gradient on UR10 (ur10_cg): make_solver with
      CGParams.production() at B = 8192, the UR10 path's polish and
      smoothing; compiled (the loop's pieces between host reads and the
@@ -127,7 +132,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      (its metrics equal to summarize of its own solve); and
      dryrun_multigpu over every card;
  17. the trust region's "dense" and "edge" backends (`tr_backends_phase`;
-     no hand-written kernel launched on any of them), each compiled (the
+     none of K1-K4 launched on any of them), each compiled (the
      loop's pieces between host reads and the finish as CUDA graphs)
      against the same solver eager on the same prepared inputs
      (`compiled_vs_eager`: every output bitwise equal, host reads equal,
@@ -153,25 +158,43 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      walls compiled and eager; the finish's host launches, device
      activities and busy share (one profiled call each); the first call's
      walls (warm-up + capture); the memory the graphs' pools hold and each
-     finish's peak.
+     finish's peak; and for each of those paths and ur10_f64 (phase 17)
+     the compiled prepare against the eager prepare on the same goals and
+     generator state (`prepare_vs_eager`): D_goal and Y0 bitwise equal,
+     both walls, K5's two launches a call counted inside the graph, the
+     host launches of one replayed prepare.
+ 19. K5, the eigendecomposition (`eigh_phase`, run after phase 2, before
+     the paths): on the card, against its plain version bitwise, every
+     matrix, with every converged flag set, the residual and orthogonality
+     under EIGH_RES and the eigenvalues within EIGH_EIG of torch.linalg.eigh
+     on the card: UR10's prepare Gram and edge scatter at B = 8192 (float32
+     and float64), planar6, planar10, KUKA iiwa, the tree and the table's
+     Nr = 16 at B = 1000, dense CIDGIK's lifted Z (s = 13) and the sparse
+     path's padded clique blocks at B = 1024 (float32 and float64), and
+     seeded random matrices at n = 2, 3, 31, 32 and with equal diagonals
+     at n = 13; UR10's first 501 Grams
+     bitwise the same alone; K5's, torch.linalg.eigh's and the plain
+     version's times at UR10's shape beside the bound.
 
 Phases 3, 6, 8-10, 15 and 16 run the compiled solver (make_solver,
 make_restart_solver, solve_ik_sharded): the warm call is the first call
-at the batch shape, which runs the solve and finish eagerly and captures
-them; the timed calls replay the graphs, and each launches the TR kernel
-once, inside the graph. Phases 11-14 and 17 run the compiled forms of the
-paths without a kernel (CIDGIK, CG, the float64 and "edge" solves): their
-loops replay CUDA graphs of the steps between two host reads, their
-finishes one graph; each is held bitwise to its eager form.
+at the batch shape, which runs prepare, solve and finish eagerly and
+captures them; the timed calls replay the graphs, and each launches the
+TR kernel once and K5 twice, inside the graphs. Phases 11-14 and 17 run
+the compiled forms of the paths without K1-K4 (CIDGIK, CG, the float64
+and "edge" solves): their loops replay CUDA graphs of the steps between
+two host reads, their finishes one graph; each is held bitwise to its
+eager form.
 
 A floor is the lower end of the JAX package's 95% Wilson interval on that
 configuration's 1000 goals (tools/torch_parity.py jax --config <name>), less
 0.02.
 
 The records of phases 11-14, 16 and 17 are logged as JSON lines before the
-total. The last lines are the kernels' JSON record (with each kernel's bound:
-the larger of its flops over the f32 peak and its bytes over the memory
-rate, counted from the shapes and this run's iteration counts), the
+total. The last lines are the kernels' JSON record (K5 first, with each
+kernel's bound: the larger of its flops over the peak of its type and its
+bytes over the memory rate, counted from the shapes and this run's
+iteration counts), the
 card's name and power limit, and {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
 """
@@ -281,9 +304,19 @@ CG_CARD_CPU_GOALS = 9
 # goals.
 B_F64, B_F64_TABLE, B_EDGE = 8192, 4096, 1024
 F64_TOL, F64_SAME_GOALS, EDGE_GAP = 1e-12, 61, 0.03
-# The H100 SXM's published peaks: f32 outside the tensor cores, and HBM3.
+# The H100 SXM's published peaks: f32 and f64 outside the tensor cores,
+# and HBM3 (NVIDIA's data sheet).
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12
 PEAK_BYTES = 3.35e12
+# K5 (phase 19): ||A - V diag(w) V^T||_F / ||A||_F and max |V^T V - I|, and
+# the eigenvalues' distance from torch.linalg.eigh's over ||A||_F. Jacobi
+# stops once every |a_pq| <= eps max |a_ij|, so the residual is a few ulps
+# times n; the CPU's float64 runs of the plain version stay within 1.3e-14
+# and float32 within 5.5e-6 at n = 32 (tests/test_torch_eigh.py holds
+# 1e-12 and 2e-5); cuSOLVER's own error adds to the eigenvalue gap.
+EIGH_RES = {"f32": 2e-5, "f64": 1e-12}
+EIGH_EIG = {"f32": 2e-5, "f64": 1e-12}
 # the CUDA API calls (runtime cuda*, low-level cu*) by which the host starts device work
 HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync"}
@@ -592,8 +625,9 @@ def ptxas_lines():
         ptxas = f.read()
     out = {}
     for entry in ptxas.split("Compiling entry function '")[1:]:
-        name = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E|Lb\d+E)+)E", entry)
-        args = ",".join(re.findall(r"L[ib](\d+)E", name.group(2)))
+        name = re.search(r"([a-z][a-z_]*_kernel)I((?:[fd]|L[ib]\d+E)+)E", entry)
+        args = ",".join(num or {"f": "float", "d": "double"}[t]
+                        for num, t in re.findall(r"L[ib](\d+)E|([fd])", name.group(2)))
         regs, smem = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", entry).groups()
         spill = re.search(r"(\d+) bytes spill stores", entry).group(1)
         out[f"{name.group(1)}<{args}>"] = (int(regs), int(smem), int(spill))
@@ -649,11 +683,11 @@ def staged(solver, T_goal, *gen):
 
 def first_call(tag, solver, T_goal, *gen):
     """The first call of a compiled solver at the path's shape, stage by
-    stage: its solve and finish run eagerly once (the warm-up) and are
-    captured into CUDA graphs (utils/compiled.py). Logs and returns the
+    stage: its prepare, solve and finish run eagerly once (the warm-up) and
+    are captured into CUDA graphs (utils/compiled.py). Logs and returns the
     stage walls (s)."""
     tp, ts, tf, _, _ = staged(solver, T_goal, *gen)
-    log(f"[{tag}] first call (warm-up + capture of the solve and finish graphs): prepare "
+    log(f"[{tag}] first call (warm-up + capture of the prepare, solve and finish graphs): prepare "
         f"{tp * 1e3:.1f} ms, solve {ts * 1e3:.1f} ms, finish {tf * 1e3:.1f} ms")
     return tp, ts, tf
 
@@ -664,7 +698,48 @@ def graph_pool_bytes(solvers):
     return [pool_bytes([s.graphs]) for s in solvers]
 
 
-def compiled_phase(dev, paths):
+def prepare_vs_eager(tag, dev, solver, T_goal, gen):
+    """A compiled solver's prepare (one CUDA graph, captured on the path's
+    first call) against the same solver's eager prepare on the same goals
+    and the same generator state: D_goal and Y0 bitwise equal; the walls of
+    one call each; K5's launches a call, counted inside the graph on
+    replay; the host launches and device activities of one replayed
+    prepare (profiled). Returns the record."""
+    from graphik_tpu_torch.ops.eigh import sym_eigh_cuda
+
+    eager = dataclasses.replace(solver, graphs=None)
+    states = [g.get_state() for g in gen]
+
+    def restored():
+        for g, s in zip(gen, states):
+            g.set_state(s)
+        return gen
+
+    outs, walls, k5 = {}, {}, {}
+    for name, s in (("compiled", solver), ("eager", eager)):
+        s.prepare(T_goal, *restored())  # warm: the compiled one replays
+        sync(dev)
+        before = sym_eigh_cuda.launches
+        t0 = time.perf_counter()
+        outs[name] = s.prepare(T_goal, *restored())
+        sync(dev)
+        walls[name] = (time.perf_counter() - t0) * 1e3
+        k5[name] = sym_eigh_cuda.launches - before
+    kernels, copies, busy, host = profiled(lambda: solver.prepare(T_goal, *restored()), dev)
+    same = all(bool(a.equal(b)) for a, b in zip(outs["compiled"], outs["eager"]))
+    rec = {"bitwise": same, "compiled_ms": walls["compiled"], "eager_ms": walls["eager"],
+           "k5_launches": k5["compiled"], "k5_launches_eager": k5["eager"],
+           "host_launches": host, "device_activities": kernels + copies, "busy_ms": busy}
+    log(f"[18] {tag} prepare, {tuple(T_goal.shape)} goals: compiled {walls['compiled']:.2f} ms / "
+        f"eager {walls['eager']:.2f} ms; D_goal and Y0 bitwise equal {same}; K5 launches a call "
+        f"{k5['compiled']} (in the graph) / {k5['eager']}; one replayed prepare: {host} host "
+        f"launches, {kernels} kernels + {copies} copies/sets, device busy {busy:.2f} ms")
+    check(same, f"{tag}: the compiled prepare differs from the eager one")
+    check(k5["compiled"] == k5["eager"] == 2, f"{tag}: prepare did not launch K5 twice")
+    return rec
+
+
+def compiled_phase(dev, paths, prepare_paths=()):
     """Phase 18: each f32 kernel path's compiled solver (CUDA graphs, as
     the earlier phases ran it) against the same solver with every stage
     eager (api.solve_ik's), on the same prepared inputs at the path's
@@ -673,13 +748,19 @@ def compiled_phase(dev, paths):
     device-busy share (one profiled call each, busy over the unprofiled
     wall); the first call's walls (warm-up + capture, from the path's
     phase) and, less the eager stage's wall, the capture's; the memory
-    the solver's graph pools hold and each finish's peak. paths: [(tag, compiled solver, T_goal, generator args, first-call
-    walls)]. Returns the records."""
+    the solver's graph pools hold and each finish's peak. Before that,
+    the path's prepare compiled against eager (`prepare_vs_eager`), and
+    so for each of prepare_paths (the float64 path of phase 17). paths:
+    [(tag, compiled solver, T_goal, generator args, first-call walls)];
+    prepare_paths: [(tag, compiled solver, T_goal, generator args)].
+    Returns the records."""
     import torch
 
     t_phase = time.perf_counter()
     records = []
+    prepares = {tag: prepare_vs_eager(tag, dev, s, T, g) for tag, s, T, g in prepare_paths}
     for tag, solver, T_goal, gen, first in paths:
+        prepares[tag] = prepare_vs_eager(tag, dev, solver, T_goal, gen)
         eager = dataclasses.replace(solver, graphs=None)
         D, Y0 = eager.prepare(T_goal, *gen)
         walls, outs, peaks = {}, {}, {}
@@ -708,7 +789,9 @@ def compiled_phase(dev, paths):
         B = Y0.shape[0]
         # the first call ran each stage eagerly (the warm-up), then captured it
         rec = {"path": tag, "B": B, "bitwise": not differ, "lanes_differ": differ,
-               "first_call_ms": {"solve": first[1] * 1e3, "finish": first[2] * 1e3},
+               "prepare": prepares[tag],
+               "first_call_ms": {"prepare": first[0] * 1e3, "solve": first[1] * 1e3,
+                                 "finish": first[2] * 1e3},
                "capture_ms": {"solve": (first[1] - walls["eager"][0]) * 1e3,
                               "finish": (first[2] - walls["eager"][1]) * 1e3}}
         for name in ("compiled", "eager"):
@@ -739,7 +822,130 @@ def compiled_phase(dev, paths):
     per_path = ", ".join("%s %.1f" % (r["path"], r["graph_pool_mib"]) for r in records)
     log(f"[18] graph pools (MiB): {per_path}; {sum(pools) / 2**20:.1f} in all; phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
+    records += [{"path": tag, "prepare": prepares[tag]} for tag, *_ in prepare_paths]
     return records
+
+
+def eigh_bound(n, B, dtype):
+    """(ms, "operations" or "bytes") of B symmetric n x n eigendecompositions:
+    9 n^3 flops a matrix (Golub & Van Loan's count for the symmetric QR
+    algorithm with eigenvectors) over the card's non-tensor rate of the
+    type, against n^2 read and n^2 + n written a matrix over the memory
+    rate."""
+    import torch
+
+    size = 8 if dtype == torch.float64 else 4
+    peak = PEAK_F64 if dtype == torch.float64 else PEAK_F32
+    t_op, t_b = 9 * n ** 3 * B / peak * 1e3, (2 * n * n + n) * size * B / PEAK_BYTES * 1e3
+    return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
+
+
+def prepare_matrices(solver, T_goal):
+    """The two matrices the MDS init of `solver`'s prepare decomposes, as
+    riemannian.generate_initializations forms them: the symmetrised Gram G
+    of the deterministic distance matrix and the edge scatter S of its
+    factor."""
+    from graphik_tpu_torch.utils import dgp
+
+    inst, omega = solver._instance(T_goal)
+    G = dgp.gram_from_distance_matrix(dgp.sample_distance_matrix(inst["lb"], inst["ub"]))
+    G = (G + G.transpose(-1, -2)) / 2.0
+    return G, dgp.edge_scatter(dgp.mds(G, eps=1e-8), omega)
+
+
+def lifted_noisy(ps_c, q, sparse, gen):
+    """CIDGIK's rank-forcing inputs at realistic points: the lifted Z =
+    [[I, X^T], [X, X X^T]] of the free nodes of the realizations of q (dense:
+    (B, s, s); sparse: the (B, K, ds, ds) clique blocks, padded slots exactly
+    zero), plus symmetric noise of 1e-2 on the valid slots."""
+    import torch
+
+    from graphik_tpu_torch.solvers import cidgik, cidgik_sparse
+
+    if sparse:
+        comp = cidgik_sparse.compile_cidgik_sparse(ps_c)
+        pts = ps_c.realization(q)[:, torch.as_tensor(comp.free_idx, device=q.device)]
+        Z = cidgik_sparse.lifted_blocks(comp, pts)
+        valid = torch.as_tensor(cidgik_sparse._valid_slots(comp.member, comp.d), dtype=q.dtype,
+                                device=q.device)
+        mask = valid[:, :, None] * valid[:, None, :]
+    else:
+        comp = cidgik.compile_cidgik(ps_c)
+        X = ps_c.realization(q)[:, torch.as_tensor(comp.free_idx, device=q.device)]
+        d = X.shape[-1]
+        eye = torch.eye(d, dtype=q.dtype, device=q.device).expand(X.shape[0], d, d)
+        Z = torch.cat([torch.cat([eye, X.transpose(-1, -2)], -1),
+                       torch.cat([X, X @ X.transpose(-1, -2)], -1)], -2)
+        mask = torch.ones(Z.shape[-2:], dtype=q.dtype, device=q.device)
+    E = 1e-2 * torch.randn(Z.shape, generator=gen, dtype=q.dtype, device=gen.device).to(q.device)
+    return (Z + E + E.transpose(-1, -2)) * mask
+
+
+def eigh_phase(dev, cases, ur10_G):
+    """Phase 19: K5 (csrc/eigh.cu) on the card. For each (tag, A) of
+    `cases`: K5 against its plain version (ops/eigh.py sym_eigh_reference)
+    bitwise, every matrix (eigenvalues, eigenvectors, flags), every flag
+    set; ||A - V diag(w) V^T||_F / ||A||_F and max |V^T V - I| under
+    EIGH_RES; the eigenvalues within EIGH_EIG ||A||_F of torch.linalg.eigh
+    on the card. On UR10's Gram at B = 8192 (ur10_G, float32 and float64):
+    its first 501 matrices bitwise the same alone, and the times of K5
+    (CUDA events), torch.linalg.eigh and the plain version beside the
+    bound. Returns the phase's record (K5's time at the main path's
+    shape, float32, heads the kernels' record)."""
+    import torch
+
+    from graphik_tpu_torch.ops.eigh import sym_eigh_cuda, sym_eigh_reference
+
+    t_phase = time.perf_counter()
+    shapes = []
+    err = 0.0
+    for tag, A in cases:
+        key = "f64" if A.dtype == torch.float64 else "f32"
+        w, V, conv = sym_eigh_cuda(A)
+        w_p, V_p, conv_p = sym_eigh_reference(A)
+        sync(dev)
+        same = bool(torch.equal(w, w_p) and torch.equal(V, V_p) and torch.equal(conv, conv_p))
+        err = max(err, float((w - w_p).abs().max()), float((V - V_p).abs().max()))
+        n = A.shape[-1]
+        Ad, wd, Vd = A.double(), w.double(), V.double()
+        scale = torch.linalg.matrix_norm(Ad)
+        res = float((torch.linalg.matrix_norm(Ad - (Vd * wd[..., None, :]) @ Vd.transpose(-1, -2))
+                     / scale).max())
+        orth = float((Vd.transpose(-1, -2) @ Vd - torch.eye(n, dtype=torch.float64, device=dev))
+                     .abs().max())
+        d_lib = float(((wd - torch.linalg.eigvalsh(A).double()).abs() / scale[..., None]).max())
+        n_conv = int(conv.sum())
+        log(f"[19] {tag}: {tuple(A.shape)} {key}: K5 bitwise its plain version {same}; converged "
+            f"{n_conv}/{conv.numel()}; residual {res:.2e}, max |V^T V - I| {orth:.2e} (<= "
+            f"{EIGH_RES[key]:.0e}); eigenvalues against torch.linalg.eigh {d_lib:.2e} of "
+            f"||A||_F (<= {EIGH_EIG[key]:.0e})")
+        check(same, f"{tag}: K5 differs from its plain version")
+        check(n_conv == conv.numel(), f"{tag}: a matrix did not converge")
+        check(res <= EIGH_RES[key] and orth <= EIGH_RES[key], f"{tag}: residual or orthogonality")
+        check(d_lib <= EIGH_EIG[key], f"{tag}: eigenvalues apart from torch.linalg.eigh's")
+        shapes.append({"case": tag, "shape": list(A.shape), "dtype": key, "bitwise": same,
+                       "residual": res, "orthogonality": orth, "eig_vs_library": d_lib})
+    timing = {}
+    for G in ur10_G:
+        key = "f64" if G.dtype == torch.float64 else "f32"
+        B, n = G.shape[0], G.shape[-1]
+        w, V, _ = sym_eigh_cuda(G)
+        w1, V1, _ = sym_eigh_cuda(G[:501].clone())
+        alone = bool(torch.equal(w1, w[:501]) and torch.equal(V1, V[:501]))
+        log(f"[19] UR10 Gram {key}: the first 501 of {B} matrices alone bitwise as in the batch: "
+            f"{alone}")
+        check(alone, "K5 is not batch-invariant")
+        ms = event_ms(lambda: sym_eigh_cuda(G), 20)
+        ms_lib = event_ms(lambda: torch.linalg.eigh(G), 5)
+        ms_plain = event_ms(lambda: sym_eigh_reference(G), 1)
+        b = eigh_bound(n, B, G.dtype)
+        timing[key] = {"B": B, "n": n, "ms": ms, "library_ms": ms_lib, "plain_ms": ms_plain,
+                       "bound_ms": b[0], "bound_by": b[1]}
+        log(f"[19] UR10 Gram, B = {B}, n = {n}, {key}: K5 {ms:.3f} ms, torch.linalg.eigh "
+            f"{ms_lib:.3f} ms, plain version {ms_plain:.1f} ms, bound {b[0] * 1e3:.2f} us "
+            f"({b[1]})")
+    log(f"[19] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"shapes": shapes, "timing": timing, "max_abs_err": err}
 
 
 def cidgik_phases(dev, gen, cfgs):
@@ -754,9 +960,11 @@ def cidgik_phases(dev, gen, cfgs):
     ADMM steps and host reads; success at or above the floor, finite
     outputs of the right shapes (and, with obstacles, successful lanes
     clear of every sphere), the graph pools' memory, and a 16-goal batch on
-    `dev` against the same call on the CPU; on the sparse path, also
-    torch.linalg.eigh of its clique blocks on `dev` against the CPU's
-    float64. Returns one record per path."""
+    `dev` against the same call on the CPU; on the sparse path, also K5 on
+    its clique blocks on `dev` (`eigh_check`), and on the dense UR10 path
+    an ADMM with the eigh cone projection at B = 64, compiled against eager
+    (`eigh_cone_check`). The Fantope step runs on K5 once a round; none of
+    K1-K4 may launch. Returns one record per path."""
     import torch
 
     from graphik_tpu_torch import api
@@ -819,8 +1027,8 @@ def cidgik_phases(dev, gen, cfgs):
             timed[name] = (t_admm, t_fin, o, cidgik.solve_cidgik.admm_steps,
                            cidgik.solve_cidgik.host_reads)
         hand = sum(f.launches for f in counters)
-        log(f"[{phase}] {tag}: hand-written kernel launches during the phase's calls: {hand}")
-        check(hand == 0, f"{tag}: the CIDGIK path launched a hand-written kernel")
+        log(f"[{phase}] {tag}: K1-K4 launches during the phase's calls: {hand}")
+        check(hand == 0, f"{tag}: the CIDGIK path launched one of K1-K4")
         t_admm, t_fin, o, steps, reads = timed["compiled"]
         differ = differing(o, timed["eager"][2])
         log(f"[{phase}] {tag}: compiled against eager on the same goals: outputs bitwise equal "
@@ -920,19 +1128,69 @@ def cidgik_phases(dev, gen, cfgs):
                                   "d_feas": d_feas}}
         if sparse:
             record["eigh_padded_blocks"] = eigh_check(phase, comp, ps_c, o, dev)
+        elif not ps_c.n_obstacles:
+            record["eigh_cone"] = eigh_cone_check(phase, tag, dev, comp, solve, goals_c(B_SMALL),
+                                                  params)
         records.append(record)
         log(f"[{phase}] {tag}: phase took {time.perf_counter() - t_phase:.1f} s")
     return records
 
 
+def eigh_cone_check(phase, tag, dev, comp, solve, T_goal, params):
+    """The ADMM with the eigh cone projection (cone_ns_iters = 0: K5 every
+    iteration) at a small batch, compiled - its pieces captured into the
+    template's loop graphs, K5 inside them - against eager
+    (compiled.eager_loops()) on the same goals, two calls each: outputs
+    bitwise equal, equal ADMM steps, pieces captured on the first call and
+    replayed on the second, K5 launched (and counted) on every call.
+    Returns the record."""
+    from graphik_tpu_torch.ops.eigh import sym_eigh_cuda
+    from graphik_tpu_torch.solvers import cidgik
+    from graphik_tpu_torch.utils import compiled
+
+    params = dataclasses.replace(params, cone_ns_iters=0, admm_iters=100, admm_iters_rest=50,
+                                 max_outer=2)
+    rec = {"B": int(T_goal.shape[0]), "calls": []}
+    for call in range(2):
+        pieces = sum(len(b.pieces) for b in cidgik._graphs(comp).loops.values())
+        runs = {}
+        for name, mode in (("compiled", contextlib.nullcontext), ("eager", compiled.eager_loops)):
+            with mode():
+                cidgik.solve_cidgik.admm_steps = 0
+                before = sym_eigh_cuda.launches
+                sync(dev)
+                t0 = time.perf_counter()
+                out = solve(comp, T_goal, params=params)
+                sync(dev)
+                runs[name] = (out, time.perf_counter() - t0, cidgik.solve_cidgik.admm_steps,
+                              sym_eigh_cuda.launches - before)
+        grown = sum(len(b.pieces) for b in cidgik._graphs(comp).loops.values()) - pieces
+        differ = differing(runs["compiled"][0], runs["eager"][0])
+        c, e = runs["compiled"], runs["eager"]
+        log(f"[{phase}] {tag}, eigh cone projection, B = {rec['B']}, call {call}: compiled "
+            f"{c[1] * 1e3:.1f} ms / eager {e[1] * 1e3:.1f} ms, ADMM steps {c[2]} / {e[2]}, K5 "
+            f"launches {c[3]} / {e[3]}, pieces captured {grown}; outputs bitwise equal "
+            f"{not differ} {differ or ''}")
+        check(not differ and c[2] == e[2], f"{tag}: the eigh-cone ADMM differs from its eager form")
+        check(c[3] == e[3] and c[3] >= c[2], f"{tag}: K5 was not launched every ADMM step")
+        check(grown > 0 if call == 0 else grown == 0,
+              f"{tag}: the eigh-cone ADMM did not capture and replay its pieces")
+        rec["calls"].append({"compiled_ms": c[1] * 1e3, "eager_ms": e[1] * 1e3,
+                             "admm_steps": c[2], "k5_launches": c[3], "pieces_captured": grown,
+                             "bitwise": not differ})
+    return rec
+
+
 def eigh_check(phase, comp, ps_c, out, dev):
-    """torch.linalg.eigh on `dev` of the sparse path's stacked clique blocks
-    at its batch: the blocks of its solved points, plus symmetric noise
-    (1e-2) on the valid slots, the padded rows and columns exactly zero;
-    float32 and float64, against the CPU's float64 eigenvalues. Checks
-    finite values and |d lambda| <= 1e-5 x the block's Frobenius norm."""
+    """K5 on `dev` on the sparse path's stacked clique blocks at its batch:
+    the blocks of its solved points, plus symmetric noise (1e-2) on the
+    valid slots, the padded rows and columns exactly zero; float32 and
+    float64, bitwise its plain version, against the CPU's float64
+    eigenvalues. Checks finite values and |d lambda| <= 1e-5 x the block's
+    Frobenius norm."""
     import torch
 
+    from graphik_tpu_torch.ops.eigh import sym_eigh_cuda, sym_eigh_reference
     from graphik_tpu_torch.solvers import cidgik_sparse
 
     pts = out["points"].double().cpu()[:, torch.as_tensor(comp.free_idx)]
@@ -946,15 +1204,17 @@ def eigh_check(phase, comp, ps_c, out, dev):
     scale = torch.linalg.matrix_norm(Z)[..., None]
     errs = {}
     for dt in (torch.float32, torch.float64):
-        lam, Q = torch.linalg.eigh(Z.to(dev, dt))
+        lam, Q, conv = sym_eigh_cuda(Z.to(dev, dt))
+        lam_p, Q_p, _ = sym_eigh_reference(Z.to(dev, dt))
         sync(dev)
-        finite = bool(torch.isfinite(lam).all() and torch.isfinite(Q).all())
+        same = bool(torch.equal(lam, lam_p) and torch.equal(Q, Q_p))
+        finite = bool(torch.isfinite(lam).all() and torch.isfinite(Q).all() and conv.all())
         err = float(((lam.double().cpu() - ref).abs() / scale).max())
         errs[str(dt).split(".")[-1]] = err
-        log(f"[{phase}] eigh on {dev.type} of {tuple(Z.shape)} clique blocks ({n_pad} padded "
-            f"slots a lane), {dt}: finite {finite}, max |d lambda| / ||Z_k||_F against the CPU's "
-            f"float64 {err:.3e} (<= 1e-5)")
-        check(finite and err <= 1e-5, f"eigh on the padded clique blocks ({dt})")
+        log(f"[{phase}] K5 on {dev.type} of {tuple(Z.shape)} clique blocks ({n_pad} padded "
+            f"slots a lane), {dt}: bitwise its plain version {same}, finite and converged "
+            f"{finite}, max |d lambda| / ||Z_k||_F against the CPU's float64 {err:.3e} (<= 1e-5)")
+        check(same and finite and err <= 1e-5, f"K5 on the padded clique blocks ({dt})")
     return errs
 
 
@@ -969,6 +1229,7 @@ def compiled_vs_eager(phase, tag, dev, solver, T_goal, counter, profile=True):
     bitwise equal and the host reads (`counter.host_reads`) equal. Returns
     (record, the compiled call's (sol, out))."""
     eager = dataclasses.replace(solver, graphs=None)
+    solver.prepare(T_goal)  # the first call at this shape captures prepare
     sync(dev)
     t0 = time.perf_counter()
     D_goal, Y0 = solver.prepare(T_goal)
@@ -1335,10 +1596,11 @@ def sharded_phase(dev, gen, ps, params, polish):
     return record
 
 
-def tr_backends_phase(dev, gen, ps, ps_t, polish):
+def tr_backends_phase(dev, gen, ps, ps_t, polish, prepare_paths):
     """Phase 17: the trust region's "dense" and "edge" backends on the card
-    (no hand-written kernel), compiled against eager. Returns the phase's
-    record."""
+    (none of K1-K4; prepare's K5), compiled against eager. Appends the
+    float64 UR10 solver and goals to prepare_paths, for phase 18. Returns
+    the phase's record."""
     import torch
 
     from graphik_tpu_torch import api
@@ -1359,8 +1621,8 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish):
 
     def no_kernel(tag):
         hand = sum(f.launches for f in counters)
-        log(f"[17] {tag}: hand-written kernel launches: {hand}")
-        check(hand == 0, f"{tag}: a hand-written kernel was launched")
+        log(f"[17] {tag}: K1-K4 launches: {hand}")
+        check(hand == 0, f"{tag}: one of K1-K4 was launched")
 
     def goals(ps_, B, dtype, device=dev):
         return api.random_goals(ps_, (B,), gen, dtype=dtype, device=device)[0]
@@ -1392,8 +1654,9 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish):
     solver = api.make_solver(ps, params=prod, polish_params=polish, smooth_iters=2)
     log(f"[17] {tag}: UR10, float64, B = {B_F64}; {prod}")
     zero_counts()
-    rec, (sol, _) = compiled_vs_eager("17", tag, dev, solver, goals(ps, B_F64, torch.float64),
-                                      riemannian.solve)
+    T_f64 = goals(ps, B_F64, torch.float64)
+    rec, (sol, _) = compiled_vs_eager("17", tag, dev, solver, T_f64, riemannian.solve)
+    prepare_paths.append((tag, solver, T_f64, ()))
     calls = []
     for i in range(2):
         tp, ts, tf, _, o = staged(solver, goals(ps, B_F64, torch.float64))
@@ -1497,6 +1760,7 @@ def main() -> int:
     from graphik_tpu_torch.ops import edge as edge_ops
     from graphik_tpu_torch.ops import tr_solve
     from graphik_tpu_torch.ops._build import library_path, load_library
+    from graphik_tpu_torch.ops.eigh import sym_eigh_cuda
     from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda, solve_tr_reference
     from graphik_tpu_torch.parallel.mesh import make_restart_solver
     from graphik_tpu_torch.robots.library import (
@@ -1572,20 +1836,54 @@ def main() -> int:
         f"{float(kp['num_inner'].double().mean()):.2f} plain "
         f"{float(pp['num_inner'].double().mean()):.2f}")
 
+    # ---- phase 19 (run here, before the paths): K5, the eigendecomposition ----
+    def eigh_cases():
+        """(tag, stack) of the matrices K5 meets on the paths, and seeded
+        random ones at n = 2, 3, 31, 32."""
+        T_u = goals(B_MAIN)
+        G32, S32 = prepare_matrices(solver, T_u)
+        G64, S64 = prepare_matrices(solver, T_u.double())
+        cases = [("ur10 G", G32), ("ur10 S", S32), ("ur10 G", G64), ("ur10 S", S64)]
+        ps_tab = ProblemStructure.from_template(tpl, obstacles=table_environment())
+        for tag, ps_e in (("planar6", load_planar_chain(6, limits=np.pi / 2)[1]),
+                          ("planar10", load_planar_chain(10, limits=np.pi / 2)[1]),
+                          ("kuka_iiwa", load_kuka()[1]), ("tree", load_tree5()[1]),
+                          ("ur10_table", ps_tab)):
+            T_e = api.random_goals(ps_e, (B_CHECK,), gen, dtype=torch.float32, device=dev)[0]
+            G, S = prepare_matrices(api.Solver(ps_e, smooth_iters=2), T_e)
+            cases += [(f"{tag} G", G), (f"{tag} S", S)]
+        rs = np.random.RandomState(SEED)
+        for dt in (torch.float32, torch.float64):
+            q = api.random_goals(ps, (B_CIDGIK,), gen, dtype=dt, device=dev)[1]
+            cases += [("ur10_cidgik Z", lifted_noisy(ps, q, False, gen)),
+                      ("ur10_cidgik_sparse blocks", lifted_noisy(ps, q, True, gen))]
+            for n in (2, 3, 31, 32):
+                X = rs.normal(size=(B_CHECK, n, n))
+                cases.append((f"random n={n}", torch.tensor(X + X.transpose(0, 2, 1), dtype=dt,
+                                                            device=dev)))
+            # equal diagonals: a rotation's theta is +-0 (t takes its sign bit)
+            E = np.triu(rs.normal(size=(B_CHECK, 13, 13)), 1)
+            cases.append(("equal diagonals n=13", torch.tensor(
+                2.0 * np.eye(13) + E + E.transpose(0, 2, 1), dtype=dt, device=dev)))
+        return cases, (G32, G64)
+
+    eigh_rec = eigh_phase(dev, *eigh_cases())
+
     # ---- phase 3: the main path ----
     graphed = []  # the compiled f32 kernel paths, for phase 18
     first = first_call("3", solver, goals(B_MAIN))
     goal_sets = [goals(B_MAIN) for _ in range(3)]
     calls = []
-    solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = 0
+    solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = sym_eigh_cuda.launches = 0
     for T_goal in goal_sets:
         tp, ts, tf, _, out = staged(solver, T_goal)
         calls.append((tp, ts, tf, api.summarize(out), out))
-    launches = solve_tr_cuda.launches
-    log(f"[3] kernel launches during the 3 timed main-path calls: {launches} "
-        f"(anchored {solve_tr_cuda.anchored_launches})")
+    launches, launches_eigh = solve_tr_cuda.launches, sym_eigh_cuda.launches
+    log(f"[3] kernel launches during the 3 timed main-path calls: TR {launches} "
+        f"(anchored {solve_tr_cuda.anchored_launches}), K5 {launches_eigh}")
     check(launches == 3 and solve_tr_cuda.anchored_launches == 0,
           "the UR10 path did not launch the anchor-free TR kernel once per call")
+    check(launches_eigh == 6, "the UR10 path's prepare did not launch K5 twice per call")
     shapes = {"q": (B_MAIN, tpl.n), "Y": (B_MAIN, ps.N, ps.dim), "e_pos": (B_MAIN,),
               "e_rot": (B_MAIN,), "cost": (B_MAIN,), "iterations": (B_MAIN,)}
     for i, (tp, ts, tf, summ, o) in enumerate(calls):
@@ -1679,15 +1977,16 @@ def main() -> int:
     first = first_call("6", solver_t, goals_t(B_MAIN))
     goal_sets = [goals_t(B_MAIN) for _ in range(3)]
     calls_t = []
-    solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = 0
+    solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = sym_eigh_cuda.launches = 0
     for T_goal in goal_sets:
         tp, ts, tf, peak, o = staged(solver_t, T_goal)
         calls_t.append((tp, ts, tf, peak, api.summarize(o), o))
     launches_a = solve_tr_cuda.anchored_launches
     log(f"[6] TR kernel launches during the 3 timed table-path calls: "
-        f"{solve_tr_cuda.launches}, anchored {launches_a}")
+        f"{solve_tr_cuda.launches}, anchored {launches_a}; K5 {sym_eigh_cuda.launches}")
     check(launches_a == 3 and solve_tr_cuda.launches == 3,
           "the table path did not launch the anchored TR kernel once per call")
+    check(sym_eigh_cuda.launches == 6, "the table path's prepare did not launch K5 twice a call")
     centers = torch.tensor(np.stack([c for c, _ in ps_t.obstacles]), dtype=torch.float32,
                            device=dev)
     radii = torch.tensor([r for _, r in ps_t.obstacles], dtype=torch.float32, device=dev)
@@ -1750,15 +2049,18 @@ def main() -> int:
         the launches. Checks one launch a call, shapes, finite outputs and
         the success floor."""
         out_calls = []
-        solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = 0
+        solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = sym_eigh_cuda.launches = 0
         for T_goal in goal_sets_:
             tp, ts, tf, _, o = staged(solver_, T_goal, *gen)
             out_calls.append((tp, ts, tf, api.summarize(o), o))
         n_launch = solve_tr_cuda.anchored_launches if anchored else solve_tr_cuda.launches
         log(f"[{tag}] TR launches during the {len(goal_sets_)} timed calls: "
-            f"{solve_tr_cuda.launches} (anchored {solve_tr_cuda.anchored_launches})")
+            f"{solve_tr_cuda.launches} (anchored {solve_tr_cuda.anchored_launches}); K5 "
+            f"{sym_eigh_cuda.launches}")
         check(n_launch == len(goal_sets_) and solve_tr_cuda.launches == len(goal_sets_),
               f"{tag}: the TR kernel did not launch once per call")
+        check(sym_eigh_cuda.launches == 2 * len(goal_sets_),
+              f"{tag}: prepare did not launch K5 twice per call")
         for i, (tp, ts, tf, summ, o) in enumerate(out_calls):
             B_ = o["e_pos"].shape[0]
             wall = tp + ts + tf
@@ -1897,7 +2199,7 @@ def main() -> int:
                                n_tree, 3 * B_TREE, restarts=3, lanes_bitwise=3 * B_TREE,
                                success=[c[3]["success_rate"] for c in calls_tree]))
 
-    # ---- phases 11-13: dense and sparse CIDGIK (no hand-written kernel) ----
+    # ---- phases 11-13: dense and sparse CIDGIK (K5 only) ----
     cidgik_paths = cidgik_phases(dev, gen, [
         ("ur10_cidgik", "11", ps, B_CIDGIK, CIDGIK_UR10, False),
         ("ur10_table_cidgik", "12", ps_t, B_CIDGIK_TABLE, {}, False)])
@@ -1905,7 +2207,7 @@ def main() -> int:
     cidgik_paths += cidgik_phases(dev, gen, [
         ("ur10_cidgik_sparse", "13", ps, B_CIDGIK, CIDGIK_UR10, True)])
 
-    # ---- phase 14: Riemannian CG on UR10 (no hand-written kernel) ----
+    # ---- phase 14: Riemannian CG on UR10 (K5 in prepare only) ----
     cg_path = cg_phase(dev, gen, ps, polish)
     log(f"[14] phases 13 and 14 took {time.perf_counter() - t_new:.1f} s")
 
@@ -1916,13 +2218,15 @@ def main() -> int:
     sharded_path = sharded_phase(dev, gen, ps, prod, polish)
     log(f"[16] phases 15 and 16 took {time.perf_counter() - t_new:.1f} s")
     # ---- phase 17: the trust region's "dense" and "edge" backends ----
-    backend_paths = tr_backends_phase(dev, gen, ps, ps_t, polish)
+    prepare_paths = []
+    backend_paths = tr_backends_phase(dev, gen, ps, ps_t, polish, prepare_paths)
     # ---- phase 18: the compiled solver against the eager stages ----
-    compiled_paths = compiled_phase(dev, graphed)
+    compiled_paths = compiled_phase(dev, graphed, prepare_paths)
 
     # Bounds: counted from the shapes and, for the TR kernels, from the
     # iteration counts of the runs that were timed. No single PyTorch call
-    # computes any of these functions, so there is no library time.
+    # computes K1-K4, so they have no library time; K5's is
+    # torch.linalg.eigh's (phase 19).
     N, d, E = ps.N, ps.dim, ep.E
     b_tr = bound(tr_flops(N, d, E, k_main), tr_bytes(N, d, E, B_MAIN))
     b_ta = bound(tr_flops(ep_t.N, 3, ep_t.E, ka, anchored_nodes=ep_t.a_nsel),
@@ -1932,7 +2236,16 @@ def main() -> int:
     shape_tr = tr_solve.kernel_shape(ep, B_MAIN, d)
     shape_ta = tr_solve.kernel_shape(ep_t, B_MAIN, 3)
     log(f"[kernels] TR launch shapes at B={B_MAIN}: UR10 {shape_tr}; table {shape_ta}")
+    t_e = eigh_rec["timing"]["f32"]
     record = {"kernels": [
+        {"name": "sym_eigh", "route": "cuda", "source": "graphik_tpu_torch/csrc/eigh.cu",
+         "replaces": "graphik_tpu/utils/dgp.py:62", "launches": launches_eigh,
+         "max_abs_err": eigh_rec["max_abs_err"], "ms": t_e["ms"], "plain_ms": t_e["plain_ms"],
+         "bound_ms": t_e["bound_ms"], "bound_by": t_e["bound_by"],
+         "library_ms": t_e["library_ms"],
+         "at": f"UR10's prepare Gram, B={t_e['B']}, n={t_e['n']}, float32; jnp.linalg.eigh "
+               "in the JAX package's jitted prepare, not a Pallas kernel",
+         "float64": eigh_rec["timing"]["f64"], "cases": eigh_rec["shapes"]},
         {"name": "tr_solve", "route": "cuda", "source": "graphik_tpu_torch/csrc/tr_solve.cu",
          "replaces": "graphik_tpu/ops/tr_pallas.py:59", "launches": launches,
          "max_abs_err": err_y, "ms": ms_kernel, "plain_ms": ms_plain,

@@ -19,9 +19,10 @@ the first call of each input shape and replayed after (utils/compiled.py);
 its solve too on the float32 TR-kernel path (K3, or K4 with anchors); the
 other solves (CGParams, the TR's "dense" and "edge" backends, so every
 float64 solve) run their loops through CUDA graphs of their pieces between
-the host reads the loop makes (compiled.Loop). Every result is the eager
-stages' bit for bit. Prepare stays eager: its `torch.linalg.eigh`
-synchronises with the host. CPU tensors run every stage eagerly.
+the host reads the loop makes (compiled.Loop); and prepare runs as a CUDA
+graph too, its two eigendecompositions on K5 (ops/eigh.py), which reads
+nothing back to the host. Every result is the eager stages' bit for bit.
+CPU tensors run every stage eagerly.
 Layouts match the JAX package: Y is (B, N, d), T_goal is (B, n_ee, hd, hd)
 with hd = d + 1, and the output dicts carry the same keys.
 """
@@ -141,9 +142,9 @@ def polish_solution(structure, q, T_goal, e_pos, e_rot, max_viol, limits_ok,
 class Solver:
     """The staged pipeline of `make_solver`; call it on T_goal, or run the
     stages one by one (prepare -> solve -> finish) to time them. With
-    `graphs` (the compiled solver) on a card, finish runs as a CUDA graph,
-    and solve too on the float32 TR-kernel path, or else through the
-    graphs of its loop's pieces; without, eagerly."""
+    `graphs` (the compiled solver) on a card, prepare and finish run as
+    CUDA graphs, and solve too on the float32 TR-kernel path, or else
+    through the graphs of its loop's pieces; without, eagerly."""
 
     structure: ProblemStructure
     params: Union[TRParams, CGParams] = TRParams()
@@ -171,20 +172,33 @@ class Solver:
 
     def prepare(self, T_goal):
         """Goal anchors, bound smoothing and the MDS init -> (D_goal, Y0),
-        over the Nr robot nodes when the structure has obstacles."""
+        over the Nr robot nodes when the structure has obstacles; one CUDA
+        graph in the compiled solver on a card."""
         T_goal = self.goals(T_goal)
+        if self._graphed(T_goal):
+            out = self.graphs.run("prepare", self._prepare, T_goal)
+        else:
+            out = self._prepare(T_goal)
+        return out["D_goal"], out["Y0"]
+
+    def _instance(self, T_goal):
+        """The smoothed instance and the (M, M) edge mask on its device."""
         inst = self.structure.instance(T_goal, dtype=self.dtype, smooth=True,
                                        n_nodes=self.n_nodes, smooth_iters=self.smooth_iters)
         M = self.structure.N if self.n_nodes is None else self.n_nodes
         omega = compiled.device_const(self.structure, ("omega", M), self.omega[:M, :M],
                                       device=inst["lb"].device)
-        Y0 = riemannian.generate_initialization(inst["lb"], inst["ub"], omega, self.structure.dim)
-        return inst["D_goal"], Y0
+        return inst, omega
 
-    def _graphed(self, Y):
-        """Whether a stage on Y runs as a CUDA graph: the compiled solver
+    def _prepare(self, T_goal):
+        inst, omega = self._instance(T_goal)
+        Y0 = riemannian.generate_initialization(inst["lb"], inst["ub"], omega, self.structure.dim)
+        return {"D_goal": inst["D_goal"], "Y0": Y0}
+
+    def _graphed(self, x):
+        """Whether a stage on x runs as a CUDA graph: the compiled solver
         on a card."""
-        return self.graphs is not None and Y.device.type == "cuda"
+        return self.graphs is not None and x.device.type == "cuda"
 
     def solve(self, Y0, D_goal):
         """The Riemannian solve from Y0: on the float32 TR-kernel path one
@@ -249,8 +263,8 @@ def make_solver(structure: ProblemStructure, params: Union[TRParams, CGParams] =
     """The compiled batched solver for `structure`: solver(T_goal) -> dict
     of per-instance q, Y, e_pos, e_rot, limit_violation, success, cost,
     gradnorm, iterations, num_inner, the same as `solve_ik`'s. On a card
-    the finish runs as a CUDA graph, one captured per input shape on its
-    first call (utils/compiled.py), and so does the float32 TR-kernel
+    prepare and finish run as CUDA graphs, each captured per input shape on
+    its first call (utils/compiled.py), and so does the float32 TR-kernel
     path's solve; every other solve runs its loop through the graphs of its
     pieces (compiled.Loop), for every params and dtype.
     params: TRParams for the trust-region solver, CGParams for the

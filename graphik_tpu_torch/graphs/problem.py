@@ -294,6 +294,14 @@ class ProblemStructure:
     # ------------------------------------------------------------------
     # instance assembly (tensors on the goals' device)
     # ------------------------------------------------------------------
+    def goal_batch_shape(self, T_goal):
+        """The batch dims of goal poses T_goal: (..., hd, hd) single-ee or
+        (..., n_ee, hd, hd)."""
+        n_ee = len(self.template.ee)
+        if T_goal.shape[-3:-2] != (n_ee,) or T_goal.ndim < 3:
+            return tuple(T_goal.shape[:-2])  # single-ee convenience
+        return tuple(T_goal.shape[:-3])
+
     def goal_positions(self, T_goal, dtype=None):
         """Node positions implied by end-effector goal pose(s).
 
@@ -306,10 +314,8 @@ class ProblemStructure:
         tpl = self.template
         dim = self.dim
         T_goal = torch.as_tensor(T_goal, dtype=dtype)
-        n_ee = len(tpl.ee)
-        if T_goal.shape[-3:-2] != (n_ee,) or T_goal.ndim < 3:
-            T_goal = T_goal[..., None, :, :]  # single-ee convenience
-        batch = T_goal.shape[:-3]
+        batch = self.goal_batch_shape(T_goal)
+        T_goal = T_goal.reshape(batch + (len(tpl.ee),) + T_goal.shape[-2:])
         pos = _const(self, "pos_fixed", self.pos_fixed, T_goal).expand(
             batch + (self.N, dim)).clone()
         for e, ee in enumerate(tpl.ee):

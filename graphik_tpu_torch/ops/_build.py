@@ -67,6 +67,11 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I,                         # B, N, D, E, dg_stride, hess, device
         _P,                                                 # info (7 int32)
     ],
+    "graphik_sym_eigh": [
+        _P, _P, _P, _P,                                     # A, W, V, conv
+        _I, _I, _I,                                         # B, n, is_double
+        _P,                                                 # stream
+    ],
 }
 
 

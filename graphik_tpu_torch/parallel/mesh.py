@@ -38,7 +38,7 @@ from graphik_tpu_torch.graphs.problem import ProblemStructure
 from graphik_tpu_torch.solvers import riemannian
 from graphik_tpu_torch.solvers.local import LocalParams
 from graphik_tpu_torch.solvers.riemannian import TRParams
-from graphik_tpu_torch.utils import compiled
+from graphik_tpu_torch.utils import compiled, dgp
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -165,27 +165,39 @@ class RestartSolver(Solver):
 
     def prepare(self, T_goal, generator: Optional[torch.Generator] = None, fracs=None):
         """Goal anchors, bound smoothing and R MDS inits -> (D_goal, Y0),
-        each folded to (R * B, M, ...). `fracs` (R - 1, B, M, M), in place
-        of a generator, gives restarts 1.. their interpolation fractions
-        (to replay another run's draws)."""
+        each folded to (R * B, M, ...). Restarts 1.. take their
+        interpolation fractions (R - 1, B, M, M) from `fracs` (to replay
+        another run's draws) or draw them from `generator`, in order, as
+        dgp.sample_distance_matrix draws them - here, before the stage, so
+        that on a card the stage (the instance and the R inits, whose two
+        eigendecompositions are one K5 launch each) runs as one CUDA graph
+        with the fractions as an input."""
         R = self.n_restarts
         if R > 1 and generator is None and fracs is None:
             raise ValueError("restarts 1.. sample their inits: pass a torch.Generator")
         T_goal = self.goals(T_goal)
-        inst = self.structure.instance(T_goal, dtype=self.dtype, smooth=True,
-                                       n_nodes=self.n_nodes, smooth_iters=self.smooth_iters)
-        M = self.structure.N if self.n_nodes is None else self.n_nodes
-        omega = compiled.device_const(self.structure, ("omega", M), self.omega[:M, :M],
-                                      device=inst["lb"].device)
-        dim = self.structure.dim
-        Y0 = torch.stack([
-            riemannian.generate_initialization(
-                inst["lb"], inst["ub"], omega, dim, generator=None if r == 0 else generator,
-                frac=None if r == 0 or fracs is None else fracs[r - 1])
-            for r in range(R)])
+        args = (T_goal,)
+        if R > 1:
+            if fracs is None:
+                dt = T_goal.dtype if self.dtype is None else self.dtype
+                M = self.structure.N if self.n_nodes is None else self.n_nodes
+                shape = self.structure.goal_batch_shape(T_goal) + (M, M)
+                fracs = torch.stack([dgp.draw_fractions(shape, dt, T_goal.device, generator)
+                                     for _ in range(R - 1)])
+            args += (torch.as_tensor(fracs, device=T_goal.device),)
+        if self._graphed(T_goal):
+            out = self.graphs.run("prepare", self._prepare_restarts, *args)
+        else:
+            out = self._prepare_restarts(*args)
+        return out["D_goal"], out["Y0"]
+
+    def _prepare_restarts(self, T_goal, fracs=()):
+        inst, omega = self._instance(T_goal)
+        Y0 = riemannian.generate_initializations(inst["lb"], inst["ub"], omega,
+                                                 self.structure.dim, [None, *fracs])
         D_goal = inst["D_goal"]
-        D_goal = D_goal.expand((R,) + D_goal.shape).reshape((-1,) + D_goal.shape[1:])
-        return D_goal, Y0.reshape((-1,) + Y0.shape[2:])
+        D_goal = D_goal.expand((self.n_restarts,) + D_goal.shape).reshape((-1,) + D_goal.shape[1:])
+        return {"D_goal": D_goal, "Y0": Y0.reshape((-1,) + Y0.shape[2:])}
 
     def finish(self, sol, T_goal):
         """The single-init finish on every restart, then the per-goal pick."""
@@ -214,11 +226,11 @@ def make_restart_solver(structure: ProblemStructure, n_restarts: int = 4,
                         smooth_iters: Optional[int] = None, device=None) -> RestartSolver:
     """The compiled batched multi-restart solver: solver(T_goal, generator)
     -> the selected per-goal dict of `api.make_solver`'s keys plus
-    "restart_index". Prepare (which draws from the generator) runs eagerly;
-    on a card, solve and finish with the pick run as `api.make_solver`'s
-    (CUDA graphs, one captured per batch length, as the JAX package jits
-    one finish per batch length), for every params and dtype. Devices as in
-    `api.make_solver`."""
+    "restart_index". On a card prepare (after the generator's draws, which
+    it takes as an input), solve and finish with the pick run as
+    `api.make_solver`'s (CUDA graphs, one captured per batch length, as the
+    JAX package jits one finish per batch length), for every params and
+    dtype. Devices as in `api.make_solver`."""
     return RestartSolver(structure, params, use_limits, dtype, polish=polish,
                          polish_params=polish_params, smooth_iters=smooth_iters,
                          device=device, graphs=compiled.StageGraphs(), n_restarts=n_restarts)

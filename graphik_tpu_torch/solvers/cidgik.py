@@ -29,12 +29,14 @@ the JAX package's while_loop's. The SYNC_EVERY steps between two reads
 are one piece of a compiled.Loop: on a card a CUDA graph, captured once
 per template and shape and replayed (the template owns its graphs, and
 they go with it), as the JAX package's loops run as one device program
-whether or not their caller jits them; on the CPU, eager. The eigh cone
-projection (cone_ns_iters = 0) cannot be captured: that ADMM runs its
-pieces eagerly on a card too.
+whether or not their caller jits them; on the CPU, eager.
 
-Eigendecompositions are `torch.linalg.eigh` of the symmetrised matrix (the
-JAX package's fixed-sweep Jacobi is a TPU workaround); `eigh_sweeps` is
+Eigendecompositions (the Fantope step, and the cone projection when
+cone_ns_iters = 0) are ops/eigh.py::sym_eigh of the symmetrised matrix -
+K5, a hand-written Jacobi kernel, on a card, which reads nothing back to
+the host, so the eigh cone projection replays inside the ADMM's graphs as
+the Newton-Schulz one does; the Fantope step runs eagerly once a round.
+The JAX package's fixed-sweep Jacobi is a TPU workaround; `eigh_sweeps` is
 kept as a field and selects nothing here. Status codes: 0 = FEASIBLE,
 1 = INFEASIBLE (the primal residual did not reach `feas_tol`).
 """
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 
 from graphik_tpu_torch.graphs.problem import ProblemStructure
+from graphik_tpu_torch.ops.eigh import sym_eigh
 from graphik_tpu_torch.ops.linalg import psd_project_ns, spd_inverse_factor
 from graphik_tpu_torch.robots import kinematics
 from graphik_tpu_torch.utils import compiled
@@ -380,7 +383,7 @@ class CidgikParams:
     rel_tol: float = 1e-3
     feas_tol: float = 1e-4  # primal residual -> FEASIBLE / INFEASIBLE
     # The JAX package's Jacobi sweeps (0: its jnp.linalg.eigh). Kept for
-    # the same fields; the port always uses torch.linalg.eigh.
+    # the same fields; the port always uses ops/eigh.py::sym_eigh.
     eigh_sweeps: int = 8
     # > 0: the per-iteration PSD cone projection is that many Newton-Schulz
     # steps (batched matmuls) instead of an eigendecomposition. The Fantope
@@ -420,9 +423,9 @@ def _select(mask, new, old):
 
 
 def _sym_eigh(W):
-    """torch.linalg.eigh of (W + W^T) / 2, as jnp.linalg.eigh factors it
-    (torch's reads one triangle only)."""
-    return torch.linalg.eigh(0.5 * (W + W.transpose(-1, -2)))
+    """ops/eigh.py::sym_eigh (K5 on a card) of (W + W^T) / 2, as
+    jnp.linalg.eigh factors it (sym_eigh reads one triangle only)."""
+    return sym_eigh(0.5 * (W + W.transpose(-1, -2)))
 
 
 def _cone_project(W, t, lo, hi, params, pad_mask=None):
@@ -492,14 +495,6 @@ def _run_admm(make_step, static, consts, carry, iters, graphs, period=1):
         solve_cidgik.admm_steps += n
         k += n
     return loop.take(*(f"x{i}" for i in range(len(carry))))
-
-
-def _admm_graphs(graphs, params):
-    """The graphs an ADMM with `params` runs through: none when its cone
-    projection is an eigendecomposition (cone_ns_iters = 0), which
-    synchronises with the host and cannot be captured (as prepare's eigh);
-    that loop runs its pieces eagerly, on a card too."""
-    return graphs if params.cone_ns_iters else None
 
 
 def _admm_params(params):
@@ -597,7 +592,7 @@ def _solve_sdp_admm(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params, pad_mask=No
         consts["pad_mask"] = pad_mask
     carry = (Z0, t0, U0[0], U0[1], torch.full((B,), params.rho, dtype=dt, device=dev))
     Z, t, Uz, ut, _ = _run_admm(_vmap_step, (_admm_params(params),), consts, carry,
-                                params.admm_iters, _admm_graphs(graphs, params),
+                                params.admm_iters, graphs,
                                 period=params.adapt_every or 1)
 
     # primal feasibility of the returned cone-feasible iterate
@@ -942,7 +937,7 @@ def _solve_sdp_admm_split(op: _SplitOperator, aux, C, Z0, t0, U0, params, d: int
     consts["C_rho"] = C / params.rho
     Z, t, Uz, ut = _run_admm(_dense_split_step, (_admm_params(params), op, d), consts,
                              (Z0, t0, U0[0], U0[1]), params.admm_iters,
-                             _admm_graphs(graphs, params))
+                             graphs)
 
     # primal feasibility of the returned cone-feasible iterate: with t = 0,
     # apply_A gives the raw constraint values (b subtracted on eq rows only)

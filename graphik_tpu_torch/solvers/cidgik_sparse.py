@@ -26,11 +26,13 @@ Two ADMM engines, as in the JAX package and the dense solver
 * "vmap": the per-instance engine (the oracle): each instance has its own
   Gram factor and stops on its own residual; every round runs admm_iters.
 
-Block eigendecompositions are torch.linalg.eigh of the symmetrised blocks.
-The JAX package uses fixed-sweep Jacobi there because XLA's batched eigh
-returned NaN on stacks with exact-zero padded rows; torch.linalg.eigh is
-held on such stacks by the tests (on the CPU, and on the card by
-tests/test_torch_cuda.py and chip_smoke.py). `eigh_sweeps` selects nothing.
+Block eigendecompositions are ops/eigh.py::sym_eigh (K5 on a card) of the
+symmetrised blocks. The JAX package uses fixed-sweep Jacobi there because
+XLA's batched eigh returned NaN on stacks with exact-zero padded rows; K5's
+Jacobi leaves an exact-zero row and column alone (never rotated, its unit
+eigenvector kept), held on such stacks by the tests (on the CPU, and on the
+card by tests/test_torch_cuda.py and chip_smoke.py). `eigh_sweeps` selects
+nothing.
 """
 
 from __future__ import annotations
@@ -49,7 +51,6 @@ from graphik_tpu_torch.solvers.cidgik import (
     CidgikParams,
     _bmv,
     _cone_project,
-    _admm_graphs,
     _admm_params,
     _convex_iteration,
     _dev,
@@ -382,7 +383,7 @@ def _solve_sdp_admm_blocks(A_eq, b_eq, A_in, lo, hi, C, Z0, t0, U0, params, pad_
                            graphs=graphs)
 
 
-def _fantope_blocks(Z, d, member):
+def _fantope_blocks(Z, d, member, diag_valid=None):
     """Per-clique Fantope projection and the excess-rank eigenvalue sum, for
     both engines (the JAX package's _fantope_blocks and
     _fantope_blocks_batched).
@@ -391,13 +392,16 @@ def _fantope_blocks(Z, d, member):
     rank-d-complement projector is C_k = diag(valid_k) - U_d U_d^T, U_d the
     top-d eigenvectors (the last d columns of the ascending eigh; the I_d
     corner keeps them in the valid subspace), so padded rows receive no
-    cost. eig_sum = sum_k (tr Z_k - the top-d eigenvalues). Returns
+    cost. eig_sum = sum_k (tr Z_k - the top-d eigenvalues). diag_valid:
+    `_valid_slots(member, d)` on Z's device and in its dtype, when the
+    caller holds it (a copy from the host synchronises). Returns
     (C (..., K, ds, ds), eig_sum (...)).
     """
     lam, Q = _sym_eigh(Z)
     ds = Z.shape[-1]
     top = Q[..., ds - d:]
-    diag_valid = torch.as_tensor(_valid_slots(member, d), dtype=Z.dtype, device=Z.device)
+    if diag_valid is None:
+        diag_valid = torch.as_tensor(_valid_slots(member, d), dtype=Z.dtype, device=Z.device)
     C = torch.diag_embed(diag_valid) - top @ top.transpose(-1, -2)
     eig_sum = lam.sum(dim=(-2, -1)) - lam[..., ds - d:].sum(dim=(-2, -1))
     return C, eig_sum
@@ -651,7 +655,7 @@ def _solve_sdp_admm_sparse_split(op: _SparseSplitOperator, aux, C, Z0, t0, U0, p
     consts.update(Cf_rho=C.reshape(B, -1) / params.rho, pad_mask=pad_mask)
     Zf, t, Uz, ut = _run_admm(_sparse_split_step, (_admm_params(params), op, shape), consts,
                               (Z0.reshape(B, -1), t0, U0[0].reshape(B, -1), U0[1]),
-                              params.admm_iters, _admm_graphs(graphs, params))
+                              params.admm_iters, graphs)
 
     # primal feasibility of the returned cone-feasible iterate: with t = 0,
     # apply_A gives the raw constraint values (b subtracted on eq rows only)
@@ -703,7 +707,8 @@ def solve_cidgik_sparse(comp: CidgikSparseCompiled, T_goal,
     Z[:, :, :d, :d] = torch.eye(d, dtype=dt, device=dev)
     # the initial rank-forcing cost: the identity on the valid slots only, so
     # that no dual charge builds up against padded coordinates
-    C = torch.diag_embed(_dev(comp, "valid_slots", lambda: valid, dt, dev)).expand(B, K, ds, ds)
+    diag_valid = _dev(comp, "valid_slots", lambda: valid, dt, dev)
+    C = torch.diag_embed(diag_valid).expand(B, K, ds, ds)
 
     if engine == "split":
         op = _build_sparse_split_operator(comp)
@@ -720,7 +725,8 @@ def solve_cidgik_sparse(comp: CidgikSparseCompiled, T_goal,
             return _solve_sdp_admm_blocks(A_eq, b_eq, A_in, lo, hi, C, Z, t, U, round_params,
                                           pad_mask=pad_mask, graphs=graphs)
 
-    Z, feas, eig_sum = _convex_iteration(admm, lambda Z: _fantope_blocks(Z, d, comp.member),
+    Z, feas, eig_sum = _convex_iteration(admm, lambda Z: _fantope_blocks(Z, d, comp.member,
+                                                                         diag_valid),
                                          _rounds(params, engine), Z, C, lo, hi, params)
 
     # free positions: the mean of each node's rows over its cliques

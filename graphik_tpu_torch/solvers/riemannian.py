@@ -349,17 +349,33 @@ def generate_initialization(lb, ub, omega, dim, generator=None, frac=None):
     `generator` draws it per entry or `frac` gives it
     (dgp.sample_distance_matrix).
 
-    jnp.linalg.eigh factors (G + G^T) / 2, torch.linalg.eigh reads one
-    triangle only, so G is symmetrised first. A sampled D, and so its G, is
-    not symmetric; the deterministic G differs from G^T by the rounding of
-    its row and column means.
+    jnp.linalg.eigh factors (G + G^T) / 2, sym_eigh reads one triangle
+    only, so G is symmetrised first. A sampled D, and so its G, is not
+    symmetric; the deterministic G differs from G^T by the rounding of its
+    row and column means. Nothing here reads the host: on a card the two
+    eigendecompositions are K5 (ops/eigh.py), and the whole init runs
+    inside prepare's CUDA graph (a generator's draw is the exception:
+    pass `frac` there).
     """
-    D_rand = dgp.sample_distance_matrix(lb, ub, generator=generator, frac=frac)
-    G = dgp.gram_from_distance_matrix(D_rand)
-    G = (G + G.transpose(-1, -2)) / 2.0
-    X = dgp.mds(G, eps=1e-8)
+    if generator is not None:
+        frac = dgp.draw_fractions(lb.shape, lb.dtype, lb.device, generator)
+    return generate_initializations(lb, ub, omega, dim, [frac])[0]
+
+
+def generate_initializations(lb, ub, omega, dim, fracs):
+    """One `generate_initialization` for each entry of fracs (None: the
+    deterministic 0.9), stacked (R, ..., N, dim). Each init's arithmetic
+    is its own call's, on the same shapes; only the two eigendecompositions
+    take the R inits' stacks at once (one sym_eigh launch each, whose
+    result for a matrix does not depend on the stack it came in)."""
+    Gs = []
+    for frac in fracs:
+        G = dgp.gram_from_distance_matrix(dgp.sample_distance_matrix(lb, ub, frac=frac))
+        Gs.append((G + G.transpose(-1, -2)) / 2.0)
+    Xs = dgp.mds(torch.stack(Gs), eps=1e-8)
     omega = torch.as_tensor(omega, device=lb.device)  # a tensor on lb's device: no copy
-    return dgp.linear_projection(X, omega, dim)
+    bases = dgp.top_basis(torch.stack([dgp.edge_scatter(X, omega) for X in Xs]), dim)
+    return torch.stack([X @ basis for X, basis in zip(Xs, bases)])
 
 
 # line searches whose slowest lane sets how many evaluations the next one

@@ -22,7 +22,8 @@ stage and the line that called the operator that failed (the innermost
 frame outside torch, with its source); there is no eager retry.
 
 Python does not run on a replay, so the kernels' launch counters
-(`solve_tr_cuda.launches` and the others) would stop at the capture: each
+(`solve_tr_cuda.launches`, `sym_eigh_cuda.launches` and the others) would
+stop at the capture: each
 graph records how many launches of each counter it holds, the capture's
 own count is taken back (a capture launches nothing), and every replay
 adds the graph's count.
@@ -98,10 +99,12 @@ def device_const(owner, key, value, dtype=None, device=None):
 def _counters():
     """The kernels' launch counters: (wrapper function, attribute)."""
     from graphik_tpu_torch.ops.edge import cost_and_egrad_cuda, ehess_cuda
+    from graphik_tpu_torch.ops.eigh import sym_eigh_cuda
     from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda
 
     return ((solve_tr_cuda, "launches"), (solve_tr_cuda, "anchored_launches"),
-            (cost_and_egrad_cuda, "launches"), (ehess_cuda, "launches"))
+            (cost_and_egrad_cuda, "launches"), (ehess_cuda, "launches"),
+            (sym_eigh_cuda, "launches"))
 
 
 def _read_counters():

@@ -1,9 +1,12 @@
 """Distance-geometry core: Gram <-> EDM <-> positions, MDS, bound smoothing.
 
 Port of graphik_tpu/utils/dgp.py. All
-functions broadcast over leading batch dims. Eigendecompositions use
-`torch.linalg.eigh`; the JAX package's fixed-sweep Jacobi and subspace
-iterations are TPU workarounds and are not ported.
+functions broadcast over leading batch dims. Eigendecompositions go
+through ops/eigh.py::sym_eigh (K5, a hand-written Jacobi kernel, on a card;
+its plain version on the CPU), which reads the lower triangle and never
+reads the host, so prepare runs inside a CUDA graph; the JAX package's
+fixed-sweep Jacobi and subspace iterations are TPU workarounds and are not
+ported.
 
 Distance matrices ``D`` hold *squared* distances; bound matrices
 ``lb``/``ub`` hold *unsquared* distances.
@@ -14,6 +17,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from graphik_tpu_torch.ops.eigh import sym_eigh
 
 # Sentinel for "no edge" in min-plus shortest paths. Large but far from
 # overflow so sums of two stay representable in float32.
@@ -54,7 +59,7 @@ def factor_psd(A, eps=0.0):
     sqrt(eigval), order columns by descending eigenvalue; all N columns are
     kept (trailing ones are ~0).
     """
-    evals, evecs = torch.linalg.eigh(A)  # ascending
+    evals, evecs = sym_eigh(A)  # ascending
     evals = torch.where(evals > eps, evals, torch.zeros_like(evals))
     X = evecs * torch.sqrt(evals)[..., None, :]
     return torch.flip(X, dims=(-1,))
@@ -65,22 +70,32 @@ def mds(B, eps=1e-8):
     return factor_psd(B, eps=eps)
 
 
-def linear_projection(P, F, dim):
-    """Project points onto the dominant `dim`-dim subspace of the edge scatter.
-
-    S = sum over nonzero (i, j) of F of outer(P_i - P_j); P is projected
-    onto the top-`dim` eigenvectors of S. `F` is a dense (N, N) mask.
-    """
+def edge_scatter(P, F):
+    """S = sum over nonzero (i, j) of F of outer(P_i - P_j), for points P
+    (..., N, k) and a dense (N, N) mask F."""
     mask = (F != 0).to(P.dtype)
     deg_i = mask.sum(dim=-1)  # (..., N)
     deg_j = mask.sum(dim=-2)
     PtP_i = torch.einsum("...i,...ik,...il->...kl", deg_i, P, P)
     PtP_j = torch.einsum("...j,...jk,...jl->...kl", deg_j, P, P)
     cross = torch.einsum("...ij,...ik,...jl->...kl", mask, P, P)
-    S = PtP_i + PtP_j - cross - cross.transpose(-1, -2)
-    _, eigvec = torch.linalg.eigh(S)  # ascending
-    basis = torch.flip(eigvec, dims=(-1,))[..., :, :dim]
-    return P @ basis
+    return PtP_i + PtP_j - cross - cross.transpose(-1, -2)
+
+
+def top_basis(S, dim):
+    """The eigenvectors of the `dim` largest eigenvalues of S, largest
+    first: (..., k, dim)."""
+    _, eigvec = sym_eigh(S)  # ascending
+    return torch.flip(eigvec, dims=(-1,))[..., :, :dim]
+
+
+def linear_projection(P, F, dim):
+    """Project points onto the dominant `dim`-dim subspace of the edge scatter.
+
+    S = sum over nonzero (i, j) of F of outer(P_i - P_j); P is projected
+    onto the top-`dim` eigenvectors of S. `F` is a dense (N, N) mask.
+    """
+    return P @ top_basis(edge_scatter(P, F), dim)
 
 
 def sample_distance_matrix(lb, ub, generator=None, frac=None):
@@ -93,11 +108,18 @@ def sample_distance_matrix(lb, ub, generator=None, frac=None):
     not symmetric. A given `frac` (float or tensor) is used as it is.
     """
     if generator is not None:
-        frac = torch.rand(lb.shape, generator=generator, dtype=lb.dtype,
-                          device=generator.device).to(lb.device)
+        frac = draw_fractions(lb.shape, lb.dtype, lb.device, generator)
     elif frac is None:
         frac = 0.9
     return (lb + frac * (ub - lb)) ** 2
+
+
+def draw_fractions(shape, dtype, device, generator):
+    """Interpolation fractions uniform in [0, 1), one per entry of
+    `shape`, drawn on the generator's device and then moved to `device`:
+    the draw of `sample_distance_matrix`. A copy from the CPU cannot be
+    captured into a CUDA graph, so a captured stage takes them drawn."""
+    return torch.rand(shape, generator=generator, dtype=dtype, device=generator.device).to(device)
 
 
 def best_fit_transform(A, B):
@@ -140,7 +162,7 @@ def normalize_positions(Y):
     eigenvectors of their scatter, in eigh's ascending order)."""
     Yc = Y - Y.mean(dim=-2, keepdim=True)
     C = Yc.transpose(-1, -2) @ Yc
-    _, v = torch.linalg.eigh(0.5 * (C + C.transpose(-1, -2)))  # eigh reads one triangle
+    _, v = sym_eigh(0.5 * (C + C.transpose(-1, -2)))  # sym_eigh reads one triangle
     return Yc @ v
 
 

@@ -689,8 +689,9 @@ def test_capture_of_a_synchronising_op_raises(cuda):
     """A stage that synchronises with the host cannot be captured: the
     capture raises CaptureError naming the line that called the operator,
     keeps no graph and does not run the stage eagerly instead, at every
-    call. Prepare's torch.linalg.eigh is such an op, which is why prepare
-    stays eager."""
+    call. Prepare's eigendecompositions (K5) read nothing back to the
+    host, so prepare captures: its first call and its replay are the eager
+    prepare bit for bit."""
     from graphik_tpu_torch.utils import compiled
 
     graphs = compiled.StageGraphs()
@@ -701,11 +702,116 @@ def test_capture_of_a_synchronising_op_raises(cuda):
     assert graphs.graphs == {}
     _, ps = load_ur10()
     solver = api.make_solver(ps, smooth_iters=2)
+    eager = dataclasses.replace(solver, graphs=None)
     T_goal = api.random_goals(ps, (16,), torch.Generator().manual_seed(23),
                               dtype=torch.float32, device=cuda)[0]
-    with pytest.raises(compiled.CaptureError, match=r"utils/dgp\.py:\d+: .*torch\.linalg\.eigh"):
-        solver.graphs.run("prepare", lambda T: dict(zip(("D", "Y0"), solver.prepare(T))), T_goal)
+    for _ in range(2):
+        D, Y0 = solver.prepare(T_goal)
+        D_e, Y0_e = eager.prepare(T_goal)
+        assert torch.equal(D, D_e) and torch.equal(Y0, Y0_e)
+    assert [k[0] for k in solver.graphs.graphs] == ["prepare"]
     assert float(torch.ones(4, device=cuda).sum()) == 4.0  # the card still works
+
+
+def _symmetric(rs, B, n, dtype, device):
+    X = rs.normal(size=(B, n, n))
+    return torch.tensor(X + X.transpose(0, 2, 1), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [2, 3, 9, 13, 16, 17, 18, 31, 32])
+def test_sym_eigh_kernel_matches_plain(cuda, dtype, n):
+    """K5 (csrc/eigh.cu) against its plain version on the card, 301
+    random symmetric matrices (a ragged last block): eigenvalues,
+    eigenvectors and flags bitwise equal, every matrix converged, one
+    launch counted; eigenvalues within 1e-5 (f32) or 1e-12 (f64) of
+    ||A||_F from torch.linalg.eigh; and the first 77 matrices alone give the
+    same bits (one matrix a warp or half warp: batch-invariant)."""
+    from graphik_tpu_torch.ops import eigh
+
+    A = _symmetric(np.random.RandomState(n), 301, n, dtype, cuda)
+    before = eigh.sym_eigh_cuda.launches
+    w, V, conv = eigh.sym_eigh_cuda(A)
+    assert eigh.sym_eigh_cuda.launches == before + 1
+    w_p, V_p, conv_p = eigh.sym_eigh_reference(A)
+    assert torch.equal(w, w_p) and torch.equal(V, V_p) and torch.equal(conv, conv_p)
+    assert bool(conv.all())
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    scale = torch.linalg.matrix_norm(A.double())[:, None]
+    assert bool(((w.double() - torch.linalg.eigvalsh(A.double())).abs() <= tol * scale).all())
+    w1, V1, _ = eigh.sym_eigh_cuda(A[:77])
+    assert torch.equal(w1, w[:77]) and torch.equal(V1, V[:77])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_sym_eigh_kernel_equal_diagonals(cuda, dtype):
+    """Equal diagonal entries (theta = +-0 in a rotation, t taking its
+    sign bit), n = 2, 9, 13, 20: K5 bitwise its plain version, every matrix
+    converged."""
+    from graphik_tpu_torch.ops import eigh
+
+    rs = np.random.RandomState(5)
+    for n in (2, 9, 13, 20):
+        E = np.triu(rs.normal(size=(300, n, n)), 1)
+        A = torch.tensor(2.0 * np.eye(n) + E + E.transpose(0, 2, 1), dtype=dtype, device=cuda)
+        w, V, conv = eigh.sym_eigh_cuda(A)
+        w_p, V_p, _ = eigh.sym_eigh_reference(A)
+        assert torch.equal(w, w_p) and torch.equal(V, V_p) and bool(conv.all()), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_sym_eigh_kernel_leaves_padded_rows_alone(cuda, dtype):
+    """The sparse CIDGIK's padded clique blocks (exact-zero rows and
+    columns): K5 bitwise its plain version, each padded index keeping
+    eigenvalue 0 and its unit eigenvector."""
+    from graphik_tpu_torch.ops import eigh
+
+    rs = np.random.RandomState(4)
+    A = _symmetric(rs, 600, 9, dtype, cuda)
+    A[::3, 7:, :] = 0.0
+    A[::3, :, 7:] = 0.0
+    w, V, conv = eigh.sym_eigh_cuda(A)
+    w_p, V_p, _ = eigh.sym_eigh_reference(A)
+    assert torch.equal(w, w_p) and torch.equal(V, V_p) and bool(conv.all())
+    unit = (V[::3, 7:, :] == 1.0)
+    assert bool((unit.sum(-1) == 1).all())
+    cols = unit.float().argmax(-1)
+    assert bool((w[::3].gather(1, cols) == 0.0).all())
+
+
+@pytest.mark.parametrize("restarts", [1, 2])
+def test_compiled_prepare_equals_eager(cuda, restarts):
+    """The compiled solver's prepare on the card (make_solver, and
+    make_restart_solver with its generator's draws taken before the stage)
+    is one CUDA graph: its first call and its replays bitwise the eager
+    prepare on the same goals and generator seed, at float32 and float64,
+    with K5 launched twice a call (the Gram and the edge scatter, each
+    stacked over the restarts) and counted on replay."""
+    from graphik_tpu_torch.ops import eigh
+    from graphik_tpu_torch.parallel import mesh
+
+    _, ps = load_ur10()
+    for dtype in (torch.float32, torch.float64):
+        if restarts == 1:
+            solver = api.make_solver(ps, smooth_iters=2)
+            gen = ()
+        else:
+            solver = mesh.make_restart_solver(ps, n_restarts=restarts, smooth_iters=2)
+        eager = dataclasses.replace(solver, graphs=None)
+        T_goal = api.random_goals(ps, (64,), torch.Generator().manual_seed(24), dtype=dtype,
+                                  device=cuda)[0]
+        for call in range(3):
+            if restarts > 1:
+                gen = (torch.Generator().manual_seed(40 + call),)
+            before = eigh.sym_eigh_cuda.launches
+            D, Y0 = solver.prepare(T_goal, *gen)
+            assert eigh.sym_eigh_cuda.launches == before + 2, (dtype, call)
+            if restarts > 1:
+                gen = (torch.Generator().manual_seed(40 + call),)
+            D_e, Y0_e = eager.prepare(T_goal, *gen)
+            assert Y0.shape == (restarts * 64, ps.N, 3)
+            assert torch.equal(D, D_e) and torch.equal(Y0, Y0_e), (dtype, call)
+        assert sum(k[0] == "prepare" for k in solver.graphs.graphs) == 1
 
 
 def _same(a, b, what):
@@ -732,8 +838,9 @@ def test_cidgik_loop_graphs_equal_eager(cuda, case):
     (compiled.eager_loops) on the same goals, with the same ADMM step
     count and no further capture on the second; then the finish through a
     StageGraphs, bitwise the eager finish, at float32 and float64. With
-    the eigh cone projection (cone_ns_iters = 0), which cannot be
-    captured, the ADMM runs eagerly on the card: no piece is captured."""
+    the eigh cone projection (cone_ns_iters = 0) the pieces hold K5, and
+    the ADMM captures and replays them the same way: bitwise the eager
+    pieces over two calls."""
     from graphik_tpu_torch.solvers import cidgik, cidgik_sparse
     from graphik_tpu_torch.utils import compiled
 
@@ -775,9 +882,18 @@ def test_cidgik_loop_graphs_equal_eager(cuda, case):
             _same(graphs.run("finish", finish, out["q"], T), finish(out["q"], T),
                   (case, dtype, "finish", call))
     eigh = dict(kw, params=dataclasses.replace(kw["params"], cone_ns_iters=0, max_outer=1))
-    n_loops = len(cidgik._graphs(comp).loops)
-    assert solve(comp, T, **eigh)["q"].device.type == "cuda"
-    assert len(cidgik._graphs(comp).loops) == n_loops
+    from graphik_tpu_torch.ops.eigh import sym_eigh_cuda
+
+    for call in range(2):
+        n_pieces = sum(len(b.pieces) for b in cidgik._graphs(comp).loops.values())
+        before = sym_eigh_cuda.launches
+        out = solve(comp, T, **eigh)
+        assert sym_eigh_cuda.launches > before
+        with compiled.eager_loops():
+            ref = solve(comp, T, **eigh)
+        _same(out, ref, (case, "eigh", call))
+        grown = sum(len(b.pieces) for b in cidgik._graphs(comp).loops.values()) - n_pieces
+        assert grown > 0 if call == 0 else grown == 0, (case, call)
 
 
 @pytest.mark.parametrize("case", ["ur10_f64", "table_f64", "planar10_edge", "cg", "cg_f64"])
