@@ -172,9 +172,14 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      Nr = 16 at B = 1000, dense CIDGIK's lifted Z (s = 13) and the sparse
      path's padded clique blocks at B = 1024 (float32 and float64), and
      seeded random matrices at n = 2, 3, 31, 32 and with equal diagonals
-     at n = 13; UR10's first 501 Grams
-     bitwise the same alone; K5's, torch.linalg.eigh's and the plain
-     version's times at UR10's shape beside the bound.
+     at n = 13, and each path's matrices at the batch it launches
+     (`eigh_path_inputs`: UR10, planar6, planar10, KUKA iiwa at B = 8192,
+     the tree's 3 x 1000, CIDGIK's Fantope inputs at B = 1024; float32
+     and float64); UR10's first 501 Grams bitwise the same alone; K5's,
+     torch.linalg.eigh's and the plain version's times at UR10's shape
+     beside the bound, K5's on UR10's first 1024-8192 Grams (occupancy),
+     and K5's and torch.linalg.eigh's on each path's matrices beside
+     their bounds.
 
 Phases 3, 6, 8-10, 15 and 16 run the compiled solver (make_solver,
 make_restart_solver, solve_ik_sharded): the warm call is the first call
@@ -317,6 +322,9 @@ PEAK_BYTES = 3.35e12
 # 1e-12 and 2e-5); cuSOLVER's own error adds to the eigenvalue gap.
 EIGH_RES = {"f32": 2e-5, "f64": 1e-12}
 EIGH_EIG = {"f32": 2e-5, "f64": 1e-12}
+# K5's occupancy sweep: the first B of UR10's 8192 Grams, from about one
+# warp a scheduler to eight (the first kernel's blocks, one wave)
+EIGH_OCCUPANCY_B = (1024, 2048, 4096, 8192)
 # the CUDA API calls (runtime cuda*, low-level cu*) by which the host starts device work
 HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync"}
@@ -622,7 +630,12 @@ def ptxas_lines():
     from graphik_tpu_torch.ops._build import library_path
 
     with open(library_path() + ".log") as f:
-        ptxas = f.read()
+        return parse_ptxas(f.read())
+
+
+def parse_ptxas(ptxas):
+    """{"name<template args>": (registers, static shared memory bytes, spill
+    store bytes)} of each kernel instance in nvcc's `-Xptxas -v` output."""
     out = {}
     for entry in ptxas.split("Compiling entry function '")[1:]:
         name = re.search(r"([a-z][a-z_]*_kernel)I((?:[fd]|L[ib]\d+E)+)E", entry)
@@ -853,6 +866,38 @@ def prepare_matrices(solver, T_goal):
     return G, dgp.edge_scatter(dgp.mds(G, eps=1e-8), omega)
 
 
+def eigh_path_inputs(dev, gen):
+    """(tag, stack) of each matrix shape K5 meets on a path, at the batch
+    the path launches it, float32 and float64: prepare's Gram (B = 8192:
+    UR10 n = 16, planar6 n = 9, planar10 n = 13, KUKA iiwa n = 18; the
+    tree's 3 restarts of 1000 goals, n = 14) and CIDGIK's Fantope inputs at
+    B_CIDGIK (dense Z, n = 13; the sparse path's 3 clique blocks a goal,
+    n = 9)."""
+    import torch
+
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.robots.library import (
+        load_kuka, load_planar_chain, load_tree5, load_ur10)
+
+    ps = load_ur10()[1]
+    out = []
+    for dt in (torch.float32, torch.float64):
+        key = "f64" if dt == torch.float64 else "f32"
+        for tag, ps_e, B in (("ur10", ps, B_MAIN),
+                             ("planar6", load_planar_chain(6, limits=np.pi / 2)[1], B_MAIN),
+                             ("planar10", load_planar_chain(10, limits=np.pi / 2)[1], B_MAIN),
+                             ("tree_restarts3", load_tree5()[1], 3 * B_TREE),
+                             ("kuka_iiwa", load_kuka()[1], B_MAIN)):
+            T_e = api.random_goals(ps_e, (B,), gen, dtype=dt, device=dev)[0]
+            out.append((f"{tag} G {key}", prepare_matrices(api.Solver(ps_e, smooth_iters=2),
+                                                           T_e)[0]))
+        q = api.random_goals(ps, (B_CIDGIK,), gen, dtype=dt, device=dev)[1]
+        Zs = lifted_noisy(ps, q, True, gen)
+        out += [(f"ur10_cidgik Z {key}", lifted_noisy(ps, q, False, gen)),
+                (f"ur10_cidgik_sparse blocks {key}", Zs.reshape(-1, *Zs.shape[-2:]))]
+    return out
+
+
 def lifted_noisy(ps_c, q, sparse, gen):
     """CIDGIK's rank-forcing inputs at realistic points: the lifted Z =
     [[I, X^T], [X, X X^T]] of the free nodes of the realizations of q (dense:
@@ -881,17 +926,22 @@ def lifted_noisy(ps_c, q, sparse, gen):
     return (Z + E + E.transpose(-1, -2)) * mask
 
 
-def eigh_phase(dev, cases, ur10_G):
+def eigh_phase(dev, cases, ur10_G, path_inputs):
     """Phase 19: K5 (csrc/eigh.cu) on the card. For each (tag, A) of
-    `cases`: K5 against its plain version (ops/eigh.py sym_eigh_reference)
-    bitwise, every matrix (eigenvalues, eigenvectors, flags), every flag
-    set; ||A - V diag(w) V^T||_F / ||A||_F and max |V^T V - I| under
-    EIGH_RES; the eigenvalues within EIGH_EIG ||A||_F of torch.linalg.eigh
-    on the card. On UR10's Gram at B = 8192 (ur10_G, float32 and float64):
-    its first 501 matrices bitwise the same alone, and the times of K5
-    (CUDA events), torch.linalg.eigh and the plain version beside the
-    bound. Returns the phase's record (K5's time at the main path's
-    shape, float32, heads the kernels' record)."""
+    `cases` and `path_inputs`: K5 against its plain version (ops/eigh.py
+    sym_eigh_reference) bitwise, every matrix (eigenvalues, eigenvectors,
+    flags), every flag set; ||A - V diag(w) V^T||_F / ||A||_F and max
+    |V^T V - I| under EIGH_RES; the eigenvalues within EIGH_EIG ||A||_F of
+    torch.linalg.eigh on the card. On UR10's Gram at B = 8192 (ur10_G,
+    float32 and float64): its first 501 matrices bitwise the same alone,
+    the times of K5 (CUDA events), torch.linalg.eigh and the plain version
+    beside the bound, and K5's time on its first 1024, 2048, 4096 and 8192
+    matrices (the occupancy sweep: a kernel bound by its issue slots takes
+    time in proportion, one bound by the latency of its steps about the
+    same time). On each of `path_inputs` (each path's matrices at the batch
+    it launches, `eigh_path_inputs`): K5's and torch.linalg.eigh's times
+    beside the bound. Returns the phase's record (K5's time at the main
+    path's shape, float32, heads the kernels' record)."""
     import torch
 
     from graphik_tpu_torch.ops.eigh import sym_eigh_cuda, sym_eigh_reference
@@ -899,7 +949,7 @@ def eigh_phase(dev, cases, ur10_G):
     t_phase = time.perf_counter()
     shapes = []
     err = 0.0
-    for tag, A in cases:
+    for tag, A in cases + path_inputs:
         key = "f64" if A.dtype == torch.float64 else "f32"
         w, V, conv = sym_eigh_cuda(A)
         w_p, V_p, conv_p = sym_eigh_reference(A)
@@ -944,8 +994,25 @@ def eigh_phase(dev, cases, ur10_G):
         log(f"[19] UR10 Gram, B = {B}, n = {n}, {key}: K5 {ms:.3f} ms, torch.linalg.eigh "
             f"{ms_lib:.3f} ms, plain version {ms_plain:.1f} ms, bound {b[0] * 1e3:.2f} us "
             f"({b[1]})")
+        sweep = {}
+        for B_o in EIGH_OCCUPANCY_B:
+            G_o = G[:B_o].contiguous()
+            sweep[B_o] = event_ms(lambda: sym_eigh_cuda(G_o), 20)
+        timing[key]["occupancy_ms"] = sweep
+        log(f"[19] UR10 Gram {key}, K5 on the first B matrices: "
+            + ", ".join(f"B = {B_o}: {t:.4f} ms" for B_o, t in sweep.items()))
+    paths = []
+    for tag, A in path_inputs:
+        B, n = A.shape[0], A.shape[-1]
+        ms = event_ms(lambda: sym_eigh_cuda(A), 20)
+        ms_lib = event_ms(lambda: torch.linalg.eigh(A), 5)
+        b = eigh_bound(n, B, A.dtype)
+        paths.append({"case": tag, "B": B, "n": n, "ms": ms, "library_ms": ms_lib,
+                      "bound_ms": b[0], "bound_by": b[1]})
+        log(f"[19] path {tag}: B = {B}, n = {n}: K5 {ms:.4f} ms, torch.linalg.eigh "
+            f"{ms_lib:.3f} ms, bound {b[0] * 1e3:.2f} us ({b[1]})")
     log(f"[19] phase took {time.perf_counter() - t_phase:.1f} s")
-    return {"shapes": shapes, "timing": timing, "max_abs_err": err}
+    return {"shapes": shapes, "timing": timing, "paths": paths, "max_abs_err": err}
 
 
 def cidgik_phases(dev, gen, cfgs):
@@ -1867,7 +1934,10 @@ def main() -> int:
                 2.0 * np.eye(13) + E + E.transpose(0, 2, 1), dtype=dt, device=dev)))
         return cases, (G32, G64)
 
-    eigh_rec = eigh_phase(dev, *eigh_cases())
+    # the paths' own shapes, from a generator of their own (the later
+    # phases' goals stay as they were)
+    eigh_rec = eigh_phase(dev, *eigh_cases(), eigh_path_inputs(
+        dev, torch.Generator(device="cpu").manual_seed(SEED + 19)))
 
     # ---- phase 3: the main path ----
     graphed = []  # the compiled f32 kernel paths, for phase 18
@@ -2245,7 +2315,9 @@ def main() -> int:
          "library_ms": t_e["library_ms"],
          "at": f"UR10's prepare Gram, B={t_e['B']}, n={t_e['n']}, float32; jnp.linalg.eigh "
                "in the JAX package's jitted prepare, not a Pallas kernel",
-         "float64": eigh_rec["timing"]["f64"], "cases": eigh_rec["shapes"]},
+         "float64": eigh_rec["timing"]["f64"],
+         "occupancy_ms": eigh_rec["timing"]["f32"]["occupancy_ms"],
+         "paths": eigh_rec["paths"], "cases": eigh_rec["shapes"]},
         {"name": "tr_solve", "route": "cuda", "source": "graphik_tpu_torch/csrc/tr_solve.cu",
          "replaces": "graphik_tpu/ops/tr_pallas.py:59", "launches": launches,
          "max_abs_err": err_y, "ms": ms_kernel, "plain_ms": ms_plain,

@@ -17,10 +17,10 @@
 //   UPLO='L'); the upper triangle is never read.
 // * thr = eps * max |a_ij| over the mirrored input (eps of the type:
 //   FLT_EPSILON, DBL_EPSILON).
-// * A sweep is m - 1 steps (m = n rounded up to even). Step s pairs the
-//   indices by the round-robin tournament: pair 0 is (s, m - 1), pair
-//   k >= 1 is ((s + k) mod (m - 1), (s - k) mod (m - 1)), p < q. For odd
-//   n the index m - 1 = n does not exist and its pair is skipped.
+// * A sweep is m - 1 steps (m = n rounded up to even, r = m - 1). Step s
+//   pairs the indices by the round-robin tournament: pair 0 is (s, r),
+//   pair k >= 1 is ((s + k) mod r, (s - k) mod r), p < q. For odd n the
+//   index r = n does not exist and pair 0 is skipped.
 // * Each step applies its m/2 disjoint rotations at once, rows then
 //   columns (A <- J^T A J, V <- V J). A pair with |a_pq| > thr rotates by
 //   the symmetric Schur decomposition (Golub & Van Loan, alg. 8.4.1):
@@ -42,26 +42,41 @@
 // -fmad=false and uses no fast math), and the exact copysign, so the plain
 // version repeats it bit for bit.
 //
-// What bounds it on the card. One matrix of UR10's prepare is 16 x 16:
-// ~7 sweeps of 15 steps, each step a rotation per pair and two passes of
-// 2 x 16 x 16 multiply-adds, all dependent on the previous step, on 2 KB
-// that never leaves the SM. Neither its bytes nor its flops (9 n^3 a
-// matrix, Golub & Van Loan's count for the symmetric QR algorithm, the
-// bound chip_smoke.py states) set its time: the chain of dependent steps
-// of each matrix does, so the design keeps a step's work on-chip and
-// spread over the matrix's lanes.
-//
-// Design, and why.
-// * A segment of SEG lanes owns a matrix, a lane a column: SEG = 16 (two
-//   matrices a warp) for n <= 16, SEG = 32 for 17 <= n <= 32, as the TR
-//   kernel pairs instances. A and V live in shared memory (rows padded to
-//   SEG + 1, so a column walk hits every bank once); each pair's (c, s)
-//   reaches the other lanes by a shuffle.
-// * Two warps a block: at SEG = 32 in float64 a block holds 2 x 2 x 32 x 33
-//   doubles (33.8 KB), under the 48 KB of static shared memory.
-// * The segments of a warp run in lock-step: every shuffle and __syncwarp
-//   is taken by all 32 lanes, the sweep loop runs while either matrix is
-//   live, and a finished (or absent) matrix does no work.
+// What bounds it on the card (tools/torch_eigh_bench.py on an H100; PERF.md
+// section 6). The first form of this kernel (a lane a column, A and
+// V in shared memory, each pair's indices recomputed with two integer `%`
+// by every lane) took 0.64 ms on UR10's 8192 Grams (n = 16, float32) and
+// 0.29 ms on 1024 of them (about one warp a scheduler): the latency of its
+// ~100 dependent steps set a floor, the issue slots the rest. A step issued
+// 1.1k-1.6k instructions a warp, more than half of them integer index
+// arithmetic and moves and a seventh the rotations' arithmetic. Neither
+// its bytes (n^2 in, n^2 + n out) nor its flops set its time: the
+// instructions of a step and their chain do. The design cuts both:
+// * A lane a pair. m/2 lanes hold a matrix, a segment of SEG lanes (m/2
+//   rounded up to a power of two): 4 matrices a warp for n <= 16, 2 for
+//   17 <= n <= 32. Lane L holds pair L's two rows of A in registers and
+//   its two columns of V: in registers too, or in shared memory for
+//   float64 at n > 16, where 2 m doubles of A and 2 m of V would not fit.
+//   A pair's rotation, its row update and its V update are the lane's own;
+//   the column update needs every pair's (c, s): m shuffles a step, all
+//   issued before the update.
+// * No division: a row's columns sit at positions by pair slot (2 k: the
+//   first index of pair k, 2 k + 1: its second), and the kernel is a
+//   template on m, so every position in a step is a compile-time
+//   register. Between steps the tournament moves each index one slot
+//   along a fixed cycle (pair k's first index to pair k - 1's, pair 0's
+//   first to pair 1's second, pair k's second to pair k + 1's, pair
+//   m/2 - 1's second to its first; r stays): a row moves to its next lane
+//   by two shuffles a position, and its columns by the same fixed
+//   permutation of the shuffles' registers. Which slot of a pair holds
+//   the smaller index (p) sets the rotation's sign: with sigma = +-s,
+//   x' = c x - sigma y and y' = sigma x + c y repeat the plain version's
+//   c x - s y and s x + c y bit for bit (IEEE's u - (-v) = u + v and
+//   round(-x) = -round(x)).
+// * The segments of a warp run in lock-step: every shuffle and ballot is
+//   taken by all 32 lanes, the sweep loop runs while any matrix is live,
+//   and a finished (or absent) matrix does no arithmetic; its data keeps
+//   moving along the cycle, which a whole sweep brings back to the start.
 
 #include <cfloat>
 #include <cuda_runtime.h>
@@ -83,15 +98,22 @@ __device__ __forceinline__ double sqrtv(double x) { return sqrt(x); }
 __device__ __forceinline__ float copysignv(float x, float y) { return copysignf(x, y); }
 __device__ __forceinline__ double copysignv(double x, double y) { return copysign(x, y); }
 
-// Pair k of step s of the round-robin over m = r + 1 indices (p < q).
-__device__ __forceinline__ void pair_of(int s, int k, int r, int& p, int& q) {
-  int a = s, b = r;
-  if (k) {
-    a = (s + k) % r;
-    b = (s - k + r) % r;
-  }
-  p = a < b ? a : b;
-  q = a < b ? b : a;
+// lanes of a matrix's segment: h = m/2 rounded up to a power of two
+__host__ __device__ constexpr int seg_width(int h) {
+  return h <= 1 ? 1 : h <= 2 ? 2 : h <= 4 ? 4 : h <= 8 ? 8 : 16;
+}
+
+// the index at column position j at the start of a sweep (step 0): pair k
+// = (k, r - k), pair 0 = (0, r)
+__host__ __device__ constexpr int index0(int j, int r) {
+  return j % 2 == 0 ? j / 2 : (j == 1 ? r : r - j / 2);
+}
+
+// the position whose column moves to position j at the next step
+__host__ __device__ constexpr int from_pos(int j, int h) {
+  return h == 1 ? j
+         : j % 2 == 0 ? (j / 2 <= h - 2 ? j + 2 : 2 * h - 1)
+                      : (j == 1 ? 1 : j == 3 ? 0 : j - 2);
 }
 
 // d_j (index j) sorts before d_i (index i): ascending, NaN last, ties by index.
@@ -103,52 +125,108 @@ __device__ __forceinline__ bool before(T dj, int j, T di, int i) {
   return dj < di || (dj == di && j < i);
 }
 
-template <typename T, int SEG>
+// Writes eigenpair (d, column v of V) of index l: its rank among the n
+// eigenvalues of sd, the column's sign.
+template <typename T, int M, typename Col>
+__device__ __forceinline__ void write_pair(const T* sd, int l, T d, Col v, int n, T* W, T* out) {
+  int rank = 0;
+  for (int j = 0; j < n; ++j) rank += before(sd[j], j, d, l);
+  T best = absv(v(0));
+  bool flip = v(0) < T(0);
+#pragma unroll
+  for (int i = 1; i < M; ++i) {
+    const T x = v(i);
+    if (i < n && absv(x) > best) {
+      best = absv(x);
+      flip = x < T(0);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+    if (i < n) out[i * n + rank] = flip ? -v(i) : v(i);
+  W[rank] = d;
+}
+
+template <typename T, int M>
 __global__ void __launch_bounds__(kWarps * 32)
 sym_eigh_kernel(const T* __restrict__ A, T* __restrict__ W, T* __restrict__ Vout,
                 int* __restrict__ conv, int B, int n) {
-  constexpr int kPerWarp = 32 / SEG, LD = SEG + 1;
-  __shared__ T sA[kWarps * kPerWarp][SEG][LD];
-  __shared__ T sV[kWarps * kPerWarp][SEG][LD];
+  constexpr int H = M / 2, R = M - 1, SEG = seg_width(H), kPerWarp = 32 / SEG;
+  constexpr int kSlots = kWarps * kPerWarp;
+  // V in shared memory (transposed: a row a column of V) for float64 at n > 16
+  constexpr bool kVS = sizeof(T) == 8 && M > 16;
+  constexpr int LDV = M + 1;
+  __shared__ T sd[kSlots][M];
+  __shared__ T sV[kVS ? kSlots : 1][kVS ? M : 1][LDV];
   const int lane = threadIdx.x & 31;
+  const int L = lane % SEG;  // this lane's pair
   const int slot = (threadIdx.x >> 5) * kPerWarp + lane / SEG;
-  const int l = lane % SEG;  // this lane's column
-  const long long mat = static_cast<long long>(blockIdx.x) * (kWarps * kPerWarp) + slot;
+  const long long mat = static_cast<long long>(blockIdx.x) * kSlots + slot;
   const bool valid = mat < B;
-  T(*a)[LD] = sA[slot];
-  T(*v)[LD] = sV[slot];
-  const unsigned seg_bits = SEG == 32 ? kFull : (0xffffu << (lane & 16));
+  const bool act = valid && L < H;  // lanes past h in a segment hold no pair
+  const unsigned seg_bits = SEG == 32 ? kFull : (((1u << SEG) - 1u) << (lane & ~(SEG - 1)));
+  const bool even = (n & 1) == 0;  // else index r = n does not exist: pair 0 is skipped
+  int ix = L, iy = L == 0 ? R : R - L;  // the indices of pair L's first and second slot
 
-  // load (coalesced over the flat matrix), then mirror the lower triangle up
-  if (valid) {
-    const T* src = A + mat * n * n;
-    for (int idx = l; idx < n * n; idx += SEG) a[idx / n][idx % n] = src[idx];
-  }
-  __syncwarp();
-  if (valid && l < n) {
-    for (int i = 0; i < l; ++i) a[i][l] = a[l][i];
-    for (int i = 0; i < n; ++i) v[i][l] = i == l ? T(1) : T(0);
-  }
-  __syncwarp();
-
+  // rows ix and iy of the mirrored lower triangle, columns by position
+  T ax[M], ay[M];
   T mx = T(0);
-  if (valid && l < n)
-    for (int i = 0; i < n; ++i) {
-      const T x = absv(a[i][l]);
-      mx = x > mx ? x : mx;
+  {
+    const T* src = A + mat * n * n;
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const int c = index0(j, R);
+      T x = T(0), y = T(0);
+      if (act && c < n) {
+        if (ix < n) x = src[ix >= c ? ix * n + c : c * n + ix];
+        if (iy < n) y = src[iy >= c ? iy * n + c : c * n + iy];
+      }
+      ax[j] = x;
+      ay[j] = y;
+      const T u = absv(x), w = absv(y);
+      mx = u > mx ? u : mx;
+      mx = w > mx ? w : mx;
     }
+  }
+#pragma unroll
   for (int o = SEG / 2; o > 0; o >>= 1) {
     const T y = __shfl_xor_sync(kFull, mx, o, SEG);
     mx = y > mx ? y : mx;
   }
   const T thr = Eps<T>::value * mx;
 
-  const int m = n + (n & 1), r = m - 1, h = m / 2;
+  // columns ix and iy of V = I
+  T vx[kVS ? 1 : M], vy[kVS ? 1 : M];
+  T(*sv)[LDV] = sV[kVS ? slot : 0];
+  if constexpr (kVS) {
+    if (act)
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        sv[ix][i] = i == ix ? T(1) : T(0);
+        sv[iy][i] = i == iy ? T(1) : T(0);
+      }
+    __syncwarp();
+  } else {
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      vx[i] = i == ix ? T(1) : T(0);
+      vy[i] = i == iy ? T(1) : T(0);
+    }
+  }
+
   bool done = !valid, converged = false;
   for (int sweep = 0;; ++sweep) {
+    // the stop test on the upper triangle (row < column < n); here ix = L
     bool bad = false;
-    if (!done && l < n)
-      for (int i = 0; i < l; ++i) bad |= !(absv(a[i][l]) <= thr);
+    if (!done && act)
+#pragma unroll
+      for (int j = 0; j < M; ++j) {
+        const int c = index0(j, R);
+        if (c < n) {
+          if (ix < c) bad |= !(absv(ax[j]) <= thr);
+          if (iy < c) bad |= !(absv(ay[j]) <= thr);
+        }
+      }
     const unsigned ball = __ballot_sync(kFull, bad);
     if (!done) {
       if (!(ball & seg_bits)) {
@@ -160,92 +238,190 @@ sym_eigh_kernel(const T* __restrict__ A, T* __restrict__ W, T* __restrict__ Vout
     }
     if (__all_sync(kFull, done)) break;
 
-    for (int s = 0; s < r; ++s) {
-      // lane k < h: pair k's rotation
-      int p = 0, q = 0;
-      T c = T(1), sn = T(0), t = T(0), app = T(0), aqq = T(0), apq = T(0);
-      if (l < h) pair_of(s, l, r, p, q);
-      const bool live = !done && l < h && q < n;
+#pragma unroll 1
+    for (int s = 0; s < R; ++s) {
+      // pair L's 2x2 block (positions 2L, 2L + 1 of its two rows); p is the
+      // smaller of ix and iy
+      T axx = T(0), axy = T(0), ayx = T(0), ayy = T(0);
+#pragma unroll
+      for (int k = 0; k < H; ++k)
+        if (k == L) {
+          axx = ax[2 * k];
+          axy = ax[2 * k + 1];
+          ayx = ay[2 * k];
+          ayy = ay[2 * k + 1];
+        }
+      const bool xp = ix < iy;
+      const T app = xp ? axx : ayy, aqq = xp ? ayy : axx, apq = xp ? axy : ayx;
+      const bool live = !done && act && (L != 0 || even);
+      T c = T(1), sg = T(0), t = T(0);
+      if (live && absv(apq) > thr) {
+        const T theta = (aqq - app) / (apq + apq);
+        t = copysignv(T(1) / (absv(theta) + sqrtv(T(1) + theta * theta)), theta);
+        c = T(1) / sqrtv(T(1) + t * t);
+        sg = t * c;
+      }
+      const T sig = xp ? sg : -sg;
       if (live) {
-        app = a[p][p];
-        aqq = a[q][q];
-        apq = a[p][q];
-        if (absv(apq) > thr) {
-          const T theta = (aqq - app) / (apq + apq);
-          t = copysignv(T(1) / (absv(theta) + sqrtv(T(1) + theta * theta)), theta);
-          c = T(1) / sqrtv(T(1) + t * t);
-          sn = t * c;
+        // rows p, q of A, then columns p, q of V: the lane's own
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          const T x = ax[j], y = ay[j];
+          ax[j] = c * x - sig * y;
+          ay[j] = sig * x + c * y;
+        }
+        if constexpr (kVS) {
+#pragma unroll
+          for (int i = 0; i < M; ++i) {
+            const T x = sv[ix][i], y = sv[iy][i];
+            sv[ix][i] = c * x - sig * y;
+            sv[iy][i] = sig * x + c * y;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < M; ++i) {
+            const T x = vx[i], y = vy[i];
+            vx[i] = c * x - sig * y;
+            vy[i] = sig * x + c * y;
+          }
         }
       }
-      __syncwarp();  // the pair lanes' reads before anyone writes
-      // rows p_k, q_k of column l
-      for (int k = 0; k < h; ++k) {
-        const T ck = __shfl_sync(kFull, c, k, SEG), sk = __shfl_sync(kFull, sn, k, SEG);
-        int pk, qk;
-        pair_of(s, k, r, pk, qk);
-        if (!done && qk < n && l < n) {
-          const T x = a[pk][l], y = a[qk][l];
-          a[pk][l] = ck * x - sk * y;
-          a[qk][l] = sk * x + ck * y;
-        }
+      // columns p_k, q_k of both rows, with pair k's (c, sigma)
+      T ck[H], sk[H];
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        ck[k] = __shfl_sync(kFull, c, k, SEG);
+        sk[k] = __shfl_sync(kFull, sig, k, SEG);
       }
-      __syncwarp();
-      // columns p_k, q_k of row l, of A and V
-      for (int k = 0; k < h; ++k) {
-        const T ck = __shfl_sync(kFull, c, k, SEG), sk = __shfl_sync(kFull, sn, k, SEG);
-        int pk, qk;
-        pair_of(s, k, r, pk, qk);
-        if (!done && qk < n && l < n) {
-          const T x = a[l][pk], y = a[l][qk];
-          a[l][pk] = ck * x - sk * y;
-          a[l][qk] = sk * x + ck * y;
-          const T vx = v[l][pk], vy = v[l][qk];
-          v[l][pk] = ck * vx - sk * vy;
-          v[l][qk] = sk * vx + ck * vy;
-        }
-      }
-      __syncwarp();
+      if (!done && act)
+#pragma unroll
+        for (int k = 0; k < H; ++k)
+          if (k != 0 || even) {
+            const T x = ax[2 * k], y = ax[2 * k + 1];
+            ax[2 * k] = ck[k] * x - sk[k] * y;
+            ax[2 * k + 1] = sk[k] * x + ck[k] * y;
+            const T u = ay[2 * k], w = ay[2 * k + 1];
+            ay[2 * k] = ck[k] * u - sk[k] * w;
+            ay[2 * k + 1] = sk[k] * u + ck[k] * w;
+          }
+      // the pair's block: diag(a_pp - t a_pq, a_qq + t a_pq)
       if (live) {
         const T tq = t * apq;
-        a[p][p] = app - tq;
-        a[q][q] = aqq + tq;
-        a[p][q] = T(0);
-        a[q][p] = T(0);
+        const T dp = app - tq, dq = aqq + tq;
+        const T dx = xp ? dp : dq, dy = xp ? dq : dp;
+#pragma unroll
+        for (int k = 0; k < H; ++k)
+          if (k == L) {
+            ax[2 * k] = dx;
+            ax[2 * k + 1] = T(0);
+            ay[2 * k] = T(0);
+            ay[2 * k + 1] = dy;
+          }
       }
-      __syncwarp();
+      // the indices move one slot along the tournament's cycle: a row to
+      // its next lane, a column to its next position
+      if constexpr (H > 1) {
+        const int up = L + 1, down = L + SEG - 1;
+        T nx[M], ny[M];
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          const int f = from_pos(j, H);
+          const T tx = __shfl_sync(kFull, ax[f], up, SEG);
+          const T ty = __shfl_sync(kFull, L == 0 ? ax[f] : ay[f], down, SEG);
+          nx[j] = L == H - 1 ? ay[f] : tx;
+          ny[j] = L == 0 ? ay[f] : ty;
+        }
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          ax[j] = nx[j];
+          ay[j] = ny[j];
+        }
+        if constexpr (kVS) {
+          __syncwarp();  // the next lanes of rows ix, iy read them after this step's writes
+        } else {
+#pragma unroll
+          for (int i = 0; i < M; ++i) {
+            const T tx = __shfl_sync(kFull, vx[i], up, SEG);
+            const T ty = __shfl_sync(kFull, L == 0 ? vx[i] : vy[i], down, SEG);
+            nx[i] = L == H - 1 ? vy[i] : tx;
+            ny[i] = L == 0 ? vy[i] : ty;
+          }
+#pragma unroll
+          for (int i = 0; i < M; ++i) {
+            vx[i] = nx[i];
+            vy[i] = ny[i];
+          }
+        }
+        ix = ix + 1 == R ? 0 : ix + 1;
+        if (L != 0) iy = iy + 1 == R ? 0 : iy + 1;
+      }
     }
   }
 
-  if (valid && l < n) {
-    const T d = a[l][l];
-    int rank = 0;
-    for (int j = 0; j < n; ++j) rank += before(a[j][j], j, d, l);
-    T best = absv(v[0][l]);
-    int at = 0;
-    for (int i = 1; i < n; ++i) {
-      const T x = absv(v[i][l]);
-      if (x > best) {
-        best = x;
-        at = i;
-      }
+  // eigenvalues (the diagonal: positions 2L and 2L + 1 of the lane's rows,
+  // ix = L), ranked against the matrix's others
+  T dx = T(0), dy = T(0);
+#pragma unroll
+  for (int k = 0; k < H; ++k)
+    if (k == L) {
+      dx = ax[2 * k];
+      dy = ay[2 * k + 1];
     }
-    const bool flip = v[at][l] < T(0);
-    T* out = Vout + mat * n * n;
-    for (int i = 0; i < n; ++i) out[i * n + rank] = flip ? -v[i][l] : v[i][l];
-    W[mat * n + rank] = d;
+  if (act) {
+    sd[slot][ix] = dx;
+    sd[slot][iy] = dy;
   }
-  if (valid && l == 0) conv[mat] = converged ? 1 : 0;
+  __syncwarp();
+  if (act) {
+    T* w = W + mat * n;
+    T* out = Vout + mat * n * n;
+    if constexpr (kVS) {
+      const T* cx = sv[ix];
+      const T* cy = sv[iy];
+      write_pair<T, M>(sd[slot], ix, dx, [&](int i) { return cx[i]; }, n, w, out);
+      if (iy < n) write_pair<T, M>(sd[slot], iy, dy, [&](int i) { return cy[i]; }, n, w, out);
+    } else {
+      write_pair<T, M>(sd[slot], ix, dx, [&](int i) { return vx[i]; }, n, w, out);
+      if (iy < n) write_pair<T, M>(sd[slot], iy, dy, [&](int i) { return vy[i]; }, n, w, out);
+    }
+  }
+  if (valid && L == 0) conv[mat] = converged ? 1 : 0;
 }
 
-template <typename T, int SEG>
+template <typename T, int M>
 cudaError_t launch(const void* A, void* W, void* V, void* conv, int B, int n,
                    cudaStream_t stream) {
-  const int per_block = kWarps * (32 / SEG);
+  constexpr int per_block = kWarps * (32 / seg_width(M / 2));
   const int blocks = (B + per_block - 1) / per_block;
-  sym_eigh_kernel<T, SEG><<<blocks, kWarps * 32, 0, stream>>>(
+  sym_eigh_kernel<T, M><<<blocks, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(A), static_cast<T*>(W), static_cast<T*>(V), static_cast<int*>(conv),
       B, n);
   return cudaGetLastError();
+}
+
+// the instance of m = n rounded up to even
+template <typename T>
+cudaError_t launch_n(const void* A, void* W, void* V, void* conv, int B, int n,
+                     cudaStream_t st) {
+  switch (n + (n & 1)) {
+    case 2: return launch<T, 2>(A, W, V, conv, B, n, st);
+    case 4: return launch<T, 4>(A, W, V, conv, B, n, st);
+    case 6: return launch<T, 6>(A, W, V, conv, B, n, st);
+    case 8: return launch<T, 8>(A, W, V, conv, B, n, st);
+    case 10: return launch<T, 10>(A, W, V, conv, B, n, st);
+    case 12: return launch<T, 12>(A, W, V, conv, B, n, st);
+    case 14: return launch<T, 14>(A, W, V, conv, B, n, st);
+    case 16: return launch<T, 16>(A, W, V, conv, B, n, st);
+    case 18: return launch<T, 18>(A, W, V, conv, B, n, st);
+    case 20: return launch<T, 20>(A, W, V, conv, B, n, st);
+    case 22: return launch<T, 22>(A, W, V, conv, B, n, st);
+    case 24: return launch<T, 24>(A, W, V, conv, B, n, st);
+    case 26: return launch<T, 26>(A, W, V, conv, B, n, st);
+    case 28: return launch<T, 28>(A, W, V, conv, B, n, st);
+    case 30: return launch<T, 30>(A, W, V, conv, B, n, st);
+    case 32: return launch<T, 32>(A, W, V, conv, B, n, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -259,12 +435,7 @@ extern "C" int graphik_sym_eigh(const void* A, void* W, void* V, void* conv, int
   if (B <= 0) return 0;
   if (n < 1 || n > 32) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_double)
-    err = n <= 16 ? launch<double, 16>(A, W, V, conv, B, n, st)
-                  : launch<double, 32>(A, W, V, conv, B, n, st);
-  else
-    err = n <= 16 ? launch<float, 16>(A, W, V, conv, B, n, st)
-                  : launch<float, 32>(A, W, V, conv, B, n, st);
+  const cudaError_t err = is_double ? launch_n<double>(A, W, V, conv, B, n, st)
+                                    : launch_n<float>(A, W, V, conv, B, n, st);
   return static_cast<int>(err);
 }

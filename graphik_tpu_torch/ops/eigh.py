@@ -7,8 +7,9 @@ so on a card it synchronises and cannot be captured into a CUDA graph. The
 port's eigendecompositions go through this module instead:
 
 * `sym_eigh_cuda(A)` - wrapper of the hand-written CUDA kernel csrc/eigh.cu
-  (cyclic Jacobi, one warp or half warp a matrix): float32 or float64 CUDA
-  tensors, n <= 32; counts its launches in `sym_eigh_cuda.launches`.
+  (cyclic Jacobi, a lane a rotation pair: m/2 lanes a matrix, m = n rounded
+  up to even): float32 or float64 CUDA tensors, n <= 32; counts its
+  launches in `sym_eigh_cuda.launches`.
   Returns (eigenvalues, eigenvectors, converged), the flags on the device.
 * `sym_eigh_reference(A)` - the plain torch version: the kernel's Jacobi
   step for step (the same pairs, rotations, stop test, sort and sign), on
@@ -44,7 +45,7 @@ from typing import List
 
 import torch
 
-# the largest n the kernel takes (one matrix per warp, a column per lane)
+# the largest n the kernel takes (16 lanes a matrix, two rows of A a lane)
 MAX_N = 32
 # sweeps before a matrix stops unconverged (csrc/eigh.cu kMaxSweeps)
 MAX_SWEEPS = 30

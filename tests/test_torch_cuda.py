@@ -719,14 +719,16 @@ def _symmetric(rs, B, n, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("n", [2, 3, 9, 13, 16, 17, 18, 31, 32])
+@pytest.mark.parametrize("n", list(range(1, 33)))
 def test_sym_eigh_kernel_matches_plain(cuda, dtype, n):
-    """K5 (csrc/eigh.cu) against its plain version on the card, 301
-    random symmetric matrices (a ragged last block): eigenvalues,
-    eigenvectors and flags bitwise equal, every matrix converged, one
-    launch counted; eigenvalues within 1e-5 (f32) or 1e-12 (f64) of
-    ||A||_F from torch.linalg.eigh; and the first 77 matrices alone give the
-    same bits (one matrix a warp or half warp: batch-invariant)."""
+    """K5 (csrc/eigh.cu) against its plain version on the card at every n
+    it takes (one kernel instance per even m = n rounded up; odd n skips
+    pair 0), 301 random symmetric matrices (a ragged last block):
+    eigenvalues, eigenvectors and flags bitwise equal, every matrix
+    converged, one launch counted; eigenvalues within 1e-5 (f32) or 1e-12
+    (f64) of ||A||_F from torch.linalg.eigh; and the first 77 matrices
+    alone give the same bits (a matrix a segment of its warp:
+    batch-invariant)."""
     from graphik_tpu_torch.ops import eigh
 
     A = _symmetric(np.random.RandomState(n), 301, n, dtype, cuda)
@@ -757,6 +759,37 @@ def test_sym_eigh_kernel_equal_diagonals(cuda, dtype):
         w, V, conv = eigh.sym_eigh_cuda(A)
         w_p, V_p, _ = eigh.sym_eigh_reference(A)
         assert torch.equal(w, w_p) and torch.equal(V, V_p) and bool(conv.all()), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [5, 9, 16, 18, 32])
+def test_sym_eigh_kernel_lock_step_segments(cuda, dtype, n):
+    """The matrices that share a warp (4 a warp for n <= 16, 2 above) stop
+    after different numbers of sweeps: in each run of 4 one is diagonal
+    (converged before its first sweep), one nearly so (off-diagonal 1e-6,
+    then 1e-2 of the diagonal's spread: one or two sweeps) and one
+    random. The finished segments idle while the others sweep, their data
+    moving with the warp's: K5 bitwise its plain version, each matrix the
+    same alone as in the batch, every flag set."""
+    from graphik_tpu_torch.ops import eigh
+
+    rs = np.random.RandomState(n + 40)
+    B = 64
+    X = rs.normal(size=(B, n, n))
+    A = X + X.transpose(0, 2, 1)
+    D = np.zeros((B, n, n))
+    D[:, np.arange(n), np.arange(n)] = rs.normal(size=(B, n))
+    A[0::4] = D[0::4]
+    A[1::4] = D[1::4] + 1e-6 * A[1::4]
+    A[2::4] = D[2::4] + 1e-2 * A[2::4]
+    A = torch.tensor(A, dtype=dtype, device=cuda)
+    w, V, conv = eigh.sym_eigh_cuda(A)
+    w_p, V_p, conv_p = eigh.sym_eigh_reference(A)
+    assert torch.equal(w, w_p) and torch.equal(V, V_p) and torch.equal(conv, conv_p)
+    assert bool(conv.all())
+    for i in (0, 1, 2, 3, 5, 62):
+        w1, V1, _ = eigh.sym_eigh_cuda(A[i:i + 1].clone())
+        assert torch.equal(w1[0], w[i]) and torch.equal(V1[0], V[i]), i
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])

@@ -23,7 +23,8 @@ PORT_FILES = sorted(
     for d, _, files in os.walk(os.path.join(ROOT, "graphik_tpu_torch"))
     for f in files if f.endswith(".py")
 ) + [os.path.join(ROOT, f) for f in ("chip_smoke.py", "tools/torch_distributed_worker.py",
-                                      "tools/torch_edge_bench.py", "tools/tr_f64_spread.py",
+                                      "tools/torch_edge_bench.py", "tools/torch_eigh_bench.py",
+                                      "tools/tr_f64_spread.py",
                                       "tools/torch_f64_card_cpu.py",
                                       "examples/torch_riemannian_example.py",
                                       "examples/torch_cidgik_example.py")]
