@@ -151,8 +151,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
  18. the compiled solver against the eager stages (`compiled_phase`): for
      each f32 kernel path above (UR10, ur10_table, planar6, planar10, KUKA
      iiwa, LWA4D, the four restart configurations, tree_restarts3,
-     planar10_ring6; the solvers of phases 3, 6, 8-10 and 15, which ran
-     compiled there) the same solver with every stage eager
+     planar10_ring6, planar40, dh19, ur10_table192; the solvers of phases
+     3, 6, 8-10, 15 and 20, which ran compiled there) the same solver with every stage eager
      (api.solve_ik's) on the same prepared inputs at the path's batch:
      every output of the solve and the finish bitwise equal; per-stage
      walls compiled and eager; the finish's host launches, device
@@ -171,17 +171,32 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      and float64), planar6, planar10, KUKA iiwa, the tree and the table's
      Nr = 16 at B = 1000, dense CIDGIK's lifted Z (s = 13) and the sparse
      path's padded clique blocks at B = 1024 (float32 and float64), and
-     seeded random matrices at n = 2, 3, 31, 32 and with equal diagonals
-     at n = 13, and each path's matrices at the batch it launches
-     (`eigh_path_inputs`: UR10, planar6, planar10, KUKA iiwa at B = 8192,
+     seeded random matrices at n = 2, 3, 31, 32, 42, 43, 64 (past 32 the
+     shared-memory kernel) and with equal diagonals at n = 13, and each
+     path's matrices at the batch it launches (`eigh_path_inputs`: UR10,
+     planar6, planar10, KUKA iiwa, planar40 (n = 43), dh19 (n = 42) at
+     B = 8192,
      the tree's 3 x 1000, CIDGIK's Fantope inputs at B = 1024; float32
      and float64); UR10's first 501 Grams bitwise the same alone; K5's,
      torch.linalg.eigh's and the plain version's times at UR10's shape
      beside the bound, K5's on UR10's first 1024-8192 Grams (occupancy),
      and K5's and torch.linalg.eigh's on each path's matrices beside
      their bounds.
+ 20. robots past 32 nodes and anchor rows past 1024 (run after phase 17,
+     before phase 18; `large_structures`): planar40 (N = 43, d = 2, E = 89:
+     the TR kernel at two nodes a lane, 3 edges a lane), dh19 (a 19-DoF DH
+     chain, N = 42, E = 126: two nodes a lane, 4 edges a lane), both with
+     full bound smoothing, and ur10_table192 (UR10 + a 192-sphere table:
+     A = 1152 anchor rows), each with the UR10 path's other parameters: the kernel instance's registers and
+     spills; the TR kernel against its plain version on the path's
+     prepared inputs at B = 1000 (one step, then the production params'
+     100 steps, every lane bitwise equal) and one step at
+     B = 8192; make_solver at B = 8192 (one warm call, 2 timed calls with
+     per-stage walls, one launch a call, K5 twice, success at or above the
+     floor); the kernel's time beside its bound. Phase 18 holds each
+     compiled solver to its eager stages.
 
-Phases 3, 6, 8-10, 15 and 16 run the compiled solver (make_solver,
+Phases 3, 6, 8-10, 15, 16 and 20 run the compiled solver (make_solver,
 make_restart_solver, solve_ik_sharded): the warm call is the first call
 at the batch shape, which runs prepare, solve and finish eagerly and
 captures them; the timed calls replay the graphs, and each launches the
@@ -240,6 +255,15 @@ FLOORS = {
     "ur10_cidgik_sparse": 0.906,    # 943 / 1000 [0.9269, 0.9557]
     "ur10_cg": 0.740,               # 787 / 1000 [0.7606, 0.8113]
     "planar10_ring6": 0.818,        # 861 / 1000 [0.8382, 0.8811] ("edge" backend)
+    # phase 20, at the UR10 path's parameters; planar40 and dh19 with full
+    # bound smoothing (large_structures)
+    "planar40": 0.350,              # 400 / 1000 [0.3701, 0.4307] ("edge" backend)
+    # dh19: 28 / 1000 [0.0194, 0.0402] ("edge"); the rule's 0.02 exceeds
+    # the rate itself (-0.0006, a floor that cannot fail), so here the lower
+    # end less the 95% sampling error of that rate over B_MAIN = 8192 goals,
+    # 1.96 sqrt(0.0194 (1 - 0.0194) / 8192) = 0.0030
+    "dh19": 0.016,
+    "ur10_table192": 0.757,         # 803 / 1000 [0.7772, 0.8265]
 }
 B_TREE = 1000
 # the edge kernels' second batch: the UR10 inputs repeated 16 times, so that
@@ -363,6 +387,37 @@ def tr_flops(N, d, E, out, anchored_nodes=0):
 def tr_bytes(N, d, E, B):
     """Y0 and the goal distances in, Y and four per-instance scalars out."""
     return B * (2 * N * d * 4 + E * 4 + 16)
+
+
+def dh19_template():
+    """dh19, the 19-DoF DH chain of tools/torch_parity.py: a ~ U(0.1, 0.5),
+    d ~ U(0, 0.3), alpha from {-pi/2, 0, pi/2}, drawn in that order from
+    RandomState(19); theta = 0, joint limits +-pi/2."""
+    from graphik_tpu_torch.robots.templates import revolute_from_dh
+
+    rs = np.random.RandomState(19)
+    a = rs.uniform(0.1, 0.5, 19)
+    d = rs.uniform(0.0, 0.3, 19)
+    alpha = rs.choice([-np.pi / 2, 0.0, np.pi / 2], 19)
+    return revolute_from_dh(a, alpha, d, np.zeros(19), lb=-np.pi / 2, ub=np.pi / 2)
+
+
+def large_structures():
+    """(tag, ProblemStructure, smooth_iters) of the paths past 32 nodes or
+    1024 anchor rows: planar40 (load_planar_chain(40, limits=pi/2): N = 43,
+    E = 89) and dh19 (N = 42, E = 126) with full bound smoothing (None: at
+    two squarings, which bound paths of up to 4 edges, a long chain's far
+    pairs keep the unbounded placeholder and the MDS init is far off
+    scale), ur10_table192 (UR10 + the table at n_width = n_height = 12:
+    192 spheres, 6 x 192 = 1152 anchor rows) with two, as UR10's path."""
+    from graphik_tpu_torch.graphs.problem import ProblemStructure
+    from graphik_tpu_torch.robots.library import load_planar_chain, load_ur10
+    from graphik_tpu_torch.utils.environments import table_environment
+
+    return [("planar40", load_planar_chain(40, limits=np.pi / 2)[1], None),
+            ("dh19", ProblemStructure.from_template(dh19_template()), None),
+            ("ur10_table192", ProblemStructure.from_template(
+                load_ur10()[0], obstacles=table_environment(n_width=12, n_height=12)), 2)]
 
 
 def sparse_eig_bound(eig_sum):
@@ -641,9 +696,12 @@ def parse_ptxas(ptxas):
         name = re.search(r"([a-z][a-z_]*_kernel)I((?:[fd]|L[ib]\d+E)+)E", entry)
         args = ",".join(num or {"f": "float", "d": "double"}[t]
                         for num, t in re.findall(r"L[ib](\d+)E|([fd])", name.group(2)))
-        regs, smem = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", entry).groups()
+        regs = re.search(r"Used (\d+) registers", entry).group(1)
+        # a kernel with no static shared memory has no "bytes smem" entry
+        smem = re.search(r"Used \d+ registers[^\n]*?(\d+) bytes smem", entry)
         spill = re.search(r"(\d+) bytes spill stores", entry).group(1)
-        out[f"{name.group(1)}<{args}>"] = (int(regs), int(smem), int(spill))
+        out[f"{name.group(1)}<{args}>"] = (int(regs), int(smem.group(1)) if smem else 0,
+                                           int(spill))
     return out
 
 
@@ -869,10 +927,10 @@ def prepare_matrices(solver, T_goal):
 def eigh_path_inputs(dev, gen):
     """(tag, stack) of each matrix shape K5 meets on a path, at the batch
     the path launches it, float32 and float64: prepare's Gram (B = 8192:
-    UR10 n = 16, planar6 n = 9, planar10 n = 13, KUKA iiwa n = 18; the
-    tree's 3 restarts of 1000 goals, n = 14) and CIDGIK's Fantope inputs at
-    B_CIDGIK (dense Z, n = 13; the sparse path's 3 clique blocks a goal,
-    n = 9)."""
+    UR10 n = 16, planar6 n = 9, planar10 n = 13, KUKA iiwa n = 18, planar40
+    n = 43, dh19 n = 42; the tree's 3 restarts of 1000 goals, n = 14) and
+    CIDGIK's Fantope inputs at B_CIDGIK (dense Z, n = 13; the sparse path's
+    3 clique blocks a goal, n = 9)."""
     import torch
 
     from graphik_tpu_torch import api
@@ -883,13 +941,14 @@ def eigh_path_inputs(dev, gen):
     out = []
     for dt in (torch.float32, torch.float64):
         key = "f64" if dt == torch.float64 else "f32"
-        for tag, ps_e, B in (("ur10", ps, B_MAIN),
-                             ("planar6", load_planar_chain(6, limits=np.pi / 2)[1], B_MAIN),
-                             ("planar10", load_planar_chain(10, limits=np.pi / 2)[1], B_MAIN),
-                             ("tree_restarts3", load_tree5()[1], 3 * B_TREE),
-                             ("kuka_iiwa", load_kuka()[1], B_MAIN)):
+        for tag, ps_e, B, sm in (("ur10", ps, B_MAIN, 2),
+                                 ("planar6", load_planar_chain(6, limits=np.pi / 2)[1], B_MAIN, 2),
+                                 ("planar10", load_planar_chain(10, limits=np.pi / 2)[1], B_MAIN, 2),
+                                 ("tree_restarts3", load_tree5()[1], 3 * B_TREE, 2),
+                                 ("kuka_iiwa", load_kuka()[1], B_MAIN, 2),
+                                 *((tag, ps_l, B_MAIN, sm) for tag, ps_l, sm in large_structures()[:2])):
             T_e = api.random_goals(ps_e, (B,), gen, dtype=dt, device=dev)[0]
-            out.append((f"{tag} G {key}", prepare_matrices(api.Solver(ps_e, smooth_iters=2),
+            out.append((f"{tag} G {key}", prepare_matrices(api.Solver(ps_e, smooth_iters=sm),
                                                            T_e)[0]))
         q = api.random_goals(ps, (B_CIDGIK,), gen, dtype=dt, device=dev)[1]
         Zs = lifted_noisy(ps, q, True, gen)
@@ -1005,7 +1064,9 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
     for tag, A in path_inputs:
         B, n = A.shape[0], A.shape[-1]
         ms = event_ms(lambda: sym_eigh_cuda(A), 20)
-        ms_lib = event_ms(lambda: torch.linalg.eigh(A), 5)
+        # past n = 32 torch.linalg.eigh takes seconds a call at B = 8192: one
+        # timed call after the warm one
+        ms_lib = event_ms(lambda: torch.linalg.eigh(A), 5 if n <= 32 else 1)
         b = eigh_bound(n, B, A.dtype)
         paths.append({"case": tag, "B": B, "n": n, "ms": ms, "library_ms": ms_lib,
                       "bound_ms": b[0], "bound_by": b[1]})
@@ -1471,7 +1532,7 @@ def ring_phase(dev, gen, polish, graphed):
     kw = dict(maxiter=250, maxinner=32, plateau_every=16, plateau_rtol=params.plateau_rtol)
     solver = api.make_solver(ps, params=params, polish_params=polish, smooth_iters=2)
     shape = tr_solve.kernel_shape(ep, B_MAIN, 2)
-    inst = "tr_kernel<2,2,16,1>"
+    inst = "tr_kernel<2,2,16,1,1>"
     regs, smem, spill = ptxas_lines()[inst]
     live = int(np.count_nonzero(np.asarray(ep.aL_mask)) + np.count_nonzero(np.asarray(ep.aU_mask)))
     log(f"[15] {tag}: N = {ps.N}, Nr = {Nr}, E = {ep.E}, anchor rows A = {ep.A} ({live} live; "
@@ -1924,7 +1985,7 @@ def main() -> int:
             q = api.random_goals(ps, (B_CIDGIK,), gen, dtype=dt, device=dev)[1]
             cases += [("ur10_cidgik Z", lifted_noisy(ps, q, False, gen)),
                       ("ur10_cidgik_sparse blocks", lifted_noisy(ps, q, True, gen))]
-            for n in (2, 3, 31, 32):
+            for n in (2, 3, 31, 32, 42, 43, 64):
                 X = rs.normal(size=(B_CHECK, n, n))
                 cases.append((f"random n={n}", torch.tensor(X + X.transpose(0, 2, 1), dtype=dt,
                                                             device=dev)))
@@ -2290,6 +2351,50 @@ def main() -> int:
     # ---- phase 17: the trust region's "dense" and "edge" backends ----
     prepare_paths = []
     backend_paths = tr_backends_phase(dev, gen, ps, ps_t, polish, prepare_paths)
+    # ---- phase 20: robots past 32 nodes, anchor rows past 1024 ----
+    t_new = time.perf_counter()
+    for tag, ps_l, smooth in large_structures():
+        anchored = ps_l.n_obstacles > 0
+        if anchored:
+            spec_l = ps_l.reduced_spec()
+            Nr_ = spec_l["Nr"]
+            om_l, pl_l, pu_l = ps_l.masks()
+            ep_l = edge_ops.build_edge_problem(om_l[:Nr_, :Nr_], pl_l[:Nr_, :Nr_],
+                                               pu_l[:Nr_, :Nr_], dim=ps_l.dim, anchors=spec_l)
+        else:
+            ep_l = edge_problem(ps_l)
+        solver_l = api.make_solver(ps_l, params=prod, polish_params=polish, smooth_iters=smooth)
+        shape_l = tr_solve.kernel_shape(ep_l, B_MAIN, ps_l.dim)
+        W_l = 16 if shape_l["two_per_warp"] else 32
+        inst = (f"tr_kernel<{ps_l.dim},{-(-ep_l.E // W_l)},{W_l},{-(-ep_l.N // 32)},"
+                f"{int(anchored)}>")
+        regs, smem, spill = ptxas[inst]
+        log(f"[20] {tag}: N = {ps_l.N}, solve nodes {ep_l.N}, d = {ps_l.dim}, E = {ep_l.E}, "
+            f"A = {ep_l.A} ({ep_l.a_nsel} groups of {ep_l.a_R}); {inst}: {regs} registers, "
+            f"{smem} B static smem, {spill} B spill stores; kernel_shape at B={B_MAIN}: "
+            f"{shape_l}")
+
+        def goals_l(B, ps_=ps_l):
+            return api.random_goals(ps_, (B,), gen, dtype=torch.float32, device=dev)[0]
+
+        D_l, Y0_l = solver_l.prepare(goals_l(B_CHECK))
+        bitwise_check("20", tag, ep_l, Y0_l, D_l, dict(maxiter=1, maxinner=24),
+                      dict(maxiter=100, **tr_kw))
+        first = first_call(tag, solver_l, goals_l(B_MAIN))
+        sets = [goals_l(B_MAIN) for _ in range(2)]
+        calls_l, n_l = path_calls(tag, solver_l, sets, anchored=anchored)
+        graphed.append((tag, solver_l, sets[-1], (), first))
+        D_m, Y0_m = solver_l.prepare(goals_l(B_MAIN))
+        Y0_m, dg_m = Y0_m.contiguous(), ep_l.edge_values(D_m).contiguous()
+        # one step at the path's own shapes, against the plain version
+        bitwise_check("20", tag, ep_l, Y0_m, D_m, dict(maxiter=1, maxinner=24))
+        rec = sub_record(tag, ep_l, Y0_m, dg_m, dict(maxiter=100, **tr_kw), n_l, B_MAIN,
+                         lanes_bitwise=B_CHECK, instance=inst, registers=regs, static_smem=smem,
+                         spill_stores=spill, success=[c[3]["success_rate"] for c in calls_l],
+                         walls_ms=[[1e3 * t for t in c[:3]] for c in calls_l])
+        (anchored_paths if anchored else tr_paths).append(rec)
+    log(f"[20] phase took {time.perf_counter() - t_new:.1f} s")
+
     # ---- phase 18: the compiled solver against the eager stages ----
     compiled_paths = compiled_phase(dev, graphed, prepare_paths)
 

@@ -6,6 +6,9 @@
 // points).
 //
 // * Lane i < N of a segment holds node i's d coordinates of a state vector.
+//   Past 32 nodes (the TR kernel only) a lane holds NPL = 2 node slots:
+//   lane l nodes l and l + 32, and a node sum adds a lane's slots in that
+//   order (an absent second node adding +0) before the butterfly.
 // * Edge differences C.Y: segment lane l owns edges e = l, l + W, ... (EPL
 //   of them) and gathers the endpoint coordinates with __shfl_sync inside
 //   its segment. This replaces the MXU incidence matmul of the TPU kernels.
@@ -30,6 +33,8 @@
 
 namespace graphik {
 
+// K1 / K2's bounds (csrc/edge.cu), and the TR kernel's at one node a lane
+// and up to 4 edges a lane: their tables keep this size.
 constexpr int kMaxN = 32;
 constexpr int kMaxE = 128;
 constexpr int kWarpsPerBlock = 4;
@@ -77,49 +82,61 @@ __device__ __forceinline__ float dot(const float (&a)[D], const float (&b)[D]) {
   return s;
 }
 
-// The block's shared copy of the edge tables.
-struct EdgeTables {
-  int ei[kMaxE], ej[kMaxE], inc[2 * kMaxE], rowptr[kMaxN + 1];
-  float par[5 * kMaxE];  // [5][kMaxE]: omega, psi_L, psi_U, L_mask, U_mask
+// The block's shared copy of the edge tables, for up to MN nodes and ME
+// edges.
+template <int MN, int ME>
+struct EdgeTablesT {
+  int ei[ME], ej[ME], inc[2 * ME], rowptr[MN + 1];
+  float par[5 * ME];  // [5][ME]: omega, psi_L, psi_U, L_mask, U_mask
 };
+using EdgeTables = EdgeTablesT<kMaxN, kMaxE>;
 
 // Every thread of the block calls it; the caller syncs.
-__device__ __forceinline__ void load_edge_tables(EdgeTables& t, const int* ei, const int* ej,
-                                                 const float* epar, const int* rowptr,
-                                                 const int* inc, int N, int E) {
+template <int MN, int ME>
+__device__ __forceinline__ void load_edge_tables(EdgeTablesT<MN, ME>& t, const int* ei,
+                                                 const int* ej, const float* epar,
+                                                 const int* rowptr, const int* inc, int N, int E) {
   for (int q = threadIdx.x; q < E; q += blockDim.x) {
     t.ei[q] = ei[q];
     t.ej[q] = ej[q];
 #pragma unroll
-    for (int k = 0; k < 5; ++k) t.par[k * kMaxE + q] = epar[q * 5 + k];
+    for (int k = 0; k < 5; ++k) t.par[k * ME + q] = epar[q * 5 + k];
   }
   for (int q = threadIdx.x; q < 2 * E; q += blockDim.x) t.inc[q] = inc[q];
   for (int q = threadIdx.x; q <= N; q += blockDim.x) t.rowptr[q] = rowptr[q];
 }
 
-// Per-segment view of the block's shared tables plus this lane's edges.
-template <int D, int EPL, int W = 32>
+// Per-segment view of the block's shared tables plus this lane's edges, for
+// NPL node slots a lane (2 only with W = 32: N <= 64).
+template <int D, int EPL, int W = 32, int NPL = 1>
 struct Warp {
   static_assert(W == 16 || W == 32, "a segment is half a warp or a warp");
-  static constexpr int kWS = kMaxE * W / 32;  // scatter buffer stride per coordinate
+  static_assert(NPL == 1 || (NPL == 2 && W == 32), "two nodes a lane take a whole warp");
+  // the tables' edges: kMaxE, or more past 4 edges a lane
+  static constexpr int kME = EPL * W > kMaxE ? EPL * W : kMaxE;
+  using Tables = EdgeTablesT<kMaxN * NPL, kME>;
+  static constexpr int kWS = kME * W / 32;  // scatter buffer stride per coordinate
 
   int lane;             // lane within the segment
   int base;             // the segment's first warp lane
-  bool has_node;
-  const float* par;     // [5][kMaxE]
+  bool has_node;        // node slot 0 (node lane) holds a node
+  bool has_hi;          // NPL == 2: node slot 1 (node lane + 32) holds a node
+  const float* par;     // [5][kME]
   const int* rowptr;    // [N + 1]
   const int* inc;       // [2E]: edge * 2 + (1 if the node is the edge's ej)
   float* w;             // this segment's [D][kWS] scatter buffer
   int edge[EPL];        // edge index, or -1 past E
   int src_i[EPL], src_j[EPL];  // warp lanes of the endpoints
+  bool hi_i[EPL], hi_j[EPL];   // NPL == 2: the endpoint is in its lane's slot 1
   float dg[EPL];
 
-  // wbuf: the warp's [D * kMaxE] scatter buffer, split between segments.
-  __device__ void init_tables(const EdgeTables& t, float* wbuf, int N, int E) {
+  // wbuf: the warp's [D * kME] scatter buffer, split between segments.
+  __device__ void init_tables(const Tables& t, float* wbuf, int N, int E) {
     const int wl = threadIdx.x & 31;
     lane = wl & (W - 1);
     base = wl - lane;
     has_node = lane < N;
+    has_hi = NPL == 2 && lane + 32 < N;
     par = t.par;
     rowptr = t.rowptr;
     inc = t.inc;
@@ -129,8 +146,16 @@ struct Warp {
       const int e = lane + W * j;
       const bool valid = e < E;
       edge[j] = valid ? e : -1;
-      src_i[j] = base + (valid ? t.ei[e] : 0);
-      src_j[j] = base + (valid ? t.ej[e] : 0);
+      if constexpr (NPL == 1) {
+        src_i[j] = base + (valid ? t.ei[e] : 0);
+        src_j[j] = base + (valid ? t.ej[e] : 0);
+      } else {
+        const int ni = valid ? t.ei[e] : 0, nj = valid ? t.ej[e] : 0;
+        src_i[j] = ni & 31;
+        src_j[j] = nj & 31;
+        hi_i[j] = ni >= 32;
+        hi_j[j] = nj >= 32;
+      }
     }
   }
 
@@ -149,7 +174,7 @@ struct Warp {
   // Whether slot j holds an edge of the 32-lane layout's lane l + 16.
   __host__ __device__ static constexpr bool hi(int j) { return W == 16 && (j & 1); }
 
-  __device__ float p(int which, int e) const { return par[which * kMaxE + e]; }
+  __device__ float p(int which, int e) const { return par[which * kME + e]; }
 
   // Y[ei] - Y[ej] for this lane's j-th edge (every lane must call it).
   __device__ void edge_diff(const float (&Y)[D], int j, float (&out)[D]) const {
@@ -158,14 +183,32 @@ struct Warp {
       out[k] = __shfl_sync(kFull, Y[k], src_i[j]) - __shfl_sync(kFull, Y[k], src_j[j]);
   }
 
-  // out = scale * C^T w, w written by the lanes since the last __syncwarp.
-  __device__ void scatter(float scale, float (&out)[D]) const {
-    __syncwarp();
+  // The same over NPL node slots: each endpoint's value is read from both
+  // slots of its lane and the one that holds it is taken.
+  __device__ void edge_diff(const float (&Y)[NPL][D], int j, float (&out)[D]) const {
+    if constexpr (NPL == 1) {
+      edge_diff(Y[0], j, out);
+    } else {
+#pragma unroll
+      for (int k = 0; k < D; ++k) {
+        const float i0 = __shfl_sync(kFull, Y[0][k], src_i[j]);
+        const float i1 = __shfl_sync(kFull, Y[1][k], src_i[j]);
+        const float j0 = __shfl_sync(kFull, Y[0][k], src_j[j]);
+        const float j1 = __shfl_sync(kFull, Y[1][k], src_j[j]);
+        out[k] = (hi_i[j] ? i1 : i0) - (hi_j[j] ? j1 : j0);
+      }
+    }
+  }
+
+  // out = scale * (C^T w)[node], its edges in ascending order; 0 when the
+  // node is not present.
+  __device__ __forceinline__ void scatter_node(int node, bool present, float scale,
+                                               float (&out)[D]) const {
     float acc[D];
 #pragma unroll
     for (int k = 0; k < D; ++k) acc[k] = 0.f;
-    if (has_node) {
-      for (int q = rowptr[lane]; q < rowptr[lane + 1]; ++q) {
+    if (present) {
+      for (int q = rowptr[node]; q < rowptr[node + 1]; ++q) {
         const int code = inc[q];
         const int e = code >> 1;
         if (code & 1) {
@@ -179,13 +222,33 @@ struct Warp {
     }
 #pragma unroll
     for (int k = 0; k < D; ++k) out[k] = scale * acc[k];
+  }
+
+  // out = scale * C^T w, w written by the lanes since the last __syncwarp.
+  __device__ void scatter(float scale, float (&out)[D]) const {
     __syncwarp();
+    scatter_node(lane, has_node, scale, out);
+    __syncwarp();
+  }
+
+  // The same for the NPL node slots of the lane, slot by slot.
+  __device__ void scatter(float scale, float (&out)[NPL][D]) const {
+    if constexpr (NPL == 1) {
+      scatter(scale, out[0]);
+    } else {
+      __syncwarp();
+      scatter_node(lane, has_node, scale, out[0]);
+      scatter_node(lane + 32, has_hi, scale, out[1]);
+      __syncwarp();
+    }
   }
 
   // Edge cost f, the per-edge gradient terms s dY into w (the caller
   // scatters them) and this lane's partial (unreduced) max relative
   // residual when res_tol > 0, as tr_pallas.py cost_and_grad.
-  __device__ void cost_grad_edges(const float (&Y)[D], float res_tol, float r_floor, float& f,
+  // Y: (D) node values, or (NPL, D) node slots.
+  template <typename YA>
+  __device__ void cost_grad_edges(const YA& Y, float res_tol, float r_floor, float& f,
                                   float& rpart) const {
     float fpart[2] = {0.f, 0.f};
     rpart = 0.f;
@@ -224,8 +287,8 @@ struct EdgeHvp {
   float s[EPL], m[EPL];
 };
 
-template <int D, int EPL, int W>
-__device__ void edge_hvp_setup(const Warp<D, EPL, W>& c, const float (&Y)[D],
+template <int D, int EPL, int W, int NPL>
+__device__ void edge_hvp_setup(const Warp<D, EPL, W, NPL>& c, const float (&Y)[NPL][D],
                                EdgeHvp<D, EPL>& h) {
 #pragma unroll
   for (int j = 0; j < EPL; ++j) {
@@ -247,9 +310,9 @@ __device__ void edge_hvp_setup(const Warp<D, EPL, W>& c, const float (&Y)[D],
 }
 
 // Euclidean edge Hessian-vector product H = 2 C^T (m dD dY - s dZ).
-template <int D, int EPL, int W>
-__device__ void edge_hvp(const Warp<D, EPL, W>& c, const EdgeHvp<D, EPL>& h,
-                         const float (&Z)[D], float (&H)[D]) {
+template <int D, int EPL, int W, int NPL>
+__device__ void edge_hvp(const Warp<D, EPL, W, NPL>& c, const EdgeHvp<D, EPL>& h,
+                         const float (&Z)[NPL][D], float (&H)[NPL][D]) {
 #pragma unroll
   for (int j = 0; j < EPL; ++j) {
     float dZ[D];
@@ -258,7 +321,8 @@ __device__ void edge_hvp(const Warp<D, EPL, W>& c, const EdgeHvp<D, EPL>& h,
     if (e >= 0) {
       const float mdD = h.m[j] * (2.f * dot(h.dY[j], dZ));
 #pragma unroll
-      for (int k = 0; k < D; ++k) c.w[k * Warp<D, EPL, W>::kWS + e] = mdD * h.dY[j][k] - h.s[j] * dZ[k];
+      for (int k = 0; k < D; ++k)
+        c.w[k * Warp<D, EPL, W, NPL>::kWS + e] = mdD * h.dY[j][k] - h.s[j] * dZ[k];
     }
   }
   c.scatter(2.f, H);

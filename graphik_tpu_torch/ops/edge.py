@@ -33,7 +33,8 @@ from graphik_tpu_torch.utils.compiled import cached, device_const
 
 _SUBLANE = 8  # edge and anchor-block counts pad to a multiple of this
 
-# Shapes the CUDA build covers (csrc/edge_warp.cuh kMaxN / kMaxE).
+# Shapes the build of K1 / K2 covers (csrc/edge_warp.cuh kMaxN / kMaxE; the
+# TR kernel takes more, ops/tr_solve.py MAX_N / MAX_E).
 MAX_N = 32
 MAX_E = 128
 
@@ -301,7 +302,7 @@ def on_device(ep: EdgeProblem, dtype, device) -> EdgeProblem:
 #
 # The CUDA kernels sum in a fixed order, and these functions repeat it to
 # the last bit (the build passes -fmad=false): a per-lane partial over the
-# 32-lane layout (lane l holds edges l, l + 32, ...; lane i < N node i),
+# 32-lane layout (lane l holds edges l, l + 32, ... and nodes l, l + 32),
 # then a 32-lane butterfly; sums over the d coordinates in order; and the
 # scatter C^T w summed per node over its incident edges in ascending edge
 # order. They are the exact plain versions of K1 and K2
@@ -353,9 +354,17 @@ def kernel_order_tables(ep: EdgeProblem, dtype, device) -> KernelOrderTables:
 
 
 def lane_sum(x):
-    """(B, <= 32) per-lane partials -> (B,): the 32-lane butterfly (rounds
-    xor 16, 8, 4, 2, 1), lane 0's value."""
-    x = torch.nn.functional.pad(x, (0, WARP - x.shape[-1]))
+    """(B, n) values -> (B,). Lane l of the 32-lane layout holds values l,
+    l + 32, ... (the TR kernel's nodes a lane when n > 32) and adds them in
+    that order, a lane past the end adding +0; then the 32-lane butterfly
+    (rounds xor 16, 8, 4, 2, 1), lane 0's value. For n <= 32 the partials
+    are the values themselves."""
+    k = -(-x.shape[-1] // WARP)
+    x = torch.nn.functional.pad(x, (0, k * WARP - x.shape[-1])).reshape(-1, k, WARP)
+    acc = x[:, 0]
+    for j in range(1, k):
+        acc = acc + x[:, j]
+    x = acc
     for m in (16, 8, 4, 2, 1):
         # lane i gains lane i ^ m's value
         x = x + x.reshape(-1, WARP // (2 * m), 2, m).flip(-2).reshape(-1, WARP)
@@ -515,20 +524,20 @@ def cached_edge_tables(ep: EdgeProblem, device):
     return cached(ep, ("edge_tables", device), lambda: edge_kernel_tables(ep, device))
 
 
-def check_kernel_inputs(what: str, ep: EdgeProblem, Ys, dgoal_e):
+def check_kernel_inputs(what: str, ep: EdgeProblem, Ys, dgoal_e, max_n=MAX_N, max_e=MAX_E):
     """Raise unless every (B, N, d) tensor of Ys and dgoal_e ((B, E) or
     (B, Ep)) is a contiguous float32 CUDA tensor on one device, within the
-    build's bounds."""
+    build's bounds (N <= max_n, E <= max_e)."""
     ts = (*Ys, dgoal_e)
     if any(t.dtype != torch.float32 for t in ts):
         raise TypeError(f"{what} takes float32, got {[t.dtype for t in ts]}")
     if any(t.device.type != "cuda" or t.device != ts[0].device for t in ts):
         raise ValueError(f"{what} takes CUDA tensors on one device, got {[str(t.device) for t in ts]}")
     B, N, d = Ys[0].shape
-    if (N != ep.N or d != ep.dim or d not in (2, 3) or N > MAX_N or not 0 < ep.E <= MAX_E
+    if (N != ep.N or d != ep.dim or d not in (2, 3) or N > max_n or not 0 < ep.E <= max_e
             or any(Y.shape != Ys[0].shape for Y in Ys)):
         raise ValueError(f"unsupported shape: {[tuple(Y.shape) for Y in Ys]}, N={ep.N}, "
-                         f"dim={ep.dim}, E={ep.E}")
+                         f"dim={ep.dim}, E={ep.E} ({what} takes N <= {max_n}, E <= {max_e})")
     if dgoal_e.shape not in ((B, ep.E), (B, ep.Ep)):
         raise ValueError(f"dgoal_e must be ({B}, {ep.E}) or ({B}, {ep.Ep}), got {tuple(dgoal_e.shape)}")
     if not all(t.is_contiguous() for t in ts):

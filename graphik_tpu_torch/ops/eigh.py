@@ -1,4 +1,4 @@
-"""K5: the batched symmetric eigendecomposition of small matrices (n <= 32).
+"""K5: the batched symmetric eigendecomposition of small matrices (n <= 64).
 
 The JAX package calls jnp.linalg.eigh inside its jitted prepare stage
 (graphik_tpu/utils/dgp.py, the MDS init) and inside CIDGIK's Fantope step
@@ -8,8 +8,9 @@ port's eigendecompositions go through this module instead:
 
 * `sym_eigh_cuda(A)` - wrapper of the hand-written CUDA kernel csrc/eigh.cu
   (cyclic Jacobi, a lane a rotation pair: m/2 lanes a matrix, m = n rounded
-  up to even): float32 or float64 CUDA tensors, n <= 32; counts its
-  launches in `sym_eigh_cuda.launches`.
+  up to even; A and V in registers up to n = 32, in shared memory past it):
+  float32 or float64 CUDA tensors, n <= 64; counts its launches in
+  `sym_eigh_cuda.launches`.
   Returns (eigenvalues, eigenvectors, converged), the flags on the device.
 * `sym_eigh_reference(A)` - the plain torch version: the kernel's Jacobi
   step for step (the same pairs, rotations, stop test, sort and sign), on
@@ -18,7 +19,7 @@ port's eigendecompositions go through this module instead:
   CPU sqrt is not always, so CPU results may differ from the card's in the
   last bit).
 * `sym_eigh(A)` - (eigenvalues, eigenvectors): the kernel for CUDA tensors,
-  the plain version for CPU tensors. It raises for n > 32, for another
+  the plain version for CPU tensors. It raises for n > 64, for another
   dtype, or when the build or the launch fails; it never falls back.
 
 The contract is torch.linalg.eigh's on a stack (..., n, n): eigenvalues
@@ -45,8 +46,8 @@ from typing import List
 
 import torch
 
-# the largest n the kernel takes (16 lanes a matrix, two rows of A a lane)
-MAX_N = 32
+# the largest n the kernel takes (32 lanes a matrix, a lane a rotation pair)
+MAX_N = 64
 # sweeps before a matrix stops unconverged (csrc/eigh.cu kMaxSweeps)
 MAX_SWEEPS = 30
 
@@ -67,7 +68,7 @@ def _empty(A, batch, n):
 
 def sym_eigh_cuda(A):
     """csrc/eigh.cu on a float32 / float64 CUDA stack A (..., n, n), n <=
-    32: (eigenvalues (..., n), eigenvectors (..., n, n), converged (...)
+    64: (eigenvalues (..., n), eigenvectors (..., n, n), converged (...)
     bool), all on A's device; one launch, added to
     `sym_eigh_cuda.launches`."""
     _check(A)
@@ -206,7 +207,7 @@ def _scripted_sweep():
 
 def sym_eigh_reference(A):
     """The plain torch version of csrc/eigh.cu on A (..., n, n), float32
-    or float64, n <= 32, any device: (eigenvalues (..., n), eigenvectors
+    or float64, n <= 64, any device: (eigenvalues (..., n), eigenvectors
     (..., n, n), converged (...) bool), the kernel's results step for
     step."""
     _check(A)
@@ -260,7 +261,7 @@ def sym_eigh_reference(A):
 
 def sym_eigh(A):
     """(eigenvalues ascending, eigenvectors as columns) of the symmetric
-    stack A (..., n, n), float32 or float64, n <= 32, from its lower
+    stack A (..., n, n), float32 or float64, n <= 64, from its lower
     triangle: csrc/eigh.cu for a CUDA tensor, the plain version for a CPU
     one. The converged flags stay on the device (sym_eigh_cuda /
     sym_eigh_reference return them)."""

@@ -19,8 +19,9 @@ Outer loop: rho-regularized trust region, radius /4 or x2 up to Delta_bar,
 stops on gradnorm, maxiter, the cost plateau and res_tol. Inner loop:
 Steihaug-Toint truncated CG. HVP: the edge-form Hessian, the anchored
 terms as 2 (K_u Z_u - sigma_u Z_u) per anchored node u (see csrc/
-tr_solve.cu), plus the horizontal projection as a reduced 3x3 Lyapunov
-Cholesky (scalar for d = 2).
+tr_kernel.cuh), plus the horizontal projection as a reduced 3x3 Lyapunov
+Cholesky (scalar for d = 2). Sums over nodes follow the kernel's node
+slots past 32 nodes (ops/edge.py lane_sum).
 """
 
 from __future__ import annotations
@@ -41,8 +42,15 @@ _EXCEEDED_TR = 1
 _REACHED_TARGET = 2
 _MAX_INNER_ITER = 4
 
-# Anchor rows the kernel build covers (csrc/tr_solve.cu kMaxA).
-_MAX_A = 1024
+# Sizes the kernel build covers (csrc/tr_kernel.cuh kMaxNodes, kMaxEdges,
+# kMaxA, kMaxGroupRows): nodes (two a lane past 32), edges (8 a lane),
+# anchor rows (their tables must fit a block's shared memory next to the
+# largest instance's edge tables) and the rows of one anchor group (a
+# lane's row masks are 32 bits: 32 rows a lane).
+MAX_N = 64
+MAX_E = 256
+_MAX_A = 3072
+_MAX_A_R = 1024
 
 
 def _defaults(N, d, maxinner, mingradnorm, Delta_bar, Delta0, dtype):
@@ -97,9 +105,10 @@ def solve_tr_reference(
     # The edge terms, sums and scatter are ops/edge.py's kernel-order plain
     # functions, which follow csrc/edge_warp.cuh's order so that the kernel
     # and this version agree to the last bit: a warp-butterfly sum over 32
-    # per-lane partials (lane i < N holds node i; lane l holds edges l,
-    # l + 32, ...), sequential sums over the d coordinates, and the scatter
-    # C^T w summed per node in ascending edge order.
+    # per-lane partials (lane l holds nodes l, l + 32 and edges l, l + 32,
+    # ..., each lane adding its own in that order), sequential sums over
+    # the d coordinates, and the scatter C^T w summed per node in ascending
+    # edge order.
     kt = cached(ep, ("kernel_order_tables", dt, dev), lambda: kernel_order_tables(ep, dt, dev))
     om, psiL, psiU = kt.om, kt.psiL, kt.psiU
 
@@ -410,6 +419,17 @@ def kernel_tables(ep: EdgeProblem, device):
                            _anchor_near(ep)))
 
 
+def check_limits(ep: EdgeProblem):
+    """Raise, naming the limit, unless the kernel build takes `ep`'s sizes."""
+    if ep.N > MAX_N or not 0 < ep.E <= MAX_E:
+        raise ValueError(f"the TR kernel takes N <= {MAX_N} and 0 < E <= {MAX_E}, "
+                         f"not N = {ep.N}, E = {ep.E}")
+    if ep.A > _MAX_A or ep.a_R > _MAX_A_R or (ep.A and ep.a_nsel * ep.a_R != ep.A):
+        raise ValueError(f"unsupported anchor layout: the TR kernel takes A <= {_MAX_A} rows "
+                         f"in groups of a_R <= {_MAX_A_R}, not A = {ep.A}, "
+                         f"a_nsel = {ep.a_nsel}, a_R = {ep.a_R}")
+
+
 def solve_tr_cuda(
     ep: EdgeProblem,
     Y0,
@@ -432,10 +452,8 @@ def solve_tr_cuda(
 ):
     """Launch csrc/tr_solve.cu on f32 CUDA tensors; same contract as
     `solve_tr_reference`. Raises on anything the kernel does not take."""
-    if ep.A > _MAX_A or (ep.A and ep.a_nsel * ep.a_R != ep.A):
-        raise ValueError(f"unsupported anchor layout: A={ep.A} (at most {_MAX_A}), "
-                         f"a_nsel={ep.a_nsel}, a_R={ep.a_R}")
-    check_kernel_inputs("the TR kernel", ep, (Y0,), dgoal_e)
+    check_limits(ep)
+    check_kernel_inputs("the TR kernel", ep, (Y0,), dgoal_e, MAX_N, MAX_E)
     B, N, d = Y0.shape
     E = ep.E
     maxinner, mingradnorm, Delta_bar, Delta0 = _defaults(

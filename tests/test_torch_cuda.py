@@ -713,17 +713,117 @@ def test_capture_of_a_synchronising_op_raises(cuda):
     assert float(torch.ones(4, device=cuda).sum()) == 4.0  # the card still works
 
 
+# ---------------------------------------------------------------------------
+# The TR kernel past 32 nodes and 128 edges
+# ---------------------------------------------------------------------------
+
+# (N, d, E): past 128 edges at one node a lane (EPL 5-8), and every EPL at
+# two nodes a lane (N > 32)
+LARGE_SHAPES = ([(32, d, 32 * e - 3) for e in range(5, 9) for d in (3, 2)]
+                + [(33 + 3 * e, d, 32 * e - 5) for e in range(1, 9) for d in (3, 2)])
+
+
+def _with_anchors(ep, Y0, rows=40):
+    """ep plus 3 anchor groups of `rows` rows on nodes 0, N // 2 and N - 1
+    (past the 32nd node when N > 32): centers scattered around each node's
+    first start, lower hinges of radius 0.3 (distance kept above it), so
+    some rows are active at the start and turn off as the solve goes."""
+    N, d = ep.N, ep.dim
+    rs = np.random.RandomState(N + rows)
+    nodes = np.array([0, N // 2, N - 1])
+    idx = np.repeat(nodes, rows)
+    P = Y0[0].double().cpu().numpy()
+    centers = np.zeros((len(idx), 3))
+    centers[:, :d] = P[idx] + 0.5 * rs.normal(size=(len(idx), d))
+    anchors = dict(idx=idx, centers=centers, psi_L=np.full(len(idx), 0.09),
+                   psi_U=np.zeros(len(idx)), L_mask=np.ones(len(idx)), U_mask=np.zeros(len(idx)))
+    # ep's edges back as dense (N, N) matrices
+    dense = {k: np.zeros((N, N)) for k in ("omega", "psi_L", "psi_U", "L_mask", "U_mask")}
+    for k, M in dense.items():
+        M[ep.ei, ep.ej] = M[ep.ej, ep.ei] = np.asarray(getattr(ep, k))[:ep.E]
+    return edge_ops.build_edge_problem(**dense, dim=d, anchors=anchors)
+
+
+@pytest.mark.parametrize("anchored", [False, True], ids=["free", "anchored"])
+@pytest.mark.parametrize("N,d,n_edges", LARGE_SHAPES)
+def test_large_shapes_bitwise(cuda, N, d, n_edges, anchored):
+    """Every instance past 32 nodes or 128 edges (NPL = 1 with 5-8 edges a
+    lane, NPL = 2 with 1-8; anchor-free and anchored, the anchored nodes
+    including one in a lane's second slot), 1001 instances (a ragged last
+    block of 4): one step, and 20 steps with the production stops, bitwise
+    equal to the plain version; one launch each."""
+    ep, Y0, dg = _synthetic(N, d, n_edges, seed=N + n_edges, device=cuda, B=1001)
+    if anchored:
+        ep = _with_anchors(ep, Y0)
+        assert ep.A == 3 * 40 and (ep.N - 1) in tr_solve._anchor_nodes(ep)
+    assert (ep.N, ep.E) == (N, n_edges)
+    assert not tr_solve.kernel_shape(ep, 1001, d)["two_per_warp"]
+    before = tr_solve.solve_tr_cuda.launches
+    _bitwise(ep, Y0, dg, maxiter=1, maxinner=24)
+    _bitwise(ep, Y0, dg, maxiter=20, **PROD)
+    assert tr_solve.solve_tr_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("B", [1, 33])
+@pytest.mark.parametrize("N,d,n_edges", [(42, 3, 126), (43, 2, 89), (64, 3, 256), (32, 3, 256)])
+def test_large_shapes_small_batches_bitwise(cuda, N, d, n_edges, B):
+    """dh19's and planar40's (N, d, E), and the largest shapes, at B = 1
+    and 33 (warps of the block left without an instance), with res_tol > 0
+    too: bitwise equal to the plain version."""
+    ep, Y0, dg = _synthetic(N, d, n_edges, seed=N + B, device=cuda, B=B)
+    _bitwise(ep, Y0, dg, maxiter=1, maxinner=24)
+    _bitwise(ep, Y0, dg, maxiter=20, res_tol=0.05, **PROD)
+
+
+def test_anchored_past_1024_rows_bitwise(cuda):
+    """ur10_table192: UR10 and the 192-sphere table (A = 6 x 192 = 1152
+    anchor rows, past the 1024 the build took before) on 1001 goals
+    prepared on the card: 30 steps from the init and from world-frame
+    starts bitwise equal to the plain version."""
+    tpl, _ = load_ur10()
+    ps = ProblemStructure.from_template(tpl, obstacles=table_environment(n_width=12, n_height=12))
+    spec = ps.reduced_spec()
+    Nr = spec["Nr"]
+    omega, psi_L, psi_U = ps.masks()
+    ep = edge_ops.build_edge_problem(omega[:Nr, :Nr], psi_L[:Nr, :Nr], psi_U[:Nr, :Nr],
+                                     dim=3, anchors=spec)
+    assert (ep.A, ep.a_nsel, ep.a_R) == (1152, 6, 192)
+    gen = torch.Generator().manual_seed(12)
+    T_goal, _ = api.random_goals(ps, (1001,), gen, dtype=torch.float32, device=cuda)
+    D_goal, Y0 = api.make_solver(ps, smooth_iters=2).prepare(T_goal)
+    _, q = api.random_goals(ps, (1001,), gen, dtype=torch.float32, device=cuda)
+    Yw = ps.realization(q)[:, :Nr].contiguous()
+    dg = ep.edge_values(D_goal).contiguous()
+    before = tr_solve.solve_tr_cuda.anchored_launches
+    _bitwise(ep, Y0.contiguous(), dg, maxiter=30, maxinner=24, plateau_every=16, plateau_rtol=1e-4)
+    _bitwise(ep, Yw, dg, maxiter=30, maxinner=24, plateau_every=16, plateau_rtol=1e-4)
+    assert tr_solve.solve_tr_cuda.anchored_launches == before + 2
+
+
+def test_tr_kernel_refuses_past_the_build(cuda):
+    """N = 65 and a group of 1032 anchor rows raise, naming the limit, on
+    CUDA tensors too."""
+    ep, Y0, dg = _synthetic(65, 3, 100, seed=1, device=cuda, B=4)
+    with pytest.raises(ValueError, match="N <= 64"):
+        tr_solve.solve_tr_cuda(ep, Y0, dg, maxiter=1)
+    ep, Y0, dg = _synthetic(8, 3, 10, seed=1, device=cuda, B=4)
+    big = _with_anchors(ep, Y0, rows=1032)
+    with pytest.raises(ValueError, match="a_R <= 1024"):
+        tr_solve.solve_tr_cuda(big, Y0, dg, maxiter=1)
+
+
 def _symmetric(rs, B, n, dtype, device):
     X = rs.normal(size=(B, n, n))
     return torch.tensor(X + X.transpose(0, 2, 1), dtype=dtype, device=device)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("n", list(range(1, 33)))
+@pytest.mark.parametrize("n", list(range(1, 65)))
 def test_sym_eigh_kernel_matches_plain(cuda, dtype, n):
     """K5 (csrc/eigh.cu) against its plain version on the card at every n
-    it takes (one kernel instance per even m = n rounded up; odd n skips
-    pair 0), 301 random symmetric matrices (a ragged last block):
+    it takes (up to n = 32 one kernel instance per even m = n rounded up,
+    past it the shared-memory kernel at a runtime m; odd n skips pair 0),
+    301 random symmetric matrices (a ragged last block):
     eigenvalues, eigenvectors and flags bitwise equal, every matrix
     converged, one launch counted; eigenvalues within 1e-5 (f32) or 1e-12
     (f64) of ||A||_F from torch.linalg.eigh; and the first 77 matrices

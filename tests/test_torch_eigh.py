@@ -218,7 +218,7 @@ def test_padded_rows_are_left_alone():
 
 def test_sym_eigh_on_the_cpu_is_the_plain_version():
     """On the CPU sym_eigh returns the plain version's (w, V) bit for bit
-    and launches no kernel; it refuses n > 32, integer and non-square
+    and launches no kernel; it refuses n > 64, integer and non-square
     stacks, and sym_eigh_cuda refuses a CPU tensor (no fallback)."""
     A = torch.from_numpy(symmetric(np.random.RandomState(5), 6, 13))
     before = teigh.sym_eigh_cuda.launches
@@ -226,8 +226,8 @@ def test_sym_eigh_on_the_cpu_is_the_plain_version():
     w_ref, V_ref, _ = teigh.sym_eigh_reference(A)
     assert torch.equal(w, w_ref) and torch.equal(V, V_ref)
     assert teigh.sym_eigh_cuda.launches == before
-    with pytest.raises(ValueError, match="n <= 32"):
-        teigh.sym_eigh(torch.zeros(2, 33, 33))
+    with pytest.raises(ValueError, match="n <= 64"):
+        teigh.sym_eigh(torch.zeros(2, 65, 65))
     with pytest.raises(TypeError):
         teigh.sym_eigh(torch.zeros(2, 4, 4, dtype=torch.int64))
     with pytest.raises(ValueError, match="square"):

@@ -179,8 +179,8 @@ def test_wrappers_refuse_anchors(ur10_edge):
 
 
 def test_kernel_wrapper_refuses_anchor_rows_over_the_build(ur10_edge):
-    """More anchor rows than the build's kMaxA (1024) raise before any
-    launch: 1100 rows on one node."""
+    """A group of more anchor rows than a lane's 32-bit row masks hold
+    (1024) raises before any launch: 1100 rows on one node."""
     masks, _, Y0, D = ur10_edge
     n = 1100
     anchors = {"idx": np.full(n, 3), "centers": np.zeros((n, 3)), "psi_L": np.full(n, 0.1),

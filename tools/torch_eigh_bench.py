@@ -30,7 +30,12 @@ script reports:
              scheduler, a latency-bound one's stays flat;
   paths      the time at each matrix shape a path launches
              (chip_smoke.eigh_path_inputs), beside the bound
-             (chip_smoke.eigh_bound).
+             (chip_smoke.eigh_bound) and torch.linalg.eigh's time;
+  sizes      the time on SIZES_B seeded random symmetric matrices at each n
+             of --sizes (default 42, 43, 64: the shared-memory kernel past
+             n = 32), float32 and float64, beside the bound and
+             torch.linalg.eigh's time (every tree must take n > 32; pass
+             --sizes "" for a parent that does not).
 
 Times are CUDA-event means over REPS back-to-back launches into
 preallocated outputs after a warm launch, taken in turns A B B A over the
@@ -58,6 +63,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 REPS = 20  # launches a timing
 SEED = 0
+SIZES_B = 8192
 
 
 def smi(query):
@@ -201,6 +207,7 @@ def main():
     p.add_argument("--turns", type=int, default=2, help="pairs of turns (A B B A per pair)")
     p.add_argument("--sass-dir", default="", help="write each tree's SASS here")
     p.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
+    p.add_argument("--sizes", default="42,43,64", help="n of the random 'sizes' inputs")
     args = p.parse_args()
 
     import torch
@@ -231,6 +238,14 @@ def main():
     inputs = [("occupancy", f"{tag} B={B}", A[:B].contiguous())
               for tag, A in paths if tag.startswith("ur10 G") for B in chip_smoke.EIGH_OCCUPANCY_B]
     inputs += [("paths", tag, A.contiguous()) for tag, A in paths]
+    import numpy as np
+
+    rs = np.random.RandomState(SEED)
+    for n in [int(x) for x in args.sizes.split(",") if x]:
+        X = rs.normal(size=(SIZES_B, n, n))
+        for dt, key in ((torch.float32, "f32"), (torch.float64, "f64")):
+            inputs.append(("sizes", f"random n={n} {key}",
+                           torch.tensor(X + X.transpose(0, 2, 1), dtype=dt, device=dev)))
 
     labels = [label for label, _ in trees]
     order = []
@@ -244,13 +259,16 @@ def main():
         for label in order:
             times[label].append(chip_smoke.event_ms(lambda: kernels[label](A), REPS))
         b = chip_smoke.eigh_bound(n, B, A.dtype)
+        lib_ms = (None if group == "occupancy"
+                  else chip_smoke.event_ms(lambda: torch.linalg.eigh(A), 5))
         row = {"group": group, "case": tag, "B": B, "n": n, "bound_ms": b[0], "bound_by": b[1],
-               "ms": times, "sha256": hashes}
+               "ms": times, "library_ms": lib_ms, "sha256": hashes}
         rows.append(row)
         print(f"{group} {tag}: B = {B}, n = {n}: "
               + "; ".join(f"{lb} {min(v):.4f}-{max(v):.4f} ms ({hashes[lb]})"
                           for lb, v in times.items())
-              + f"; bound {b[0] * 1e3:.2f} us ({b[1]})", flush=True)
+              + f"; bound {b[0] * 1e3:.2f} us ({b[1]})"
+              + ("" if lib_ms is None else f"; torch.linalg.eigh {lib_ms:.3f} ms"), flush=True)
     record["rows"] = rows
     record["card_after"] = smi("name,power.limit,clocks.sm,temperature.gpu")
     os.makedirs(args.out, exist_ok=True)

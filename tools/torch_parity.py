@@ -9,6 +9,24 @@ one configuration at its bench parameters, float32:
         ring_environment), production(250, 32);
     ur10, kuka_iiwa, lwa4d, planar6, planar10 (load_planar_chain(n, limits=pi/2)):
         production(100, 24);
+    robots past 32 nodes, production(100, 24), 10-step polish: planar40
+        (load_planar_chain(40, limits=pi/2): N = 43, E = 89) and dh19 (a
+        19-DoF DH chain drawn from RandomState(19), limits +-pi/2: N = 42,
+        E = 126; `dh19_template`) with full bound smoothing, and
+        ur10_table192 (UR10 + table_environment(n_width=12, n_height=12):
+        192 spheres, A = 1152 anchor rows) with 2-squaring smoothing;
+    planar40_smooth2, dh19_smooth2: planar40 and dh19 with 2-squaring
+        smoothing, the UR10 path's. Two squarings bound paths of at most 4
+        edges, so a long chain's far pairs keep the unbounded placeholder
+        (1e9) and the MDS init is set by it alone: in both packages every
+        goal starts from the same Y0, ~3e8 across, and the pre-polish joint
+        angles are one configuration for all goals. The count is then one
+        draw of that start, not n independent trials. For these the JAX
+        half also saves its Y0, and the port half solves from it as well
+        ("replay_init", beside the verdict, which stays on the port's own
+        init); `--init-noise K` adds K solves from Y0 (1 + 1e-6 g_k), one
+        g_k ~ N(0, 1) per (node, coordinate) shared by every goal, drawn
+        from RandomState(k), in both halves;
   restarts (parallel.make_restart_solver, restart key / generator seed 7):
     ur10_restarts4, planar6_restarts2, planar10_restarts2: production(100, 24),
         10-step polish, 2-squaring smoothing;
@@ -78,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -105,6 +124,13 @@ CONFIGS = {
     "planar6": dict(BENCH, robot="planar6", restarts=0, seed=43, backend="edge"),
     "planar10": dict(BENCH, robot="planar10", restarts=0, seed=44, backend="edge"),
     "planar10_ring6": dict(TABLE, robot="planar10_ring6", restarts=0, seed=54, backend="edge"),
+    "planar40": dict(BENCH, robot="planar40", restarts=0, seed=55, backend="edge", smooth=None),
+    "dh19": dict(BENCH, robot="dh19", restarts=0, seed=56, backend="edge", smooth=None),
+    "planar40_smooth2": dict(BENCH, robot="planar40", restarts=0, seed=55, backend="edge",
+                             shared_start=True),
+    "dh19_smooth2": dict(BENCH, robot="dh19", restarts=0, seed=56, backend="edge",
+                         shared_start=True),
+    "ur10_table192": dict(BENCH, robot="ur10_table192", restarts=0, seed=57),
     "ur10_restarts4": dict(BENCH, robot="ur10", restarts=4, seed=45),
     "ur10_table_restarts2": dict(TABLE, robot="ur10_table", restarts=2, seed=46),
     "planar6_restarts2": dict(BENCH, robot="planar6", restarts=2, seed=47, backend="edge"),
@@ -128,19 +154,34 @@ CONFIGS = {
 }
 
 
+def dh19_template(templates):
+    """The 19-DoF DH chain dh19 from either package's templates module:
+    a ~ U(0.1, 0.5), d ~ U(0, 0.3), alpha from {-pi/2, 0, pi/2}, drawn in
+    that order from RandomState(19); theta = 0, joint limits +-pi/2."""
+    rs = np.random.RandomState(19)
+    a = rs.uniform(0.1, 0.5, 19)
+    d = rs.uniform(0.0, 0.3, 19)
+    alpha = rs.choice([-np.pi / 2, 0.0, np.pi / 2], 19)
+    return templates.revolute_from_dh(a, alpha, d, np.zeros(19), lb=-np.pi / 2, ub=np.pi / 2)
+
+
 def structure(robot, library, ProblemStructure, table_environment, tree):
     """The config's ProblemStructure, from either package's modules (they
     share the names); `tree` makes the tree's. The ring of circles is the
     port's numpy list, handed to either package's structure."""
-    if robot in ("ur10", "ur10_table"):
+    if robot in ("ur10", "ur10_table", "ur10_table192"):
         tpl = library.load_ur10()[0]
-        obstacles = table_environment() if robot == "ur10_table" else None
+        obstacles = {"ur10": None, "ur10_table": table_environment(),
+                     "ur10_table192": table_environment(n_width=12, n_height=12)}[robot]
         return ProblemStructure.from_template(tpl, obstacles=obstacles)
+    if robot == "dh19":
+        templates = importlib.import_module(f"{library.__package__}.templates")
+        return ProblemStructure.from_template(dh19_template(templates))
     if robot == "kuka_iiwa":
         return library.load_kuka()[1]
     if robot == "lwa4d":
         return library.load_schunk_lwa4d()[1]
-    if robot in ("planar6", "planar10"):
+    if robot in ("planar6", "planar10", "planar40"):
         return library.load_planar_chain(int(robot[6:]), limits=np.pi / 2)[1]
     if robot == "planar10_ring6":
         from graphik_tpu_torch.utils.environments import ring_environment
@@ -222,6 +263,47 @@ def solver_kwargs(cfg, TRParams, LocalParams, CGParams):
     return kw
 
 
+def init_noise(k, shape):
+    """The k-th perturbation factor of a shared start, 1 + 1e-6 g, g ~ N(0,
+    1) of `shape` from RandomState(k), as float32."""
+    g = np.random.RandomState(k).standard_normal(shape)
+    return (1.0 + 1e-6 * g).astype(np.float32)
+
+
+def jax_from_init(api, ps, riemannian, kw, dtype):
+    """The JAX package's make_solver stages (graphik_tpu/api.py) for a
+    structure without obstacles, split so that a solve can start from a
+    given Y0: (prepare(T) -> (D_goal, Y0), success(Y0, D_goal, T) ->
+    per-goal success)."""
+    import jax
+    import jax.numpy as jnp
+
+    omega, psi_L, psi_U = ps.masks()
+
+    @jax.jit
+    def prepare(T_goal):
+        with jax.default_matmul_precision("highest"):
+            inst = ps.instance(T_goal, dtype=dtype, smooth=True,
+                               smooth_iters=kw.get("smooth_iters"))
+            Y0 = riemannian.generate_initialization(inst["lb"], inst["ub"],
+                                                    jnp.asarray(omega), ps.dim)
+            return inst["D_goal"], Y0
+
+    @jax.jit
+    def success(Y0, D_goal, T_goal):
+        with jax.default_matmul_precision("highest"):
+            sol = api.solve_reduced(ps, Y0, D_goal, omega, psi_L, psi_U, params=kw["params"])
+            q = ps.joint_variables(sol["Y"], T_goal)
+            viol, ok = ps.check_distance_limits(ps.realization(q), tol=1e-6)
+            e_pos, e_rot = api.pose_error(ps, q, T_goal)
+            _, e_pos, e_rot, _, ok = api.polish_solution(ps, q, T_goal, e_pos, e_rot, viol, ok,
+                                                         limit_tol=1e-6,
+                                                         params=kw.get("polish_params"))
+            return (e_pos < CRIT_POS) & (e_rot < CRIT_ROT) & ok
+
+    return prepare, success
+
+
 def run_jax(args):
     import jax
 
@@ -249,7 +331,7 @@ def run_jax(args):
     q = np.random.RandomState(seed).uniform(tpl.lb[1:], tpl.ub[1:], size=(args.n, tpl.n))
     T_goal = np.asarray(kinematics.all_poses(tpl, jnp.asarray(q))[:, tpl.ee], dtype)
     t0 = time.perf_counter()
-    fracs, extra = {}, {}
+    arrays, extra = {}, {}
     if "cidgik" in cfg:
         from graphik_tpu.solvers import cidgik, cidgik_sparse
 
@@ -270,7 +352,7 @@ def run_jax(args):
         # the fractions generate_initialization drew: restart r of draw i
         # samples from split(key_i, R)[r], one value per entry of lb
         M = ps.N if ps.reduced_spec() is None else ps.reduced_spec()["Nr"]
-        fracs["fracs"] = np.stack([np.stack([
+        arrays["fracs"] = np.stack([np.stack([
             np.asarray(jax.random.uniform(k, (args.n, M, M), dtype=jnp.float32))
             for k in jax.random.split(jax.random.PRNGKey(RESTART_SEED + i), R)[1:]])
             for i in range(min(REPLAY_DRAWS, args.draws))])  # (draws, R - 1, n, M, M)
@@ -278,6 +360,19 @@ def run_jax(args):
         outs = [api.make_solver(ps, dtype=getattr(jnp, dtype), **kw)(jnp.asarray(T_goal))]
     outs = jax.block_until_ready(outs)
     wall = time.perf_counter() - t0
+    if cfg.get("shared_start"):
+        from graphik_tpu.solvers import riemannian
+
+        prepare, success = jax_from_init(api, ps, riemannian, kw, getattr(jnp, dtype))
+        D_goal, Y0 = prepare(jnp.asarray(T_goal))
+        arrays["Y0"] = np.asarray(Y0)
+        extra["Y0_spread_over_goals"] = float(np.abs(arrays["Y0"] - arrays["Y0"][:1]).max())
+        extra["Y0_max_abs"] = float(np.abs(arrays["Y0"]).max())
+        counts = [int(np.asarray(success(Y0 * jnp.asarray(init_noise(k, Y0.shape[-2:])),
+                                         D_goal, jnp.asarray(T_goal))).sum())
+                  for k in range(args.init_noise)]
+        if counts:
+            extra["init_noise_counts"] = counts
     e_pos = np.stack([np.asarray(o["e_pos"]) for o in outs])
     e_rot = np.stack([np.asarray(o["e_rot"]) for o in outs])
     ok = (e_pos < CRIT_POS) & (e_rot < CRIT_ROT) & np.stack([np.asarray(o["success"])
@@ -287,7 +382,7 @@ def run_jax(args):
     path = args.out or f"build/parity/{args.config}.npz"
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path, T_goal=T_goal, q_goal=q, seed=seed, config=args.config, backend=backend,
-             success=ok, e_pos=e_pos, e_rot=e_rot, jax_stats=json.dumps(extra), **fracs)
+             success=ok, e_pos=e_pos, e_rot=e_rot, jax_stats=json.dumps(extra), **arrays)
     lo, hi = wilson95(ok.size, int(ok.sum()))
     print(json.dumps({"half": "jax", "config": args.config, "device": jax.default_backend(),
                       "backend": backend, "n": ok.size, "seed": seed, "success": int(ok.sum()),
@@ -348,7 +443,8 @@ def run_torch(args):
             outs = [solver(T_goal, torch.Generator(device=dev).manual_seed(RESTART_SEED + i))
                     for i in range(len(ok_j))]
         else:
-            outs = [api.make_solver(ps, device=dev, dtype=dtype, **kw)(T_goal)]
+            solver = api.make_solver(ps, device=dev, dtype=dtype, **kw)
+            outs = [solver(T_goal)]
         oks = [ok_of(o) for o in outs]
         iters = float(torch.stack([o["iterations"] for o in outs]).double().mean())
     if dev.type == "cuda":
@@ -357,6 +453,23 @@ def run_torch(args):
     launches = solve_tr_cuda.launches - launches
     ok_t = np.stack(oks).reshape(ok_j.shape)
     replay = {}
+    if "Y0" in ref:  # a shared start: the JAX half's own Y0, then perturbed ones
+        D_goal, Y0 = solver.prepare(T_goal)
+
+        def count(Y):
+            return ok_of(solver.finish(solver.solve(Y.contiguous(), D_goal), T_goal))
+
+        ok_r = count(torch.as_tensor(ref["Y0"], device=dev))
+        jax_stats = json.loads(str(ref["jax_stats"]))
+        K = len(jax_stats.get("init_noise_counts", []))
+        replay = {"replay_init": {
+            "port_success": int(ok_r.sum()), "both": int((ok_j & ok_r).sum()),
+            "port_only": int((ok_r & ~ok_j).sum()), "jax_only": int((ok_j & ~ok_r).sum()),
+            "port_Y0_spread_over_goals": float((Y0 - Y0[:1]).abs().max()),
+            "port_Y0_max_abs": float(Y0.abs().max()), "jax": jax_stats,
+            "port_init_noise_counts": [
+                int(count(Y0 * torch.as_tensor(init_noise(k, Y0.shape[-2:]), device=dev)).sum())
+                for k in range(K)]}}
     if "fracs" in ref:  # the JAX half's own inits, draw by draw
         ok_r = np.stack([ok_of(solver(T_goal, fracs=torch.as_tensor(f, device=dev)))
                          for f in ref["fracs"]])
@@ -402,6 +515,8 @@ def main():
                     help="restart configurations: solves of the goals, one restart key each")
     pj.add_argument("--backend", choices=["pallas", "edge", "dense"], default=None,
                     help="the JAX package's TR backend (default: the config's)")
+    pj.add_argument("--init-noise", type=int, default=0,
+                    help="shared-start configurations: solves from K perturbed inits")
     pt = sub.add_parser("torch", help="solve the saved goals with the port")
     pt.add_argument("--goals", default="build/parity/ur10_table.npz")
     pt.add_argument("--device", default="cuda")
