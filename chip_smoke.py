@@ -172,16 +172,17 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      Nr = 16 at B = 1000, dense CIDGIK's lifted Z (s = 13) and the sparse
      path's padded clique blocks at B = 1024 (float32 and float64), and
      seeded random matrices at n = 2, 3, 31, 32, 42, 43, 64 (past 32 the
-     shared-memory kernel) and with equal diagonals at n = 13, and each
-     path's matrices at the batch it launches (`eigh_path_inputs`: UR10,
-     planar6, planar10, KUKA iiwa, planar40 (n = 43), dh19 (n = 42) at
-     B = 8192,
-     the tree's 3 x 1000, CIDGIK's Fantope inputs at B = 1024; float32
-     and float64); UR10's first 501 Grams bitwise the same alone; K5's,
-     torch.linalg.eigh's and the plain version's times at UR10's shape
-     beside the bound, K5's on UR10's first 1024-8192 Grams (occupancy),
-     and K5's and torch.linalg.eigh's on each path's matrices beside
-     their bounds.
+     wide instances, csrc/eigh_wide.cuh) and with equal diagonals at n =
+     13, and each path's matrices at the batch it launches
+     (`eigh_path_inputs`: UR10, planar6, planar10, KUKA iiwa, planar40 (n
+     = 43), dh19 (n = 42) at B = 8192, the tree's 3 x 1000, CIDGIK's
+     Fantope inputs at B = 1024; float32 and float64); UR10's first 501
+     Grams bitwise the same alone; K5's, torch.linalg.eigh's and the plain
+     version's times at UR10's shape beside the bound, K5's on the first
+     1024-8192 of UR10's and planar40's Grams (occupancy), and K5's and
+     torch.linalg.eigh's on each path's matrices beside their bounds, past
+     n = 32 with the mean sweeps a matrix (`eigh_sweeps`) and, in the log
+     only, the Jacobi's own operation count (`jacobi_ms`).
  20. robots past 32 nodes and anchor rows past 1024 (run after phase 17,
      before phase 18; `large_structures`): planar40 (N = 43, d = 2, E = 89:
      the TR kernel at two nodes a lane, 3 edges a lane), dh19 (a 19-DoF DH
@@ -346,9 +347,12 @@ PEAK_BYTES = 3.35e12
 # 1e-12 and 2e-5); cuSOLVER's own error adds to the eigenvalue gap.
 EIGH_RES = {"f32": 2e-5, "f64": 1e-12}
 EIGH_EIG = {"f32": 2e-5, "f64": 1e-12}
-# K5's occupancy sweep: the first B of UR10's 8192 Grams, from about one
-# warp a scheduler to eight (the first kernel's blocks, one wave)
+# K5's occupancy sweep: the first B of a path's 8192 prepare Grams, from
+# about one warp a scheduler to eight at UR10's n = 16 (the first kernel's
+# blocks, one wave), and at planar40's n = 43 (the wide instances); the
+# paths by their tags in `eigh_path_inputs`, each float32 and float64
 EIGH_OCCUPANCY_B = (1024, 2048, 4096, 8192)
+EIGH_OCCUPANCY_PATHS = ("ur10 G", "planar40 G")
 # the CUDA API calls (runtime cuda*, low-level cu*) by which the host starts device work
 HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync"}
@@ -911,6 +915,28 @@ def eigh_bound(n, B, dtype):
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
 
+def eigh_sweeps(A):
+    """K5's sweeps on the stack A, counted by its plain version on A's
+    device: {"mean_sweeps", "max_sweeps"}."""
+    from graphik_tpu_torch.ops.eigh import sym_eigh_reference
+
+    ran = sym_eigh_reference(A, sweeps=True)[3].reshape(-1)
+    return {"mean_sweeps": float(ran.double().mean()), "max_sweeps": int(ran.max())}
+
+
+def jacobi_ms(n, B, dtype, mean_sweeps):
+    """The Jacobi's own operation count for B matrices at `mean_sweeps`
+    sweeps a matrix over the card's non-tensor rate of the type: 9 m^2 (m -
+    1) flops a sweep (18 m a lane a step over m / 2 lanes, m - 1 steps;
+    separate multiplies and adds, no FMA). A floor of the algorithm, not
+    of the function, so phase 19 only logs it beside bound_ms."""
+    import torch
+
+    m = n + (n & 1)
+    peak = PEAK_F64 if dtype == torch.float64 else PEAK_F32
+    return 9 * m * m * (m - 1) * mean_sweeps * B / peak * 1e3
+
+
 def prepare_matrices(solver, T_goal):
     """The two matrices the MDS init of `solver`'s prepare decomposes, as
     riemannian.generate_initializations forms them: the symmetrised Gram G
@@ -994,12 +1020,14 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
     torch.linalg.eigh on the card. On UR10's Gram at B = 8192 (ur10_G,
     float32 and float64): its first 501 matrices bitwise the same alone,
     the times of K5 (CUDA events), torch.linalg.eigh and the plain version
-    beside the bound, and K5's time on its first 1024, 2048, 4096 and 8192
-    matrices (the occupancy sweep: a kernel bound by its issue slots takes
-    time in proportion, one bound by the latency of its steps about the
-    same time). On each of `path_inputs` (each path's matrices at the batch
-    it launches, `eigh_path_inputs`): K5's and torch.linalg.eigh's times
-    beside the bound. Returns the phase's record (K5's time at the main
+    beside the bound. On each of `path_inputs` (each path's matrices at the
+    batch it launches, `eigh_path_inputs`): K5's and torch.linalg.eigh's
+    times beside the bound; past n = 32 the sweeps a matrix, and in the log
+    beside them the Jacobi's own count (`jacobi_ms`); on the paths of
+    EIGH_OCCUPANCY_PATHS K5's time on their first 1024, 2048, 4096 and
+    8192 matrices (the occupancy sweep: a kernel bound by its issue slots
+    takes time in proportion, one bound by the latency of its steps about
+    the same time). Returns the phase's record (K5's time at the main
     path's shape, float32, heads the kernels' record)."""
     import torch
 
@@ -1053,13 +1081,6 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
         log(f"[19] UR10 Gram, B = {B}, n = {n}, {key}: K5 {ms:.3f} ms, torch.linalg.eigh "
             f"{ms_lib:.3f} ms, plain version {ms_plain:.1f} ms, bound {b[0] * 1e3:.2f} us "
             f"({b[1]})")
-        sweep = {}
-        for B_o in EIGH_OCCUPANCY_B:
-            G_o = G[:B_o].contiguous()
-            sweep[B_o] = event_ms(lambda: sym_eigh_cuda(G_o), 20)
-        timing[key]["occupancy_ms"] = sweep
-        log(f"[19] UR10 Gram {key}, K5 on the first B matrices: "
-            + ", ".join(f"B = {B_o}: {t:.4f} ms" for B_o, t in sweep.items()))
     paths = []
     for tag, A in path_inputs:
         B, n = A.shape[0], A.shape[-1]
@@ -1068,10 +1089,23 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
         # timed call after the warm one
         ms_lib = event_ms(lambda: torch.linalg.eigh(A), 5 if n <= 32 else 1)
         b = eigh_bound(n, B, A.dtype)
-        paths.append({"case": tag, "B": B, "n": n, "ms": ms, "library_ms": ms_lib,
-                      "bound_ms": b[0], "bound_by": b[1]})
+        rec = {"case": tag, "B": B, "n": n, "ms": ms, "library_ms": ms_lib, "bound_ms": b[0],
+               "bound_by": b[1]}
+        if n > 32:
+            rec.update(eigh_sweeps(A))
+        if tag.rsplit(" ", 1)[0] in EIGH_OCCUPANCY_PATHS:
+            rec["occupancy_ms"] = {
+                B_o: event_ms(lambda X=A[:B_o].contiguous(): sym_eigh_cuda(X), 20)
+                for B_o in EIGH_OCCUPANCY_B}
+        paths.append(rec)
         log(f"[19] path {tag}: B = {B}, n = {n}: K5 {ms:.4f} ms, torch.linalg.eigh "
-            f"{ms_lib:.3f} ms, bound {b[0] * 1e3:.2f} us ({b[1]})")
+            f"{ms_lib:.3f} ms, bound {b[0] * 1e3:.2f} us ({b[1]})"
+            + (f"; {rec['mean_sweeps']:.3f} sweeps a matrix (max {rec['max_sweeps']}), the "
+               f"Jacobi's own count "
+               f"{jacobi_ms(n, B, A.dtype, rec['mean_sweeps']):.3f} ms" if n > 32 else "")
+            + ("; on the first B matrices: " + ", ".join(
+                f"B = {B_o}: {t:.4f} ms" for B_o, t in rec["occupancy_ms"].items())
+               if "occupancy_ms" in rec else ""))
     log(f"[19] phase took {time.perf_counter() - t_phase:.1f} s")
     return {"shapes": shapes, "timing": timing, "paths": paths, "max_abs_err": err}
 
@@ -2421,7 +2455,8 @@ def main() -> int:
          "at": f"UR10's prepare Gram, B={t_e['B']}, n={t_e['n']}, float32; jnp.linalg.eigh "
                "in the JAX package's jitted prepare, not a Pallas kernel",
          "float64": eigh_rec["timing"]["f64"],
-         "occupancy_ms": eigh_rec["timing"]["f32"]["occupancy_ms"],
+         "occupancy_ms": next(r["occupancy_ms"] for r in eigh_rec["paths"]
+                              if r["case"] == "ur10 G f32"),
          "paths": eigh_rec["paths"], "cases": eigh_rec["shapes"]},
         {"name": "tr_solve", "route": "cuda", "source": "graphik_tpu_torch/csrc/tr_solve.cu",
          "replaces": "graphik_tpu/ops/tr_pallas.py:59", "launches": launches,

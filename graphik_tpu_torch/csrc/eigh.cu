@@ -79,109 +79,27 @@
 //   moving along the cycle, which a whole sweep brings back to the start.
 //
 // Past n = 32 (m = 34 ... 64: robots past 32 nodes, whose MDS Grams are n =
-// N + 1) a lane still holds a pair, but two rows of 64 a lane no longer fit
-// in registers: sym_eigh_wide_kernel keeps a matrix's A and V^T in the
-// warp's shared memory ((2 m (m + 1) + m) words: 33 KB a matrix at m = 64
-// in float32, 67 KB in float64), one matrix a warp, one warp a block, m a
-// runtime value (one instance a type). Rows and columns stay in index
-// order, so nothing moves between steps: lane L's rows are its pair's two
-// indices, and a step's column update reads every pair's (c, sigma) by
-// shuffle and its indices from the step number. Lane L alone writes rows
-// ix, iy in a step, so the step needs no barrier inside it, only one
-// __syncwarp after it. The arithmetic is the register kernel's, operation
-// for operation, so the plain version holds it bit for bit too. A first,
-// simple form: every step reads and writes ~12 m shared words a lane, and
-// its one warp a matrix runs ~10 sweeps of m - 1 dependent steps. On an
-// H100, 8192 matrices at n = 42-43 take 8.5-10.7 ms (float32) and
-// 18.4-23.5 ms (float64), 100-130x their flop bound, against 4.5-7.1 s for
-// torch.linalg.eigh on the same inputs (tools/torch_eigh_bench.py).
+// N + 1) the instances of csrc/eigh_wide.cuh take over (eigh_wide_f32.cu,
+// eigh_wide_f64.cu, each source its own nvcc process): the same design with
+// h = 17 ... 32 pairs a warp, (c, sigma) broadcast through shared memory,
+// V^T in shared memory, and a matrix's columns split over two warps where
+// its rows would not fit in registers (that file's head comment).
 
-#include <cfloat>
-#include <cuda_runtime.h>
+#include "eigh_common.cuh"
+
+// the instances past m = 32 (csrc/eigh_wide.cuh): the launch's cudaError_t
+extern "C" int graphik_sym_eigh_wide_f32(const void* A, void* W, void* V, void* conv, int B,
+                                         int n, cudaStream_t stream);
+extern "C" int graphik_sym_eigh_wide_f64(const void* A, void* W, void* V, void* conv, int B,
+                                         int n, cudaStream_t stream);
 
 namespace {
 
-constexpr int kWarps = 2;       // warps a block
-constexpr int kMaxSweeps = 30;  // sweeps before a matrix stops unconverged
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T> struct Eps;
-template <> struct Eps<float> { static constexpr float value = FLT_EPSILON; };
-template <> struct Eps<double> { static constexpr double value = DBL_EPSILON; };
-
-__device__ __forceinline__ float absv(float x) { return fabsf(x); }
-__device__ __forceinline__ double absv(double x) { return fabs(x); }
-__device__ __forceinline__ float sqrtv(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrtv(double x) { return sqrt(x); }
-__device__ __forceinline__ float copysignv(float x, float y) { return copysignf(x, y); }
-__device__ __forceinline__ double copysignv(double x, double y) { return copysign(x, y); }
+constexpr int kWarps = 2;  // warps a block
 
 // lanes of a matrix's segment: h = m/2 rounded up to a power of two
 __host__ __device__ constexpr int seg_width(int h) {
   return h <= 1 ? 1 : h <= 2 ? 2 : h <= 4 ? 4 : h <= 8 ? 8 : 16;
-}
-
-// the index at column position j at the start of a sweep (step 0): pair k
-// = (k, r - k), pair 0 = (0, r)
-__host__ __device__ constexpr int index0(int j, int r) {
-  return j % 2 == 0 ? j / 2 : (j == 1 ? r : r - j / 2);
-}
-
-// the position whose column moves to position j at the next step
-__host__ __device__ constexpr int from_pos(int j, int h) {
-  return h == 1 ? j
-         : j % 2 == 0 ? (j / 2 <= h - 2 ? j + 2 : 2 * h - 1)
-                      : (j == 1 ? 1 : j == 3 ? 0 : j - 2);
-}
-
-// d_j (index j) sorts before d_i (index i): ascending, NaN last, ties by index.
-template <typename T>
-__device__ __forceinline__ bool before(T dj, int j, T di, int i) {
-  const bool nj = dj != dj, ni = di != di;
-  if (nj != ni) return ni;
-  if (nj) return j < i;
-  return dj < di || (dj == di && j < i);
-}
-
-// Writes eigenpair (d, column v of V) of index l: its rank among the n
-// eigenvalues of sd, the column's sign.
-template <typename T, int M, typename Col>
-__device__ __forceinline__ void write_pair(const T* sd, int l, T d, Col v, int n, T* W, T* out) {
-  int rank = 0;
-  for (int j = 0; j < n; ++j) rank += before(sd[j], j, d, l);
-  T best = absv(v(0));
-  bool flip = v(0) < T(0);
-#pragma unroll
-  for (int i = 1; i < M; ++i) {
-    const T x = v(i);
-    if (i < n && absv(x) > best) {
-      best = absv(x);
-      flip = x < T(0);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-    if (i < n) out[i * n + rank] = flip ? -v(i) : v(i);
-  W[rank] = d;
-}
-
-// write_pair for a runtime n: column v of V (n values) of index l.
-template <typename T>
-__device__ __forceinline__ void write_pair_n(const T* sd, int l, T d, const T* v, int n, T* W,
-                                             T* out) {
-  int rank = 0;
-  for (int j = 0; j < n; ++j) rank += before(sd[j], j, d, l);
-  T best = absv(v[0]);
-  bool flip = v[0] < T(0);
-  for (int i = 1; i < n; ++i) {
-    const T x = v[i];
-    if (absv(x) > best) {
-      best = absv(x);
-      flip = x < T(0);
-    }
-  }
-  for (int i = 0; i < n; ++i) out[i * n + rank] = flip ? -v[i] : v[i];
-  W[rank] = d;
 }
 
 template <typename T, int M>
@@ -425,150 +343,6 @@ sym_eigh_kernel(const T* __restrict__ A, T* __restrict__ W, T* __restrict__ Vout
   if (valid && L == 0) conv[mat] = converged ? 1 : 0;
 }
 
-// Shared-memory words of one matrix of sym_eigh_wide_kernel: A and V^T
-// ([m][m + 1] each, by index), then the eigenvalues [m].
-__host__ __device__ constexpr int wide_words(int m) { return 2 * m * (m + 1) + m; }
-
-template <typename T>
-__global__ void __launch_bounds__(32)
-sym_eigh_wide_kernel(const T* __restrict__ A, T* __restrict__ W, T* __restrict__ Vout,
-                     int* __restrict__ conv, int n) {
-  extern __shared__ __align__(16) unsigned char s_raw[];
-  const int m = n + (n & 1), H = m / 2, R = m - 1, LD = m + 1;
-  T* sa = reinterpret_cast<T*>(s_raw);  // A: row i at sa + i LD
-  T* sv = sa + m * LD;                  // V^T: column i of V at sv + i LD
-  T* sd = sv + m * LD;                  // the eigenvalues, by index
-  const int L = threadIdx.x;
-  const long long mat = blockIdx.x;
-  const bool act = L < H;  // lanes past h hold no pair
-  const bool even = (n & 1) == 0;
-  int ix = L, iy = L == 0 ? R : R - L;  // the indices of pair L's first and second slot
-
-  // rows ix and iy of the mirrored lower triangle, and of V^T = I
-  T mx = T(0);
-  if (act) {
-    const T* src = A + mat * n * n;
-    for (int c = 0; c < m; ++c) {
-      T x = T(0), y = T(0);
-      if (c < n) {
-        if (ix < n) x = src[ix >= c ? ix * n + c : c * n + ix];
-        if (iy < n) y = src[iy >= c ? iy * n + c : c * n + iy];
-      }
-      sa[ix * LD + c] = x;
-      sa[iy * LD + c] = y;
-      sv[ix * LD + c] = c == ix ? T(1) : T(0);
-      sv[iy * LD + c] = c == iy ? T(1) : T(0);
-      const T u = absv(x), w = absv(y);
-      mx = u > mx ? u : mx;
-      mx = w > mx ? w : mx;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const T y = __shfl_xor_sync(kFull, mx, o);
-    mx = y > mx ? y : mx;
-  }
-  const T thr = Eps<T>::value * mx;
-  __syncwarp();
-
-  bool converged = false;
-  for (int sweep = 0;; ++sweep) {
-    // the stop test on the upper triangle (row < column < n); here ix = L
-    bool bad = false;
-    if (act)
-      for (int c = 0; c < n; ++c) {
-        if (ix < c) bad |= !(absv(sa[ix * LD + c]) <= thr);
-        if (iy < c) bad |= !(absv(sa[iy * LD + c]) <= thr);
-      }
-    if (!__any_sync(kFull, bad)) {
-      converged = true;
-      break;
-    }
-    if (sweep == kMaxSweeps) break;
-
-    for (int s = 0; s < R; ++s) {
-      // pair L's 2x2 block; p is the smaller of ix and iy
-      T axx = T(0), axy = T(0), ayx = T(0), ayy = T(0);
-      if (act) {
-        axx = sa[ix * LD + ix];
-        axy = sa[ix * LD + iy];
-        ayx = sa[iy * LD + ix];
-        ayy = sa[iy * LD + iy];
-      }
-      const bool xp = ix < iy;
-      const T app = xp ? axx : ayy, aqq = xp ? ayy : axx, apq = xp ? axy : ayx;
-      const bool live = act && (L != 0 || even);
-      T c = T(1), sg = T(0), t = T(0);
-      if (live && absv(apq) > thr) {
-        const T theta = (aqq - app) / (apq + apq);
-        t = copysignv(T(1) / (absv(theta) + sqrtv(T(1) + theta * theta)), theta);
-        c = T(1) / sqrtv(T(1) + t * t);
-        sg = t * c;
-      }
-      const T sig = xp ? sg : -sg;
-      if (live) {
-        // rows p, q of A, then columns p, q of V: the lane's own
-        for (int j = 0; j < m; ++j) {
-          const T x = sa[ix * LD + j], y = sa[iy * LD + j];
-          sa[ix * LD + j] = c * x - sig * y;
-          sa[iy * LD + j] = sig * x + c * y;
-        }
-        for (int i = 0; i < m; ++i) {
-          const T x = sv[ix * LD + i], y = sv[iy * LD + i];
-          sv[ix * LD + i] = c * x - sig * y;
-          sv[iy * LD + i] = sig * x + c * y;
-        }
-      }
-      // columns p_k, q_k of both rows, with pair k's (c, sigma); pair k's
-      // indices at step s: (s + k, s - k) mod r, pair 0's (s, r)
-      for (int k = 0; k < H; ++k) {
-        const T ck = __shfl_sync(kFull, c, k), sk = __shfl_sync(kFull, sig, k);
-        if (act && (k != 0 || even)) {
-          const int pk = s + k >= R ? s + k - R : s + k;
-          const int qk = k == 0 ? R : (s - k < 0 ? s - k + R : s - k);
-          const T x = sa[ix * LD + pk], y = sa[ix * LD + qk];
-          sa[ix * LD + pk] = ck * x - sk * y;
-          sa[ix * LD + qk] = sk * x + ck * y;
-          const T u = sa[iy * LD + pk], w = sa[iy * LD + qk];
-          sa[iy * LD + pk] = ck * u - sk * w;
-          sa[iy * LD + qk] = sk * u + ck * w;
-        }
-      }
-      // the pair's block: diag(a_pp - t a_pq, a_qq + t a_pq)
-      if (live) {
-        const T tq = t * apq;
-        const T dp = app - tq, dq = aqq + tq;
-        sa[ix * LD + ix] = xp ? dp : dq;
-        sa[ix * LD + iy] = T(0);
-        sa[iy * LD + ix] = T(0);
-        sa[iy * LD + iy] = xp ? dq : dp;
-      }
-      __syncwarp();  // the next step's lanes of rows ix, iy read them after these writes
-      ix = ix + 1 == R ? 0 : ix + 1;
-      if (L != 0) iy = iy + 1 == R ? 0 : iy + 1;
-    }
-  }
-
-  // eigenvalues (the diagonal), ranked against the matrix's others
-  T dx = T(0), dy = T(0);
-  if (act) {
-    dx = sa[ix * LD + ix];
-    dy = sa[iy * LD + iy];
-    sd[ix] = dx;
-    sd[iy] = dy;
-  }
-  __syncwarp();
-  if (act) {
-    T* w = W + mat * n;
-    T* out = Vout + mat * n * n;
-    const T* cx = sv + ix * LD;
-    const T* cy = sv + iy * LD;
-    write_pair_n(sd, ix, dx, cx, n, w, out);
-    if (iy < n) write_pair_n(sd, iy, dy, cy, n, w, out);
-  }
-  if (L == 0) conv[mat] = converged ? 1 : 0;
-}
-
 template <typename T, int M>
 cudaError_t launch(const void* A, void* W, void* V, void* conv, int B, int n,
                    cudaStream_t stream) {
@@ -603,18 +377,10 @@ cudaError_t launch_n(const void* A, void* W, void* V, void* conv, int B, int n,
     case 32: return launch<T, 32>(A, W, V, conv, B, n, st);
     default: break;
   }
-  // 34 <= m <= 64: one matrix a block of one warp, in dynamic shared memory
-  const int m = n + (n & 1);
-  if (m > 64) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * wide_words(m);
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024)
-    err = cudaFuncSetAttribute(sym_eigh_wide_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  sym_eigh_wide_kernel<T><<<B, 32, smem, st>>>(static_cast<const T*>(A), static_cast<T*>(W),
-                                              static_cast<T*>(V), static_cast<int*>(conv), n);
-  return cudaGetLastError();
+  // 34 <= m <= 64: the instances of csrc/eigh_wide.cuh, one source a type
+  const int err = sizeof(T) == 8 ? graphik_sym_eigh_wide_f64(A, W, V, conv, B, n, st)
+                                 : graphik_sym_eigh_wide_f32(A, W, V, conv, B, n, st);
+  return static_cast<cudaError_t>(err);
 }
 
 }  // namespace

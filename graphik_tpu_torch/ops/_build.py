@@ -97,6 +97,34 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libgraphik_tpu_torch_{h.hexdigest()[:16]}.so")
 
 
+def compile_library(sources, so, extra_flags=()) -> str:
+    """Compile `sources`, each by its own nvcc process (all started
+    together), and link them into the shared library `so`; returns nvcc's
+    output (ptxas register, shared-memory and spill counts of every kernel)
+    and raises when a step fails."""
+    nvcc = _nvcc()
+    tag = f"{so}.{os.getpid()}"
+    objs = [f"{tag}.{os.path.basename(src)}.o" for src in sources]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run([nvcc, "-shared", "-o", f"{tag}.tmp", *objs],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if link is None or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "".join(logs))
+    os.replace(f"{tag}.tmp", so)
+    return "".join(logs)
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Compile csrc/*.cu if this source hash has no library yet; load it.
@@ -107,28 +135,15 @@ def load_library() -> ctypes.CDLL:
     so = library_path()
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        nvcc = _nvcc()
-        tag = f"{so}.{os.getpid()}"
-        objs = [f"{tag}.{os.path.basename(src)}.o" for src in _sources()]
-        procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(_sources(), objs)
-        ]
-        logs = [p.communicate()[0] for p in procs]
-        link = None
-        if all(p.returncode == 0 for p in procs):
-            link = subprocess.run([nvcc, "-shared", "-o", f"{tag}.tmp", *objs],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            logs.append(link.stdout)
-        with open(so + ".log", "w") as f:
-            f.write("".join(logs))
-        for obj in objs:
-            if os.path.exists(obj):
-                os.remove(obj)
-        if link is None or link.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + "".join(logs))
-        os.replace(f"{tag}.tmp", so)
+        log = ""
+        try:
+            log = compile_library(_sources(), so)
+        except RuntimeError as e:
+            log = str(e)
+            raise
+        finally:
+            with open(so + ".log", "w") as f:
+                f.write(log)
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -8,7 +8,9 @@ port's eigendecompositions go through this module instead:
 
 * `sym_eigh_cuda(A)` - wrapper of the hand-written CUDA kernel csrc/eigh.cu
   (cyclic Jacobi, a lane a rotation pair: m/2 lanes a matrix, m = n rounded
-  up to even; A and V in registers up to n = 32, in shared memory past it):
+  up to even, one kernel instance per m and type; A's rows in registers,
+  past n = 32 (csrc/eigh_wide.cuh) with V^T in shared memory and, where
+  the rows would not fit, a matrix's columns split over two warps):
   float32 or float64 CUDA tensors, n <= 64; counts its launches in
   `sym_eigh_cuda.launches`.
   Returns (eigenvalues, eigenvectors, converged), the flags on the device.
@@ -205,18 +207,19 @@ def _scripted_sweep():
     return torch.jit.script(_sweep)
 
 
-def sym_eigh_reference(A):
+def sym_eigh_reference(A, sweeps=False):
     """The plain torch version of csrc/eigh.cu on A (..., n, n), float32
     or float64, n <= 64, any device: (eigenvalues (..., n), eigenvectors
     (..., n, n), converged (...) bool), the kernel's results step for
-    step."""
+    step; with `sweeps`, also the sweeps each matrix ran (...) int64."""
     _check(A)
     batch, n = A.shape[:-2], A.shape[-1]
     dt, dev = A.dtype, A.device
     A = A.reshape(-1, n, n)
     B = A.shape[0]
     if B == 0 or n == 0:
-        return _empty(A, batch, n)
+        out = _empty(A, batch, n)
+        return out + (torch.zeros(batch, dtype=torch.int64, device=dev),) if sweeps else out
     plan = _plan(n, dev)
     m, h = plan.m, plan.h
     A = torch.where(plan.lower, A, A.transpose(-1, -2))  # the lower triangle, mirrored
@@ -230,12 +233,14 @@ def sym_eigh_reference(A):
     # is bound by that overhead); on a card, eagerly, so that no fuser
     # touches the arithmetic the kernel is held to
     sweep = _scripted_sweep() if dev.type == "cpu" else _sweep
+    ran = torch.zeros(B, dtype=torch.int64, device=dev)
     for k in range(MAX_SWEEPS + 1):
         # the stop test of each matrix, on its state at the start of the sweep
         conv = ((S[:, :m].abs() <= thr[:, :, None]) | plan.skip).flatten(1).all(1)
         live = (~conv).nonzero()[:, 0]
         if k == MAX_SWEEPS or live.numel() == 0:
             break
+        ran += ~conv
         # a matrix that stopped does no more steps, as in the kernel
         sub, sub_thr = (S, thr) if live.numel() == B else (S[live], thr[live])
         with torch.inference_mode():
@@ -256,7 +261,8 @@ def sym_eigh_reference(A):
     rank = before.sum(-1)
     w = torch.empty_like(d).scatter_(1, rank, d)
     V = torch.empty_like(V).scatter_(2, rank[:, None, :].expand(B, n, n), V)
-    return w.reshape(batch + (n,)), V.reshape(batch + (n, n)), conv.reshape(batch)
+    out = w.reshape(batch + (n,)), V.reshape(batch + (n, n)), conv.reshape(batch)
+    return out + (ran.reshape(batch),) if sweeps else out
 
 
 def sym_eigh(A):

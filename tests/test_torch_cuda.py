@@ -821,8 +821,8 @@ def _symmetric(rs, B, n, dtype, device):
 @pytest.mark.parametrize("n", list(range(1, 65)))
 def test_sym_eigh_kernel_matches_plain(cuda, dtype, n):
     """K5 (csrc/eigh.cu) against its plain version on the card at every n
-    it takes (up to n = 32 one kernel instance per even m = n rounded up,
-    past it the shared-memory kernel at a runtime m; odd n skips pair 0),
+    it takes (one kernel instance per even m = n rounded up and type, past
+    n = 32 those of csrc/eigh_wide.cuh; odd n skips pair 0),
     301 random symmetric matrices (a ragged last block):
     eigenvalues, eigenvectors and flags bitwise equal, every matrix
     converged, one launch counted; eigenvalues within 1e-5 (f32) or 1e-12
@@ -910,6 +910,72 @@ def test_sym_eigh_kernel_leaves_padded_rows_alone(cuda, dtype):
     assert bool((unit.sum(-1) == 1).all())
     cols = unit.float().argmax(-1)
     assert bool((w[::3].gather(1, cols) == 0.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [34, 43, 64])
+def test_sym_eigh_wide_matrices_stop_at_their_own_sweep(cuda, dtype, n):
+    """Past n = 32: diagonal matrices (no sweep) alternate with random ones
+    (the most sweeps) and nearly diagonal ones, so that each block of the
+    one-warp instances (two matrices a block) holds matrices that stop at
+    different sweeps: K5 bitwise its plain version, every flag set, the
+    sweeps as the plain version counts them, each matrix the same alone."""
+    from graphik_tpu_torch.ops import eigh
+
+    rs = np.random.RandomState(n + 70)
+    B = 12
+    X = rs.normal(size=(B, n, n))
+    A = X + X.transpose(0, 2, 1)
+    D = np.zeros((B, n, n))
+    D[:, np.arange(n), np.arange(n)] = rs.normal(size=(B, n))
+    A[0::2] = D[0::2]
+    A[3::4] = D[3::4] + 1e-6 * A[3::4]
+    A = torch.tensor(A, dtype=dtype, device=cuda)
+    w, V, conv = eigh.sym_eigh_cuda(A)
+    w_p, V_p, conv_p, ran = eigh.sym_eigh_reference(A, sweeps=True)
+    assert torch.equal(w, w_p) and torch.equal(V, V_p) and torch.equal(conv, conv_p)
+    assert bool(conv.all())
+    assert bool((ran[0::2] == 0).all()) and bool((ran[1::4] > ran[3::4]).all())
+    for i in (0, 1, 2, 3, 11):
+        w1, V1, _ = eigh.sym_eigh_cuda(A[i:i + 1].clone())
+        assert torch.equal(w1[0], w[i]) and torch.equal(V1[0], V[i]), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_sym_eigh_wide_leaves_padded_rows_alone(cuda, dtype):
+    """Exact-zero rows and columns past n = 32 (n = 43, the last 5 zero on
+    every third matrix): K5 bitwise its plain version, each padded index
+    keeping eigenvalue 0 and its unit eigenvector."""
+    from graphik_tpu_torch.ops import eigh
+
+    A = _symmetric(np.random.RandomState(44), 300, 43, dtype, cuda)
+    A[::3, 38:, :] = 0.0
+    A[::3, :, 38:] = 0.0
+    w, V, conv = eigh.sym_eigh_cuda(A)
+    w_p, V_p, _ = eigh.sym_eigh_reference(A)
+    assert torch.equal(w, w_p) and torch.equal(V, V_p) and bool(conv.all())
+    unit = (V[::3, 38:, :] == 1.0)
+    assert bool((unit.sum(-1) == 1).all())
+    cols = unit.float().argmax(-1)
+    assert bool((w[::3].gather(1, cols) == 0.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [33, 34, 63, 64])
+@pytest.mark.parametrize("B", [1, 2, 3, 129])
+def test_sym_eigh_wide_ends_at_every_batch(cuda, dtype, n, B):
+    """The smallest and the largest m past 32 (34, 64; odd n skips pair 0)
+    in both types, whichever instances serve them (one warp a matrix, two a
+    block, or a matrix split over a block's two warps behind its named
+    barrier), at batches that leave a block half full: bitwise the plain
+    version, every flag set."""
+    from graphik_tpu_torch.ops import eigh
+
+    A = _symmetric(np.random.RandomState(1000 * n + B), B, n, dtype, cuda)
+    w, V, conv = eigh.sym_eigh_cuda(A)
+    w_p, V_p, conv_p = eigh.sym_eigh_reference(A)
+    assert torch.equal(w, w_p) and torch.equal(V, V_p) and torch.equal(conv, conv_p)
+    assert bool(conv.all())
 
 
 @pytest.mark.parametrize("restarts", [1, 2])

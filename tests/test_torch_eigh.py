@@ -286,3 +286,19 @@ def test_flags():
     w, V, conv = teigh.sym_eigh_reference(torch.full((2, 1, 1), -3.0))
     assert w.tolist() == [[-3.0], [-3.0]] and V.tolist() == [[[1.0]], [[1.0]]]
     assert bool(conv.all())
+
+
+def test_sweeps_counted():
+    """`sweeps=True` adds the sweeps each matrix ran without touching the
+    results: 0 for a diagonal matrix, MAX_SWEEPS for one with a NaN, a few
+    for random ones past n = 32, each equal to the count it gets alone."""
+    A = torch.from_numpy(symmetric(np.random.RandomState(9), 4, 35))
+    A[0] = torch.diag(torch.arange(35.0, dtype=A.dtype))
+    A[2, 4, 7] = A[2, 7, 4] = float("nan")
+    w, V, conv, ran = teigh.sym_eigh_reference(A, sweeps=True)
+    w0, V0, conv0 = teigh.sym_eigh_reference(A)
+    assert torch.equal(w[[0, 1, 3]], w0[[0, 1, 3]]) and torch.equal(V[[0, 1, 3]], V0[[0, 1, 3]])
+    assert torch.equal(conv, conv0) and conv.tolist() == [True, True, False, True]
+    assert ran[0] == 0 and ran[2] == teigh.MAX_SWEEPS and 3 <= ran[1] <= 15 and 3 <= ran[3] <= 15
+    assert teigh.sym_eigh_reference(A[3:], sweeps=True)[3].tolist() == [ran[3]]
+    assert teigh.sym_eigh_reference(A[:0], sweeps=True)[3].shape == (0,)

@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Time K5, the batched eigensolver (`graphik_tpu_torch/csrc/eigh.cu`), from
+"""Time K5, the batched eigensolver (`graphik_tpu_torch/csrc/eigh*.cu`), from
 one or more source trees on the same inputs, in turns, on one GPU, and show
 what each tree's kernel compiles to.
 
     python3 tools/torch_eigh_bench.py                          # this tree only
     python3 tools/torch_eigh_bench.py --tree parent=build/dev/parent --tree change=.
 
-A tree is a directory holding `graphik_tpu_torch/csrc/eigh.cu` (for example
+A tree is a directory holding `graphik_tpu_torch/csrc/eigh*.cu` (for example
 the parent commit's, unpacked with `git archive HEAD graphik_tpu_torch | tar
--x -C build/dev/parent`). Each tree's eigh.cu is compiled alone with this
-tree's nvcc flags (ops/_build.py NVCC_FLAGS) into a library under
-build/eigh_bench/<label>/ and loaded with ctypes; its C entry point
-`graphik_sym_eigh` has not changed since it was written. For each tree the
-script reports:
+-x -C build/dev/parent`). Each tree's eigh*.cu are compiled with this tree's
+nvcc flags, one nvcc process a source (ops/_build.py compile_library), into
+a library under build/eigh_bench/<label>/ and loaded with ctypes; its C
+entry point `graphik_sym_eigh` has not changed since it was written.
+`--wide-warps 1,2` also builds each tree that has csrc/eigh_wide.cuh with
+every instance past n = 32 at one and at two warps a matrix
+(-DGRAPHIK_EIGH_WIDE_WARPS), labelled <label>_nw1, <label>_nw2: the
+measurement that picks each instance's split. For each build the script
+reports:
 
-  build      nvcc's wall for eigh.cu alone, and each kernel instance's
-             registers, static shared memory and spill stores (-Xptxas -v);
+  build      nvcc's wall, and each kernel instance's registers, static
+             shared memory and spill stores (-Xptxas -v);
   sass       with --sass-dir, `cuobjdump -sass` of the library written to
              <dir>/eigh_sass_<label>.txt.gz, and for each kernel instance its
              instruction count and, for each loop (a backward branch), the
@@ -23,25 +27,27 @@ script reports:
              a divisor's reciprocal, IMAD.HI.U32 takes a quotient),
              shuffles, shared loads and stores, float operations,
              special-function (MUFU) and the rest;
-  occupancy  the time on the first B of UR10's prepare Grams, n = 16,
-             float32 and float64, for B in chip_smoke.EIGH_OCCUPANCY_B
-             (1024 to 8192, all in one wave of the parent's blocks): an
-             issue-bound kernel's time grows with the warps on each
-             scheduler, a latency-bound one's stays flat;
+  occupancy  the time on the first B of UR10's prepare Grams (n = 16) and
+             of planar40's (n = 43), float32 and float64, for B in
+             chip_smoke.EIGH_OCCUPANCY_B (1024 to 8192): an issue-bound
+             kernel's time grows with the warps on each scheduler, a
+             latency-bound one's stays flat;
   paths      the time at each matrix shape a path launches
              (chip_smoke.eigh_path_inputs), beside the bound
              (chip_smoke.eigh_bound) and torch.linalg.eigh's time;
   sizes      the time on SIZES_B seeded random symmetric matrices at each n
-             of --sizes (default 42, 43, 64: the shared-memory kernel past
-             n = 32), float32 and float64, beside the bound and
-             torch.linalg.eigh's time (every tree must take n > 32; pass
-             --sizes "" for a parent that does not).
+             of --sizes (default 34, 42, 43, 48, 56, 64: past n = 32),
+             float32 and float64, beside the bound and torch.linalg.eigh's
+             time (every tree must take n > 32; pass --sizes "" for a
+             parent that does not).
+Past n = 32 each row also has the mean sweeps a matrix and the Jacobi's
+own operation count over the card's rate (chip_smoke.eigh_sweeps).
 
 Times are CUDA-event means over REPS back-to-back launches into
 preallocated outputs after a warm launch, taken in turns A B B A over the
-trees. Every tree's outputs (eigenvalues, eigenvectors, flags) are hashed:
-equal hashes are bitwise-equal results. The inputs are made by this tree's
-package from SEED. The last line is one JSON object, also written to
+builds. Every build's outputs (eigenvalues, eigenvectors, flags) are
+hashed: equal hashes are bitwise-equal results. The inputs are made by this
+tree's package from SEED. The last line is one JSON object, also written to
 <--out>/eigh_bench.json. Without a CUDA device it exits 2.
 """
 
@@ -50,6 +56,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import glob
 import gzip
 import hashlib
 import json
@@ -71,21 +78,18 @@ def smi(query):
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def build(label, tree):
-    """(library path, nvcc seconds, nvcc's output) of the tree's eigh.cu."""
-    from graphik_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
+def build(label, tree, flags=()):
+    """(library path, nvcc seconds, nvcc's output) of the tree's K5 sources,
+    csrc/eigh*.cu, each by its own nvcc process, with `flags` added."""
+    from graphik_tpu_torch.ops._build import compile_library
 
     out_dir = os.path.join(ROOT, "build", "eigh_bench", label)
     os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, "libeigh.so")
-    src = os.path.join(tree, "graphik_tpu_torch", "csrc", "eigh.cu")
+    srcs = sorted(glob.glob(os.path.join(tree, "graphik_tpu_torch", "csrc", "eigh*.cu")))
     t0 = time.perf_counter()
-    done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, src],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    secs = time.perf_counter() - t0
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{done.stdout}")
-    return lib, secs, done.stdout
+    log = compile_library(srcs, lib, flags)
+    return lib, time.perf_counter() - t0, log
 
 
 def sass_classes(lines):
@@ -134,11 +138,11 @@ def sass_loops(text):
     report = {}
     for func in text.split("Function : ")[1:]:
         name = func.split("\n", 1)[0].strip()
-        m = re.search(r"sym_eigh_kernelI((?:[fd]|L[ib]\d+E)+)E", name)
+        m = re.search(r"(sym_eigh(?:_wide)?_kernel)I((?:[fd]|L[ib]\d+E)+)E", name)
         if not m:
             continue
         args = ",".join(num or {"f": "float", "d": "double"}[t]
-                        for num, t in re.findall(r"L[ib](\d+)E|([fd])", m.group(1)))
+                        for num, t in re.findall(r"L[ib](\d+)E|([fd])", m.group(2)))
         instr, at_addr, branches = [], {}, []
         for line in func.split("\n"):
             ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*);",
@@ -157,7 +161,7 @@ def sass_loops(text):
             if start is not None and start <= at:
                 body = instr[start:at + 1]
                 loops.append({"start": start, "end": at, **sass_classes(body)})
-        report[f"sym_eigh_kernel<{args}>"] = {"instructions": len(instr), "loops": loops,
+        report[f"{m.group(1)}<{args}>"] = {"instructions": len(instr), "loops": loops,
                                               **{"all_" + k: v for k, v in
                                                  sass_classes(instr).items()}}
     return report
@@ -207,7 +211,11 @@ def main():
     p.add_argument("--turns", type=int, default=2, help="pairs of turns (A B B A per pair)")
     p.add_argument("--sass-dir", default="", help="write each tree's SASS here")
     p.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
-    p.add_argument("--sizes", default="42,43,64", help="n of the random 'sizes' inputs")
+    p.add_argument("--sizes", default="34,42,43,48,56,64", help="n of the random 'sizes' inputs")
+    p.add_argument("--wide-warps", default="",
+                   help="also build each tree that has csrc/eigh_wide.cuh with every n > 32 "
+                        "instance at these warps a matrix (comma-separated: 1, 2), labelled "
+                        "<label>_nw<k>")
     args = p.parse_args()
 
     import torch
@@ -218,15 +226,20 @@ def main():
     import chip_smoke
 
     trees = [t.split("=", 1) for t in (args.tree or ["this=."])]
+    builds = [(label, tree, ()) for label, tree in trees]
+    for k in [int(x) for x in args.wide_warps.split(",") if x]:
+        builds += [(f"{label}_nw{k}", tree, (f"-DGRAPHIK_EIGH_WIDE_WARPS={k}",))
+                   for label, tree in trees if os.path.exists(
+                       os.path.join(tree, "graphik_tpu_torch", "csrc", "eigh_wide.cuh"))]
     card = smi("name,power.limit")
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda:0")
     record = {"card": card, "trees": {}}
     kernels = {}
-    for label, tree in trees:
-        lib, secs, log = build(label, os.path.abspath(tree))
+    for label, tree, flags in builds:
+        lib, secs, log = build(label, os.path.abspath(tree), flags)
         kernels[label] = Kernel(lib)
-        entry = {"tree": tree, "build_s": secs,
+        entry = {"tree": tree, "flags": list(flags), "build_s": secs,
                  "ptxas": {k: {"registers": r, "smem": s, "spill_stores": sp}
                            for k, (r, s, sp) in chip_smoke.parse_ptxas(log).items()}}
         if args.sass_dir:
@@ -236,7 +249,8 @@ def main():
 
     paths = chip_smoke.eigh_path_inputs(dev, torch.Generator(device="cpu").manual_seed(SEED))
     inputs = [("occupancy", f"{tag} B={B}", A[:B].contiguous())
-              for tag, A in paths if tag.startswith("ur10 G") for B in chip_smoke.EIGH_OCCUPANCY_B]
+              for tag, A in paths if tag.startswith(chip_smoke.EIGH_OCCUPANCY_PATHS)
+              for B in chip_smoke.EIGH_OCCUPANCY_B]
     inputs += [("paths", tag, A.contiguous()) for tag, A in paths]
     import numpy as np
 
@@ -247,7 +261,7 @@ def main():
             inputs.append(("sizes", f"random n={n} {key}",
                            torch.tensor(X + X.transpose(0, 2, 1), dtype=dt, device=dev)))
 
-    labels = [label for label, _ in trees]
+    labels = [label for label, _, _ in builds]
     order = []
     for _ in range(args.turns):
         order += labels + labels[::-1]
@@ -259,16 +273,21 @@ def main():
         for label in order:
             times[label].append(chip_smoke.event_ms(lambda: kernels[label](A), REPS))
         b = chip_smoke.eigh_bound(n, B, A.dtype)
+        # past n = 32 torch.linalg.eigh takes seconds a call at B = 8192: one
+        # timed call after the warm one
         lib_ms = (None if group == "occupancy"
-                  else chip_smoke.event_ms(lambda: torch.linalg.eigh(A), 5))
+                  else chip_smoke.event_ms(lambda: torch.linalg.eigh(A), 5 if n <= 32 else 1))
+        sweeps = None if group == "occupancy" or n <= 32 else chip_smoke.eigh_sweeps(A)
         row = {"group": group, "case": tag, "B": B, "n": n, "bound_ms": b[0], "bound_by": b[1],
-               "ms": times, "library_ms": lib_ms, "sha256": hashes}
+               "ms": times, "library_ms": lib_ms, "sha256": hashes, **(sweeps or {})}
         rows.append(row)
         print(f"{group} {tag}: B = {B}, n = {n}: "
               + "; ".join(f"{lb} {min(v):.4f}-{max(v):.4f} ms ({hashes[lb]})"
                           for lb, v in times.items())
               + f"; bound {b[0] * 1e3:.2f} us ({b[1]})"
-              + ("" if lib_ms is None else f"; torch.linalg.eigh {lib_ms:.3f} ms"), flush=True)
+              + ("" if lib_ms is None else f"; torch.linalg.eigh {lib_ms:.3f} ms")
+              + ("" if sweeps is None else f"; {sweeps['mean_sweeps']:.3f} sweeps a matrix, "
+                 f"Jacobi {sweeps['jacobi_ms']:.3f} ms"), flush=True)
     record["rows"] = rows
     record["card_after"] = smi("name,power.limit,clocks.sm,temperature.gpu")
     os.makedirs(args.out, exist_ok=True)

@@ -23,10 +23,12 @@ one configuration at its bench parameters, float32:
         angles are one configuration for all goals. The count is then one
         draw of that start, not n independent trials. For these the JAX
         half also saves its Y0, and the port half solves from it as well
-        ("replay_init", beside the verdict, which stays on the port's own
-        init); `--init-noise K` adds K solves from Y0 (1 + 1e-6 g_k), one
-        g_k ~ N(0, 1) per (node, coordinate) shared by every goal, drawn
-        from RandomState(k), in both halves;
+        ("replay_init"); `--init-noise K` adds K solves from Y0 (1 + 1e-6
+        g_k), one g_k ~ N(0, 1) per (node, coordinate) shared by every
+        goal, drawn from RandomState(k), in both halves, each half
+        perturbing its own Y0. Where both Y0 have zero spread over the
+        goals (the tool reads it from the data) and K >= PERTURBED_MIN,
+        the verdict is on the perturbed starts (see below);
   restarts (parallel.make_restart_solver, restart key / generator seed 7):
     ur10_restarts4, planar6_restarts2, planar10_restarts2: production(100, 24),
         10-step polish, 2-squaring smoothing;
@@ -70,6 +72,15 @@ end effectors), and limit/obstacle feasible. The torch half prints one
 JSON line with both counts and exits 1 when they disagree:
   * single init (both packages start from the same deterministic init):
     the port's count must fall inside the JAX count's Wilson 95% interval;
+  * a goal-independent start (a shared-start config whose saved JAX Y0 and
+    the port's own Y0 are each one for every goal, with K >= PERTURBED_MIN
+    perturbed starts): each half's count is one draw of that start, so the
+    verdict is a two-sided permutation test (PERM_RESAMPLES resamples from
+    RandomState(PERM_SEED)) of the difference between the mean of JAX's K
+    perturbed counts and the port's K from the same perturbations of its
+    own Y0; it passes at p >= PERM_ALPHA (0.05 over the three seeds a
+    config is run on: 56, 156, 256). The own-start counts and the Wilson
+    interval stay printed, labelled as one draw;
   * restarts (the sampled inits of restarts 1.. come from different random
     streams): each half solves the goals RESTART_DRAWS times, with restart
     keys (JAX) and generator seeds (port) RESTART_SEED, RESTART_SEED + 1,
@@ -111,6 +122,13 @@ CRIT_POS, CRIT_ROT = 1e-3, math.pi / 180
 RESTART_SEED = 7
 RESTART_DRAWS = 16
 REPLAY_DRAWS = 4
+# the perturbed-start verdict of a goal-independent start: at least
+# PERTURBED_MIN starts a half; a two-sided permutation test at PERM_ALPHA,
+# 0.05 Bonferroni-split over the three seeds each such config is run on
+PERTURBED_MIN = 16
+PERM_RESAMPLES = 20000
+PERM_SEED = 0
+PERM_ALPHA = 0.05 / 3
 BENCH = dict(maxiter=100, maxinner=24, polish=10, smooth=2)
 TABLE = dict(BENCH, maxiter=250, maxinner=32)
 # config -> robot, restarts, TR budget (maxinner None: N d), LM polish steps
@@ -208,6 +226,50 @@ def two_sample_limit(n, k_a, k_b):
     difference of two success counts over n goals each."""
     p = (k_a + k_b) / (2 * n)
     return 1.96 * math.sqrt(2 * n * p * (1 - p))
+
+
+def permutation_p(a, b, resamples=PERM_RESAMPLES, seed=PERM_SEED):
+    """Two-sided permutation p-value of the difference in means of the
+    samples a and b: the share of `resamples` random relabellings of the
+    pooled values (numpy RandomState(seed)) whose |mean difference| reaches
+    the observed one, counting the observed labelling, (hits + 1) /
+    (resamples + 1)."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    pooled = np.concatenate([a, b])
+    observed = abs(a.mean() - b.mean())
+    order = np.argsort(np.random.RandomState(seed).random_sample((resamples, pooled.size)), 1)
+    draws = pooled[order]
+    diff = np.abs(draws[:, :a.size].mean(1) - draws[:, a.size:].mean(1))
+    # relabellings whose difference equals the observed one count as hits:
+    # a tolerance absorbs the means' rounding
+    hits = int((diff >= observed - 1e-9 * max(1.0, observed)).sum())
+    return (hits + 1) / (resamples + 1)
+
+
+def shared_start_verdict(jax_stats, port_spread, port_counts, n, k_jax, k_port):
+    """The verdict of a shared-start config: (passes, record). When the
+    JAX half's saved Y0 and the port's own Y0 each have zero spread over
+    the goals (goal-independent) and each half has at least PERTURBED_MIN
+    perturbed counts, the permutation test of their means at PERM_ALPHA;
+    else the single-init test, the port's own-start count inside JAX's
+    Wilson interval. The own-start counts are reported either way."""
+    jax_counts = list(jax_stats.get("init_noise_counts", []))
+    independent = jax_stats.get("Y0_spread_over_goals") == 0.0 and port_spread == 0.0
+    lo, hi = wilson95(n, k_jax)
+    inside = lo <= k_port / n <= hi
+    record = {"goal_independent_start": independent,
+              "own_start": {"jax": k_jax, "port": k_port, "jax_wilson95": [lo, hi],
+                            "port_inside_jax_interval": inside,
+                            "note": "one draw of the shared start" if independent else
+                            "the single-init verdict"}}
+    if not (independent and min(len(jax_counts), len(port_counts)) >= PERTURBED_MIN):
+        record["verdict"] = "single init"
+        return inside, record
+    p = permutation_p(jax_counts, port_counts)
+    record.update(verdict="perturbed starts", jax_mean=float(np.mean(jax_counts)),
+                  port_mean=float(np.mean(port_counts)), permutation_p=p, alpha=PERM_ALPHA,
+                  resamples=PERM_RESAMPLES, port_agrees=p >= PERM_ALPHA)
+    return p >= PERM_ALPHA, record
 
 
 def cidgik_path(api, cidgik, ps, T_goal, overrides, stage=lambda f: f, sparse=None):
@@ -462,14 +524,16 @@ def run_torch(args):
         ok_r = count(torch.as_tensor(ref["Y0"], device=dev))
         jax_stats = json.loads(str(ref["jax_stats"]))
         K = len(jax_stats.get("init_noise_counts", []))
+        port_counts = [
+            int(count(Y0 * torch.as_tensor(init_noise(k, Y0.shape[-2:]), device=dev)).sum())
+            for k in range(K)]
+        port_spread = float((Y0 - Y0[:1]).abs().max())
         replay = {"replay_init": {
             "port_success": int(ok_r.sum()), "both": int((ok_j & ok_r).sum()),
             "port_only": int((ok_r & ~ok_j).sum()), "jax_only": int((ok_j & ~ok_r).sum()),
-            "port_Y0_spread_over_goals": float((Y0 - Y0[:1]).abs().max()),
+            "port_Y0_spread_over_goals": port_spread,
             "port_Y0_max_abs": float(Y0.abs().max()), "jax": jax_stats,
-            "port_init_noise_counts": [
-                int(count(Y0 * torch.as_tensor(init_noise(k, Y0.shape[-2:]), device=dev)).sum())
-                for k in range(K)]}}
+            "port_init_noise_counts": port_counts}}
     if "fracs" in ref:  # the JAX half's own inits, draw by draw
         ok_r = np.stack([ok_of(solver(T_goal, fracs=torch.as_tensor(f, device=dev)))
                          for f in ref["fracs"]])
@@ -484,6 +548,8 @@ def run_torch(args):
         limit = two_sample_limit(n, k_j, k_t)
         agree = abs(k_t - k_j) <= limit
         test = {"two_sample_limit": limit, "port_within_limit": agree}
+    elif "Y0" in ref:
+        agree, test = shared_start_verdict(jax_stats, port_spread, port_counts, n, k_j, k_t)
     else:
         agree = lo <= k_t / n <= hi
         test = {"port_inside_jax_interval": agree}
