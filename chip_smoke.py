@@ -43,13 +43,17 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      which no path launches (`edge_phase`): bitwise equal to their
      kernel-order plain versions (ops/edge.py cost_and_egrad_kernel_order,
      ehess_kernel_order) on 1000 goals prepared for UR10, planar6,
-     planar10, KUKA iiwa and the tree, and at B = 8192 on the Y the UR10
-     path hands to the solve and a seeded Z, where torch's own order
+     planar10, KUKA iiwa and the tree, at B = 8192 on the Y the UR10 path
+     hands to the solve and a seeded Z, where torch's own order
      (cost_and_egrad, ehess) is held to f rtol 1e-5, g and H max abs error
-     <= 1e-4 x max |plain|; each kernel's device time (profiler, the L2
-     flushed by a 256 MB read before each launch) and call time (CUDA
-     events over 100 back-to-back calls) at B = 8192 and 131,072 (the UR10
-     inputs repeated: 84 MB and 109 MB, past the L2), beside its bounds;
+     <= 1e-4 x max |plain|, and at B = 8192 on planar40's and dh19's
+     prepared inputs (N = 43 / 42: two node slots a lane, csrc/edge_wide.cu),
+     each shape's two instances free of spills in the build's ptxas log;
+     each kernel's device time (profiler, the L2 flushed by a 256 MB read
+     before each launch) and call time (CUDA events over 100 back-to-back
+     calls) at B = 8192 and 131,072 (the UR10 inputs repeated: 84 MB and
+     109 MB, past the L2) and on planar40's and dh19's inputs at B = 8192,
+     beside its bounds and its plain version's time;
   8. the other robots of the bench - planar6 and planar10
      (load_planar_chain(n, limits=pi/2)), KUKA iiwa and LWA4D - each with
      the UR10 path's parameters: the TR kernel vs its plain version on the
@@ -162,7 +166,16 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      the compiled prepare against the eager prepare on the same goals and
      generator state (`prepare_vs_eager`): D_goal and Y0 bitwise equal,
      both walls, K5's two launches a call counted inside the graph, the
-     host launches of one replayed prepare.
+     host launches of one replayed prepare. Then batch-position invariance
+     (`position_check`) at each path's batch: for every single-init path
+     of these (a restart path draws its sampled fractions by position), one
+     goal copied to every position must give bitwise one D_goal, Y0 and
+     output of the solve and finish at every position, and the stack in
+     reverse order each goal's forward outputs bitwise; the same on the
+     graphed-loop paths ur10_cidgik and ur10_cidgik_sparse (B = 1024),
+     ur10_cg and ur10_f64 (8192) and planar10_edge (1024), from phases 11,
+     13, 14 and 17 (ur10_table_cidgik and ur10_table_f64 are left out: a
+     call takes 3-9 s).
  19. K5, the eigendecomposition (`eigh_phase`, run after phase 2, before
      the paths): on the card, against its plain version bitwise, every
      matrix, with every converged flag set, the residual and orthogonality
@@ -195,7 +208,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      B = 8192; make_solver at B = 8192 (one warm call, 2 timed calls with
      per-stage walls, one launch a call, K5 twice, success at or above the
      floor); the kernel's time beside its bound. Phase 18 holds each
-     compiled solver to its eager stages.
+     compiled solver to its eager stages. Then planar40 at the UR10 path's
+     two squarings (every goal starts from one goal-independent Y0) at
+     B = 8192, compiled: one goal at every position, and the stack
+     reversed, as phase 18 checks the other paths.
 
 Phases 3, 6, 8-10, 15, 16 and 20 run the compiled solver (make_solver,
 make_restart_solver, solve_ik_sharded): the warm call is the first call
@@ -568,11 +584,13 @@ def edge_phase(dev, ep, Y0, dg):
     """Phase 7: the edge kernels K1 (cost_and_egrad_cuda) and K2
     (ehess_cuda). Bitwise against their kernel-order plain versions on
     B_CHECK goals prepared for UR10, planar6, planar10, KUKA iiwa and the
-    tree, and at B_MAIN on the UR10 path's Y0 / dg, which are also held to
-    torch's own order (cost_and_egrad / ehess) within a tolerance; then
-    each kernel's device time (profiler, L2 flushed) and call time (CUDA
-    events over back-to-back calls) at B_MAIN and B_EDGE_BIG (the UR10
-    inputs repeated), beside its bounds. Returns the two kernel records."""
+    tree, at B_MAIN on the UR10 path's Y0 / dg, which are also held to
+    torch's own order (cost_and_egrad / ehess) within a tolerance, and at
+    B_MAIN on planar40's and dh19's prepared inputs (past 32 nodes: two node
+    slots a lane); then each kernel's device time (profiler, L2 flushed)
+    and call time (CUDA events over back-to-back calls) at B_MAIN and
+    B_EDGE_BIG (the UR10 inputs repeated), and at planar40's and dh19's
+    B_MAIN, beside its bounds. Returns the two kernel records."""
     import torch
 
     from graphik_tpu_torch import api
@@ -583,6 +601,7 @@ def edge_phase(dev, ep, Y0, dg):
     t_phase = time.perf_counter()
     K1, K2 = edge_ops.cost_and_egrad_cuda, edge_ops.ehess_cuda
     zgen = torch.Generator(device=dev).manual_seed(SEED)
+    ptxas = ptxas_lines()
 
     def bitwise(tag, ep_, Y_, Z_, dg_):
         f_k, g_k = K1(ep_, Y_, dg_)
@@ -594,12 +613,19 @@ def edge_phase(dev, ep, Y0, dg):
         err = max(float((x - y).abs().max()) for x, y in ((f_k, f_p), (g_k, g_p), (h_k, h_p)))
         finite = all(bool(torch.isfinite(x).all()) for x in (f_k, g_k, h_k))
         shape = edge_ops.edge_kernel_shape(ep_, Y_.shape[0], dg_.shape[1], True, dev)
+        # the two instances at this shape: registers, static shared memory
+        # and spill stores from the build's ptxas log
+        args = f"{ep_.dim},{shape['epl']},{shape['W']},{2 if ep_.N > 32 else 1}"
+        regs = {k: ptxas[f"{k}_kernel<{args}>"] for k in ("cost_grad", "hess")}
         log(f"[7] {tag} (N={ep_.N}, d={ep_.dim}, E={ep_.E}), B={Y_.shape[0]}: f, g, H bitwise "
             f"equal to the kernel-order plain versions {same}, max |diff| {err:.1e}; W "
-            f"{shape['W']}, EPL {shape['epl']}, {shape['blocks']} blocks of {shape['tile']}")
+            f"{shape['W']}, EPL {shape['epl']}, {shape['blocks']} blocks of {shape['tile']}; "
+            f"<{args}> registers, static smem, spill stores: {regs}")
         check(all(same) and finite, f"{tag}: edge kernels differ from their plain versions")
+        check(all(r[2] == 0 for r in regs.values()), f"{tag}: an edge kernel instance spills")
         return {"robot": tag, "N": ep_.N, "d": ep_.dim, "E": ep_.E, "B": Y_.shape[0],
-                "bitwise": True, "W": shape["W"], "epl": shape["epl"]}, (f_k, g_k, h_k), err
+                "bitwise": True, "W": shape["W"], "epl": shape["epl"],
+                "ptxas": regs}, (f_k, g_k, h_k), err
 
     robots = {"ur10": load_ur10, "planar6": lambda: load_planar_chain(6, limits=np.pi / 2),
               "planar10": lambda: load_planar_chain(10, limits=np.pi / 2),
@@ -640,45 +666,80 @@ def edge_phase(dev, ep, Y0, dg):
     check(f_rel <= 1e-5, "edge cost mismatch")
     check(err_g <= 1e-4 * g_scale and err_h <= 1e-4 * h_scale, "edge gradient/Hessian mismatch")
 
-    N, d, E = ep.N, ep.dim, ep.E
+    # past 32 nodes: planar40's and dh19's prepared inputs at the paths'
+    # batch, full smoothing as phase 20 runs them
+    wide = {}
+    for tag, ps_l, smooth in large_structures()[:2]:
+        ep_l = edge_ops.build_edge_problem(*ps_l.masks(), dim=ps_l.dim)
+        T_l = api.random_goals(ps_l, (B_MAIN,), torch.Generator().manual_seed(SEED),
+                               dtype=torch.float32, device=dev)[0]
+        D_l, Y_l = api.Solver(ps_l, smooth_iters=smooth).prepare(T_l)
+        Y_l, dg_l = Y_l.contiguous(), ep_l.edge_values(D_l).contiguous()
+        Z_l = torch.randn(Y_l.shape, generator=zgen, device=dev)
+        rec, _, err = bitwise(tag, ep_l, Y_l, Z_l, dg_l)
+        shapes.append(rec)
+        err_max = max(err_max, err)
+        wide[tag] = (ep_l, Y_l, Z_l, dg_l)
+
+    # (tag, B): the EdgeProblem and inputs each kernel is timed on
+    inputs = {("ur10", B): (ep, *(x.repeat(B // B_MAIN, *[1] * (x.dim() - 1)) for x in (Y0, Z, dg)))
+              for B in (B_MAIN, B_EDGE_BIG)}
+    inputs.update({(tag, B_MAIN): v for tag, v in wide.items()})
     cases = {}
-    for B in (B_MAIN, B_EDGE_BIG):
-        r = B // B_MAIN
-        Yb, Zb, dgb = Y0.repeat(r, 1, 1), Z.repeat(r, 1, 1), dg.repeat(r, 1)
-        cases["cost_grad", B] = ("cost_grad_kernel", lambda Yb=Yb, dgb=dgb: K1(ep, Yb, dgb), False)
-        cases["hess", B] = ("hess_kernel", lambda Yb=Yb, Zb=Zb, dgb=dgb: K2(ep, Yb, Zb, dgb), True)
+    for (tag, B), (ep_c, Yb, Zb, dgb) in inputs.items():
+        cases["cost_grad", tag, B] = ("cost_grad_kernel",
+                                      lambda e=ep_c, Yb=Yb, dgb=dgb: K1(e, Yb, dgb), False)
+        cases["hess", tag, B] = ("hess_kernel",
+                                 lambda e=ep_c, Yb=Yb, Zb=Zb, dgb=dgb: K2(e, Yb, Zb, dgb), True)
     # every call time before the first profiler session of the process
     timed = {key: {"call_ms": event_ms(fn, 100)} for key, (_, fn, _) in cases.items()}
-    for (name, B), (kern, fn, hess) in cases.items():
+    for (name, tag, B), (kern, fn, hess) in cases.items():
+        ep_c = inputs[tag, B][0]
+        N, d, E = ep_c.N, ep_c.dim, ep_c.E
         b = bound(B * (edge_flops(N, d, E) + (E * d if hess else 0)), edge_bytes(N, d, E, B, hess))
-        t = timed[name, B]
+        t = timed[name, tag, B]
         t.update(device_ms=flushed_kernel_ms(fn, kern, 20), bound_ms=b[0], bound_by=b[1])
-        log(f"[7] {name} at B={B}: device {t['device_ms'] * 1e3:.2f} us (L2 flushed), call "
-            f"{t['call_ms'] * 1e3:.2f} us, bound {b[0] * 1e3:.2f} us ({b[1]}), "
-            f"{t['device_ms'] / b[0]:.2f}x")
+        log(f"[7] {name}, {tag} (N={N}, d={d}, E={E}) at B={B}: device "
+            f"{t['device_ms'] * 1e3:.2f} us (L2 flushed), call {t['call_ms'] * 1e3:.2f} us, bound "
+            f"{b[0] * 1e3:.2f} us ({b[1]}), {t['device_ms'] / b[0]:.2f}x")
     del cases
-    plain = {"cost_grad": event_ms(lambda: edge_ops.cost_and_egrad_kernel_order(ep, Y0, dg), 5),
-             "hess": event_ms(lambda: edge_ops.ehess_kernel_order(ep, Y0, Z, dg), 5)}
+    plain = {(name, tag): event_ms(
+        (lambda e=e_, Y_=Y_, dg_=dg_: edge_ops.cost_and_egrad_kernel_order(e, Y_, dg_))
+        if name == "cost_grad" else
+        (lambda e=e_, Y_=Y_, Z_=Z_, dg_=dg_: edge_ops.ehess_kernel_order(e, Y_, Z_, dg_)), 5)
+        for name in ("cost_grad", "hess")
+        for tag, (e_, Y_, Z_, dg_) in [("ur10", (ep, Y0, Z, dg)), *wide.items()]}
     shape = edge_ops.edge_kernel_shape(ep, B_MAIN, dg.shape[1], False, dev)
-    log(f"[7] kernel-order plain versions at B={B_MAIN}: cost+grad {plain['cost_grad']:.4f} ms, "
-        f"Hessian {plain['hess']:.4f} ms; launch shape {shape}; phase took "
-        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"[7] kernel-order plain versions at B={B_MAIN}: "
+        + ", ".join(f"{name} {tag} {ms:.4f} ms" for (name, tag), ms in plain.items())
+        + f"; UR10 launch shape {shape}; phase took {time.perf_counter() - t_phase:.1f} s")
     records = []
     for name, line, n, tol in (
             ("cost_grad", 302, launches[0], {"f_max_rel": f_rel, "g_max_abs": err_g}),
             ("hess", 325, launches[1], {"H_max_abs": err_h})):
-        t8, tb = timed[name, B_MAIN], timed[name, B_EDGE_BIG]
+        t8, tb = timed[name, "ur10", B_MAIN], timed[name, "ur10", B_EDGE_BIG]
+        paths = []
+        for tag, (ep_l, *_) in wide.items():
+            t = timed[name, tag, B_MAIN]
+            paths.append({"path": tag, "N": ep_l.N, "d": ep_l.dim, "E": ep_l.E, "B": B_MAIN,
+                          "bitwise": True, "ms": t["device_ms"], "call_ms": t["call_ms"],
+                          "plain_ms": plain[name, tag], "bound_ms": t["bound_ms"],
+                          "bound_by": t["bound_by"],
+                          "launch_shape": edge_ops.edge_kernel_shape(ep_l, B_MAIN, ep_l.Ep,
+                                                                     name == "hess", dev)})
         records.append({
             "name": f"edge_{name}", "route": "cuda", "source": "graphik_tpu_torch/csrc/edge.cu",
             "replaces": f"graphik_tpu/ops/edge.py:{line}", "launches": n,
-            "max_abs_err": err_max, "ms": t8["device_ms"], "plain_ms": plain[name],
+            "max_abs_err": err_max, "ms": t8["device_ms"], "plain_ms": plain[name, "ur10"],
             "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"], "library_ms": None,
             "at": f"UR10, B={B_MAIN}, device time with the L2 flushed",
             "two_per_warp": shape["two_per_warp"], "blocks_resident": shape["blocks_resident"],
             "device_ms": {str(B_MAIN): t8["device_ms"], str(B_EDGE_BIG): tb["device_ms"]},
             "call_ms": {str(B_MAIN): t8["call_ms"], str(B_EDGE_BIG): tb["call_ms"]},
             "bounds_ms": {str(B_MAIN): t8["bound_ms"], str(B_EDGE_BIG): tb["bound_ms"]},
-            "against_torch_order": tol, "bitwise_shapes": shapes})
+            "sources": ["graphik_tpu_torch/csrc/edge_kernel.cuh",
+                        "graphik_tpu_torch/csrc/edge_wide.cu"],
+            "paths": paths, "against_torch_order": tol, "bitwise_shapes": shapes})
     return records
 
 
@@ -718,11 +779,13 @@ def lanes_equal(k, p):
     return int(same.sum())
 
 
-def event_ms(fn, reps):
-    """Mean ms of fn over reps runs after a warm run (CUDA events)."""
+def event_ms(fn, reps, warm=True):
+    """Mean ms of fn over reps runs after a warm run (CUDA events); with
+    warm=False the caller has warmed it."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -814,7 +877,51 @@ def prepare_vs_eager(tag, dev, solver, T_goal, gen):
     return rec
 
 
-def compiled_phase(dev, paths, prepare_paths=()):
+def path_outputs(solver, T_goal):
+    """One call of a solver, stage by stage: prepare's D_goal and Y0 beside
+    every output of the finish (the solve's among them)."""
+    D_goal, Y0 = solver.prepare(T_goal)
+    return {"D_goal": D_goal, "Y0": Y0, **solver.finish(solver.solve(Y0, D_goal), T_goal)}
+
+
+def position_check(phase, tag, run, T_goal, fwd=None):
+    """Whether a goal's result depends on its position in the batch: run(T)
+    -> {name: (B, ...) tensor} on goal 0 of T_goal copied to every position
+    (every output must be bitwise one at every position) and on T_goal in
+    reverse order (each goal's outputs bitwise its forward ones: run's on
+    T_goal, or `fwd` where the path's phase has it). Logs the lanes that
+    split or move, output by output in run's order (the first is the
+    earliest stage), with the split lanes' batch positions mod 4; fails
+    the run on either. Returns the record."""
+    import torch
+
+    t0 = time.perf_counter()
+    B = T_goal.shape[0]
+    copied = run(T_goal[:1].expand(T_goal.shape).contiguous())
+    split = {}
+    for k, v in copied.items():
+        lanes = (v != v[:1]).reshape(B, -1).any(-1)
+        if bool(lanes.any()):
+            split[k] = [int(lanes[r::4].sum()) for r in range(4)]
+    fwd = run(T_goal) if fwd is None else fwd
+    rev = run(T_goal.flip(0).contiguous())
+    check(set(fwd) == set(rev), f"{tag}: output keys differ")
+    moved = {k: int((rev[k].flip(0) != v).reshape(B, -1).any(-1).sum())
+             for k, v in fwd.items() if not torch.equal(rev[k].flip(0), v)}
+    rec = {"path": tag, "B": B, "outputs": list(copied), "copied_goal_split": split,
+           "reversed_moved": moved, "invariant": not split and not moved,
+           "seconds": time.perf_counter() - t0}
+    log(f"[{phase}] {tag}: batch position, {B} goals: one goal at every position gives one "
+        f"value of each of {len(copied)} outputs {not split}"
+        + (f" (lanes that split, by position mod 4: {split})" if split else "")
+        + f"; reversed stack gives each goal its forward outputs {not moved}"
+        + (f" (lanes that moved: {moved})" if moved else "")
+        + f" ({rec['seconds']:.1f} s)")
+    check(not split and not moved, f"{tag}: a goal's result depends on its batch position")
+    return rec
+
+
+def compiled_phase(dev, paths, prepare_paths=(), position_runs=()):
     """Phase 18: each f32 kernel path's compiled solver (CUDA graphs, as
     the earlier phases ran it) against the same solver with every stage
     eager (api.solve_ik's), on the same prepared inputs at the path's
@@ -825,10 +932,15 @@ def compiled_phase(dev, paths, prepare_paths=()):
     phase) and, less the eager stage's wall, the capture's; the memory
     the solver's graph pools hold and each finish's peak. Before that,
     the path's prepare compiled against eager (`prepare_vs_eager`), and
-    so for each of prepare_paths (the float64 path of phase 17). paths:
-    [(tag, compiled solver, T_goal, generator args, first-call walls)];
-    prepare_paths: [(tag, compiled solver, T_goal, generator args)].
-    Returns the records."""
+    so for each of prepare_paths (the float64 path of phase 17). Then each
+    single-init path's batch-position invariance at its batch
+    (`position_check`: one goal at every position, the stack reversed;
+    a restart path draws its sampled fractions by position, so its goals'
+    starts differ by design), and so for each of position_runs (the
+    graphed-loop paths of phases 11, 13, 14 and 17). paths: [(tag,
+    compiled solver, T_goal, generator args, first-call walls)];
+    prepare_paths: [(tag, compiled solver, T_goal, generator args)];
+    position_runs: [(tag, run, T_goal, forward outputs or None)]. Returns the records and the position records."""
     import torch
 
     t_phase = time.perf_counter()
@@ -898,7 +1010,13 @@ def compiled_phase(dev, paths, prepare_paths=()):
     log(f"[18] graph pools (MiB): {per_path}; {sum(pools) / 2**20:.1f} in all; phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
     records += [{"path": tag, "prepare": prepares[tag]} for tag, *_ in prepare_paths]
-    return records
+    t_pos = time.perf_counter()
+    positions = [position_check("18", tag, lambda T, s=solver: path_outputs(s, T), T_goal)
+                 for tag, solver, T_goal, gen, _ in paths if not gen]
+    positions += [position_check("18", tag, run, T_goal, fwd)
+                  for tag, run, T_goal, fwd in position_runs]
+    log(f"[18] batch-position checks took {time.perf_counter() - t_pos:.1f} s")
+    return records, positions
 
 
 def eigh_bound(n, B, dtype):
@@ -1086,8 +1204,10 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
         B, n = A.shape[0], A.shape[-1]
         ms = event_ms(lambda: sym_eigh_cuda(A), 20)
         # past n = 32 torch.linalg.eigh takes seconds a call at B = 8192: one
-        # timed call after the warm one
-        ms_lib = event_ms(lambda: torch.linalg.eigh(A), 5 if n <= 32 else 1)
+        # timed call, warmed by the eigenvalue check's torch.linalg.eigvalsh
+        # on this stack above
+        ms_lib = (event_ms(lambda: torch.linalg.eigh(A), 5) if n <= 32
+                  else event_ms(lambda: torch.linalg.eigh(A), 1, warm=False))
         b = eigh_bound(n, B, A.dtype)
         rec = {"case": tag, "B": B, "n": n, "ms": ms, "library_ms": ms_lib, "bound_ms": b[0],
                "bound_by": b[1]}
@@ -1110,7 +1230,7 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
     return {"shapes": shapes, "timing": timing, "paths": paths, "max_abs_err": err}
 
 
-def cidgik_phases(dev, gen, cfgs):
+def cidgik_phases(dev, gen, cfgs, position_runs=None):
     """The CIDGIK paths: for each (tag, phase, structure, B, production
     overrides, sparse), the compiled form - the ADMM through the
     template's loop graphs (SYNC_EVERY steps a graph between two host
@@ -1126,7 +1246,9 @@ def cidgik_phases(dev, gen, cfgs):
     its clique blocks on `dev` (`eigh_check`), and on the dense UR10 path
     an ADMM with the eigh cone projection at B = 64, compiled against eager
     (`eigh_cone_check`). The Fantope step runs on K5 once a round; none of
-    K1-K4 may launch. Returns one record per path."""
+    K1-K4 may launch. Appends each path without obstacles, as a compiled
+    call on its goals, to position_runs (phase 18's batch-position check;
+    the table's calls take ~3 s each). Returns one record per path."""
     import torch
 
     from graphik_tpu_torch import api
@@ -1294,6 +1416,9 @@ def cidgik_phases(dev, gen, cfgs):
             record["eigh_cone"] = eigh_cone_check(phase, tag, dev, comp, solve, goals_c(B_SMALL),
                                                   params)
         records.append(record)
+        if position_runs is not None and not ps_c.n_obstacles:
+            position_runs.append((tag, lambda T, s=solve, c=comp, p=ps_c, pa=params, g=fin_graphs:
+                                  cidgik_call(s, c, p, T, pa, g)[2], T_goal, o))
         log(f"[{phase}] {tag}: phase took {time.perf_counter() - t_phase:.1f} s")
     return records
 
@@ -1453,14 +1578,15 @@ def compiled_vs_eager(phase, tag, dev, solver, T_goal, counter, profile=True):
     return rec, outs["compiled"]
 
 
-def cg_phase(dev, gen, ps, polish):
+def cg_phase(dev, gen, ps, polish, position_runs=None):
     """The CG path (ur10_cg): make_solver with CGParams.production() at
     B_CG, compiled (its loop's pieces and the finish as CUDA graphs) against
     eager on the same inputs (compiled_vs_eager: walls, launches, host reads,
     busy share, every output bitwise), success at or above the floor, no TR
     kernel launched, and 64 goals on `dev` against the CPU: solve_cg's
     trajectories from the same Y0 at float64 and float32, then the whole
-    solver. Returns its record."""
+    solver. Appends the compiled solver on its goals to position_runs
+    (phase 18). Returns its record."""
     import torch
 
     from graphik_tpu_torch import api
@@ -1480,6 +1606,7 @@ def cg_phase(dev, gen, ps, polish):
     T_goal = goals(B_CG)
     solve_tr_cuda.launches = 0
     rec, (_, out) = compiled_vs_eager("14", tag, dev, solver, T_goal, riemannian.solve_cg)
+    fwd = dict(zip(("D_goal", "Y0"), solver.prepare(T_goal)), **out)
     tr = solve_tr_cuda.launches
     log(f"[14] {tag}: TR kernel launches during the phase's calls: {tr}")
     check(tr == 0, f"{tag}: the CG path launched the TR kernel")
@@ -1526,6 +1653,8 @@ def cg_phase(dev, gen, ps, polish):
     log(f"[14] {tag}: phase took {time.perf_counter() - t_phase:.1f} s")
     rec.update(path=tag, success=summ["success_rate"], mean_iterations=float(it.mean()),
                card_vs_cpu_successes=[s_g, s_c], card_vs_cpu_trajectory=traj)
+    if position_runs is not None:
+        position_runs.append((tag, lambda T: path_outputs(solver, T), T_goal, fwd))
     return rec
 
 
@@ -1758,11 +1887,12 @@ def sharded_phase(dev, gen, ps, params, polish):
     return record
 
 
-def tr_backends_phase(dev, gen, ps, ps_t, polish, prepare_paths):
+def tr_backends_phase(dev, gen, ps, ps_t, polish, prepare_paths, position_runs=None):
     """Phase 17: the trust region's "dense" and "edge" backends on the card
     (none of K1-K4; prepare's K5), compiled against eager. Appends the
-    float64 UR10 solver and goals to prepare_paths, for phase 18. Returns
-    the phase's record."""
+    float64 UR10 solver and goals to prepare_paths, and it and planar10 on
+    "edge" to position_runs (the table's float64 calls take ~9 s each), for
+    phase 18. Returns the phase's record."""
     import torch
 
     from graphik_tpu_torch import api
@@ -1817,8 +1947,11 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish, prepare_paths):
     log(f"[17] {tag}: UR10, float64, B = {B_F64}; {prod}")
     zero_counts()
     T_f64 = goals(ps, B_F64, torch.float64)
-    rec, (sol, _) = compiled_vs_eager("17", tag, dev, solver, T_f64, riemannian.solve)
+    rec, (sol, out) = compiled_vs_eager("17", tag, dev, solver, T_f64, riemannian.solve)
     prepare_paths.append((tag, solver, T_f64, ()))
+    if position_runs is not None:
+        fwd = dict(zip(("D_goal", "Y0"), solver.prepare(T_f64)), **out)
+        position_runs.append((tag, lambda T: path_outputs(solver, T), T_f64, fwd))
     calls = []
     for i in range(2):
         tp, ts, tf, _, o = staged(solver, goals(ps, B_F64, torch.float64))
@@ -1905,6 +2038,9 @@ def tr_backends_phase(dev, gen, ps, ps_t, polish, prepare_paths):
         f"{s_k:.4f} (|d| <= {EDGE_GAP})")
     check(abs(s_e["success_rate"] - s_k) <= EDGE_GAP, f"{tag}: success apart from the kernel's")
     rec_e.update(B=B_EDGE, kernel_success=s_k)
+    if position_runs is not None:
+        fwd = dict(zip(("D_goal", "Y0"), solvers["edge"].prepare(T_p)), **o_e)
+        position_runs.append((tag, lambda T, s=solvers["edge"]: path_outputs(s, T), T_p, fwd))
     log(f"[17] phase took {time.perf_counter() - t_phase:.1f} s")
     return {"ur10_f64": rec, "ur10_table_f64": rec_t, "planar10_edge": rec_e}
 
@@ -2365,15 +2501,16 @@ def main() -> int:
                                success=[c[3]["success_rate"] for c in calls_tree]))
 
     # ---- phases 11-13: dense and sparse CIDGIK (K5 only) ----
+    position_runs = []  # the graphed-loop paths, for phase 18's batch-position check
     cidgik_paths = cidgik_phases(dev, gen, [
         ("ur10_cidgik", "11", ps, B_CIDGIK, CIDGIK_UR10, False),
-        ("ur10_table_cidgik", "12", ps_t, B_CIDGIK_TABLE, {}, False)])
+        ("ur10_table_cidgik", "12", ps_t, B_CIDGIK_TABLE, {}, False)], position_runs)
     t_new = time.perf_counter()
     cidgik_paths += cidgik_phases(dev, gen, [
-        ("ur10_cidgik_sparse", "13", ps, B_CIDGIK, CIDGIK_UR10, True)])
+        ("ur10_cidgik_sparse", "13", ps, B_CIDGIK, CIDGIK_UR10, True)], position_runs)
 
     # ---- phase 14: Riemannian CG on UR10 (K5 in prepare only) ----
-    cg_path = cg_phase(dev, gen, ps, polish)
+    cg_path = cg_phase(dev, gen, ps, polish, position_runs)
     log(f"[14] phases 13 and 14 took {time.perf_counter() - t_new:.1f} s")
 
     # ---- phase 15: planar10_ring6, the anchored TR kernel at d = 2 ----
@@ -2384,10 +2521,11 @@ def main() -> int:
     log(f"[16] phases 15 and 16 took {time.perf_counter() - t_new:.1f} s")
     # ---- phase 17: the trust region's "dense" and "edge" backends ----
     prepare_paths = []
-    backend_paths = tr_backends_phase(dev, gen, ps, ps_t, polish, prepare_paths)
+    backend_paths = tr_backends_phase(dev, gen, ps, ps_t, polish, prepare_paths, position_runs)
     # ---- phase 20: robots past 32 nodes, anchor rows past 1024 ----
     t_new = time.perf_counter()
-    for tag, ps_l, smooth in large_structures():
+    large = large_structures()
+    for tag, ps_l, smooth in large:
         anchored = ps_l.n_obstacles > 0
         if anchored:
             spec_l = ps_l.reduced_spec()
@@ -2427,10 +2565,21 @@ def main() -> int:
                          spill_stores=spill, success=[c[3]["success_rate"] for c in calls_l],
                          walls_ms=[[1e3 * t for t in c[:3]] for c in calls_l])
         (anchored_paths if anchored else tr_paths).append(rec)
+    # planar40 at the UR10 path's two squarings, where every goal starts from
+    # one goal-independent Y0: one goal at every position of the batch, and
+    # the batch reversed (phase 18 checks the other single-init paths)
+    # (the first run, one goal at every position, is the capture)
+    solver_40 = api.make_solver(large[0][1], params=prod, polish_params=polish, smooth_iters=2)
+    T_40 = api.random_goals(large[0][1], (B_MAIN,), gen, dtype=torch.float32, device=dev)[0]
+    position_20 = position_check("20", "planar40_smooth2",
+                                 lambda T: path_outputs(solver_40, T), T_40)
+    solver_40.graphs.release()
+    del solver_40
     log(f"[20] phase took {time.perf_counter() - t_new:.1f} s")
 
     # ---- phase 18: the compiled solver against the eager stages ----
-    compiled_paths = compiled_phase(dev, graphed, prepare_paths)
+    compiled_paths, positions = compiled_phase(dev, graphed, prepare_paths, position_runs)
+    positions.insert(0, position_20)
 
     # Bounds: counted from the shapes and, for the TR kernels, from the
     # iteration counts of the runs that were timed. No single PyTorch call
@@ -2484,6 +2633,7 @@ def main() -> int:
     log(f"[16] sharded paths: {json.dumps(sharded_path)}")
     log(f"[17] TR backend paths: {json.dumps(backend_paths)}")
     log(f"[18] compiled paths: {json.dumps(compiled_paths)}")
+    log(f"[18, 20] batch-position checks: {json.dumps(positions)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(f"card: {smi}")

@@ -6,7 +6,7 @@
 // points).
 //
 // * Lane i < N of a segment holds node i's d coordinates of a state vector.
-//   Past 32 nodes (the TR kernel only) a lane holds NPL = 2 node slots:
+//   Past 32 nodes a lane holds NPL = 2 node slots:
 //   lane l nodes l and l + 32, and a node sum adds a lane's slots in that
 //   order (an absent second node adding +0) before the butterfly.
 // * Edge differences C.Y: segment lane l owns edges e = l, l + W, ... (EPL
@@ -33,8 +33,9 @@
 
 namespace graphik {
 
-// K1 / K2's bounds (csrc/edge.cu), and the TR kernel's at one node a lane
-// and up to 4 edges a lane: their tables keep this size.
+// The tables' size at one node a lane and up to 4 edges a lane (the TR
+// kernel's and K1 / K2's instances up to 32 nodes and 128 edges); past
+// them the tables take the instance's size (Warp::Tables).
 constexpr int kMaxN = 32;
 constexpr int kMaxE = 128;
 constexpr int kWarpsPerBlock = 4;

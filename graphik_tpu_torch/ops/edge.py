@@ -11,8 +11,9 @@ over that form. They are the reference math for the TR kernel
     grad  = -2 C^T (s * diff)       scatter-add as a matmul
 
 `cost_and_egrad_cuda` and `ehess_cuda` wrap the hand-written CUDA kernels
-csrc/edge.cu (K1, K2), the counterparts of the JAX package's per-op Pallas
-kernels (cost_and_egrad_pallas, ehess_pallas). Their exact plain versions
+csrc/edge.cu (K1, K2; the template csrc/edge_kernel.cuh, the instances past
+32 nodes or 128 edges in csrc/edge_wide.cu), the counterparts of the JAX
+package's per-op Pallas kernels (cost_and_egrad_pallas, ehess_pallas). Their exact plain versions
 are `cost_and_egrad_kernel_order` and `ehess_kernel_order`, which sum in
 the kernels' order; `cost_and_egrad` and `ehess` compute the same in
 torch's own. No solve path calls the kernels: the TR kernel fuses the same
@@ -28,15 +29,18 @@ from collections import Counter
 import numpy as np
 import torch
 
+from graphik_tpu_torch.ops.linalg import rowwise_sum
 from graphik_tpu_torch.solvers.costs import make_masks
 from graphik_tpu_torch.utils.compiled import cached, device_const
 
 _SUBLANE = 8  # edge and anchor-block counts pad to a multiple of this
 
-# Shapes the build of K1 / K2 covers (csrc/edge_warp.cuh kMaxN / kMaxE; the
-# TR kernel takes more, ops/tr_solve.py MAX_N / MAX_E).
-MAX_N = 32
-MAX_E = 128
+# Shapes the build of K1 / K2 covers (csrc/edge_kernel.cuh kEdgeMaxN /
+# kEdgeMaxE: two node slots a lane past 32 nodes, up to 8 edges a lane at
+# W = 32), the TR kernel's too (ops/tr_solve.py MAX_N / MAX_E). Goal
+# distances are read at a stride of at most MAX_E.
+MAX_N = 64
+MAX_E = 256
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -202,21 +206,21 @@ def _anchor_terms(ep: EdgeProblem, Y):
 def cost(ep: EdgeProblem, Y, dgoal_e):
     """f(Y); dgoal_e = per-edge squared goal distances (see edge_values)."""
     _, _, s0, e1, e2 = _edge_terms(ep, Y, dgoal_e)
-    f = (s0 * s0 + e1 * e1 + e2 * e2).sum(dim=-1)
+    f = rowwise_sum(s0 * s0 + e1 * e1 + e2 * e2)
     if ep.A:
         _, a1, a2 = _anchor_terms(ep, Y)
-        f = f + (a1 * a1 + a2 * a2).sum(dim=-1)
+        f = f + rowwise_sum(a1 * a1 + a2 * a2)
     return f
 
 
 def cost_and_egrad(ep: EdgeProblem, Y, dgoal_e):
     diff, _, s0, e1, e2 = _edge_terms(ep, Y, dgoal_e)
-    f = (s0 * s0 + e1 * e1 + e2 * e2).sum(dim=-1)
+    f = rowwise_sum(s0 * s0 + e1 * e1 + e2 * e2)
     s = s0 + e1 - e2
     g = -2.0 * torch.einsum("en,...ed->...nd", _t(ep.C, Y), s[..., None] * diff)
     if ep.A:
         adiff, a1, a2 = _anchor_terms(ep, Y)
-        f = f + (a1 * a1 + a2 * a2).sum(dim=-1)
+        f = f + rowwise_sum(a1 * a1 + a2 * a2)
         sa = a1 - a2
         g = g - 2.0 * torch.einsum("an,...ad->...nd", _t(ep.aP, Y), sa[..., None] * adiff)
     return f, g
@@ -233,7 +237,7 @@ def residual_max(ep: EdgeProblem, Y, dgoal_e):
     _, _, s0, e1, e2 = _edge_terms(ep, Y, dgoal_e)
     om = _t(ep.omega, Y)
     eq_cnt = torch.clamp(om.sum(), min=1.0)  # on the device: no read of the host
-    fl = ((om * dgoal_e).sum(dim=-1) / eq_cnt)[..., None]
+    fl = (rowwise_sum(om * dgoal_e) / eq_cnt)[..., None]
     r = s0.abs() / torch.maximum(dgoal_e, fl)
     r = torch.maximum(r, e1 / torch.maximum(_t(ep.psi_L, Y), fl))
     r = torch.maximum(r, e2 / torch.maximum(_t(ep.psi_U, Y), fl))
@@ -544,6 +548,16 @@ def check_kernel_inputs(what: str, ep: EdgeProblem, Ys, dgoal_e, max_n=MAX_N, ma
         raise ValueError(f"{what} takes contiguous tensors")
 
 
+def check_edge_limits(ep: EdgeProblem, dgoal_e):
+    """Raise, naming the limit, unless K1 / K2's build takes `ep`'s sizes
+    and dgoal_e's stride (its last dimension); it looks at no device."""
+    stride = dgoal_e.shape[-1]
+    if ep.N > MAX_N or not 0 < ep.E <= MAX_E or stride > MAX_E:
+        raise ValueError(f"the edge kernels take N <= {MAX_N}, 0 < E <= {MAX_E} and goal "
+                         f"distances of dg_stride <= {MAX_E}, not N = {ep.N}, E = {ep.E}, "
+                         f"dg_stride = {stride}")
+
+
 def _no_anchors(ep: EdgeProblem):
     # The Pallas wrappers read only C and the edge parameters, so they
     # silently drop anchor terms; these refuse them instead.
@@ -561,32 +575,40 @@ def _check_aligned(what: str, ts):
                          f"pass a copy)")
 
 
-# Warps a block and stages of instance slabs of csrc/edge.cu (kEdgeWarps,
-# kStages), and the floats of its edge tables (csrc/edge_warp.cuh
-# EdgeTables: 545 ints and 640 floats), rounded up to 4.
+# Warps a block and stages of instance slabs of csrc/edge_kernel.cuh
+# (kEdgeWarps, kStages).
 EDGE_WARPS = 8
 EDGE_STAGES = 2
-_TABLE_FLOATS = 1188
+
+
+def _table_floats(npl: int, me: int) -> int:
+    """The floats of an instance's edge tables (csrc/edge_warp.cuh
+    EdgeTablesT<32 NPL, ME>: ei, ej (ME each), inc (2 ME), rowptr (32 NPL +
+    1) and the parameters (5 ME)), rounded up to 4: 1188 up to 32 nodes and
+    128 edges."""
+    return -(-(9 * me + 32 * npl + 1) // 4) * 4
 
 
 def edge_launch_plan(N: int, d: int, E: int, dg_stride: int, B: int, hess: bool) -> dict:
-    """How csrc/edge.cu lays out K1 (hess False) or K2 for B instances:
-    the segment width W (16, two instances a warp, when N <= 16, else 32),
-    edges per lane EPL = ceil(E / W), instances a tile (8 warps of 32 / W),
-    tiles, and the dynamic shared memory a block takes in bytes: two stages
-    of a tile's Y, Z for K2 and goal-distance rows, then two output slabs
-    and the warps' scatter buffers (a segment's [d][W EPL + 1], padded to
-    16 mod 32 floats at W = 16), or the edge tables if larger, which sit
-    there before the first tile; each piece rounded up to 4 floats. The
-    kernel launches min(tiles, blocks resident) blocks."""
+    """How csrc/edge_kernel.cuh lays out K1 (hess False) or K2 for B
+    instances: the segment width W (16, two instances a warp, when N <= 16,
+    else 32; past 32 nodes two node slots a lane), edges per lane
+    EPL = ceil(E / W), instances a tile (8 warps of 32 / W), tiles, and the
+    dynamic shared memory a block takes in bytes: two stages of a tile's Y,
+    Z for K2 and goal-distance rows, then two output slabs and the warps'
+    scatter buffers (a segment's [d][W EPL + 1], padded to 16 mod 32 floats
+    at W = 16), or the instance's edge tables (`_table_floats`) if larger,
+    which sit there before the first tile; each piece rounded up to 4
+    floats. The kernel launches min(tiles, blocks resident) blocks."""
     W = 16 if N <= 16 else 32
     epl = -(-E // W)
+    tables = _table_floats(2 if N > 32 else 1, max(128, epl * W))
     tile = EDGE_WARPS * (32 // W)
     y = -(-tile * N * d // 4) * 4
     stage = (2 if hess else 1) * y + -(-tile * dg_stride // 4) * 4
     seg = d * (W * epl + 1) + ((48 - d * (W * epl + 1) % 32) % 32 if W == 16 else 0)
     work = 2 * y + EDGE_WARPS * (32 // W) * seg
-    floats = EDGE_STAGES * stage + max(work, _TABLE_FLOATS)
+    floats = EDGE_STAGES * stage + max(work, tables)
     return {"W": W, "epl": epl, "two_per_warp": W == 16, "tile": tile,
             "tiles": -(-B // tile), "smem_bytes": 4 * floats}
 
@@ -622,11 +644,13 @@ def _launch(what, fn, args, device):
 def cost_and_egrad_cuda(ep: EdgeProblem, Y, dgoal_e):
     """Launch csrc/edge.cu's cost+gradient kernel (K1): Y (B, N, d),
     dgoal_e (B, E) or (B, Ep), contiguous, 16-byte aligned float32 CUDA
-    tensors -> (f (B,), g (B, N, d)). Edge terms only: an EdgeProblem with
+    tensors -> (f (B,), g (B, N, d)); N <= 64, E <= 256, else it raises
+    naming the limit (`check_edge_limits`). Edge terms only: an EdgeProblem with
     anchors (A > 0) raises, where JAX's cost_and_egrad_pallas drops them
     silently. The device tables are built once per (EdgeProblem, device).
     Counts its launches in `cost_and_egrad_cuda.launches`."""
     _no_anchors(ep)
+    check_edge_limits(ep, dgoal_e)
     check_kernel_inputs("the edge cost+grad kernel", ep, (Y,), dgoal_e)
     _check_aligned("the edge cost+grad kernel", (Y, dgoal_e))
     B, N, d = Y.shape
@@ -650,10 +674,12 @@ cost_and_egrad_cuda.launches = 0
 def ehess_cuda(ep: EdgeProblem, Y, Z, dgoal_e):
     """Launch csrc/edge.cu's Hessian-vector kernel (K2): the Euclidean
     2 C^T (m dD dY - s dZ), no projection, for Y, Z (B, N, d) and dgoal_e
-    (B, E) or (B, Ep), contiguous, 16-byte aligned float32 CUDA tensors.
-    Edge terms only: anchors (A > 0) raise, as in `cost_and_egrad_cuda`.
+    (B, E) or (B, Ep), contiguous, 16-byte aligned float32 CUDA tensors,
+    within `cost_and_egrad_cuda`'s limits. Edge terms only: anchors (A > 0)
+    raise, as in `cost_and_egrad_cuda`.
     Counts its launches in `ehess_cuda.launches`."""
     _no_anchors(ep)
+    check_edge_limits(ep, dgoal_e)
     check_kernel_inputs("the edge Hessian kernel", ep, (Y, Z), dgoal_e)
     _check_aligned("the edge Hessian kernel", (Y, Z, dgoal_e))
     B, N, d = Y.shape

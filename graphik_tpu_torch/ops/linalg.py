@@ -1,4 +1,5 @@
-"""Small-matrix linear algebra for the CIDGIK ADMM.
+"""Small-matrix linear algebra for the CIDGIK ADMM, and sums whose order
+does not depend on an instance's batch position.
 
 Port of the parts of graphik_tpu/ops/linalg.py that CIDGIK runs. The JAX
 package unrolls its Cholesky, triangular solves and small matmuls by hand
@@ -11,7 +12,32 @@ points' callers set it).
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+# torch's CUDA reduction vectorises the loads of a contiguous extent longer
+# than this and starts each output's slice at its own misalignment, so the
+# sum of an instance's values would round by its address, that is by its
+# batch position whenever an instance's size is not a multiple of 16 bytes
+ROW = 128
+
+
+def rowwise_sum(x, dims: int = 1):
+    """x summed over its last `dims` dimensions: one order at every batch
+    position, on the CPU and on a card. Up to ROW values an instance, one
+    reduction over them all; past that the last dimension first, each
+    reduction over at most ROW values (a longer last dimension is summed in
+    pieces of ROW, zero-padded, then the pieces)."""
+    if math.prod(x.shape[-dims:]) <= ROW:
+        return x.sum(dim=tuple(range(-dims, 0)))
+    for _ in range(dims):
+        n = x.shape[-1]
+        if n > ROW:
+            k = -(-n // ROW)
+            x = torch.nn.functional.pad(x, (0, k * ROW - n)).unflatten(-1, (k, ROW)).sum(-1)
+        x = x.sum(-1)
+    return x
 
 
 def spd_inverse_factor(A):
@@ -36,7 +62,7 @@ def psd_project_ns(W, iters: int = 14):
     """
     shape = W.shape
     W = W.reshape((-1,) + shape[-2:])
-    nrm = torch.sqrt((W * W).sum(dim=(-2, -1), keepdim=True))
+    nrm = torch.sqrt(rowwise_sum(W * W, 2))[:, None, None]
     S = W / torch.clamp(nrm, min=torch.finfo(W.dtype).tiny)
     eye3 = torch.eye(shape[-1], dtype=W.dtype, device=W.device).mul_(3.0).expand(W.shape)
     for _ in range(iters):

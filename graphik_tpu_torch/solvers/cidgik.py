@@ -52,7 +52,7 @@ import torch
 
 from graphik_tpu_torch.graphs.problem import ProblemStructure
 from graphik_tpu_torch.ops.eigh import sym_eigh
-from graphik_tpu_torch.ops.linalg import psd_project_ns, spd_inverse_factor
+from graphik_tpu_torch.ops.linalg import psd_project_ns, rowwise_sum, spd_inverse_factor
 from graphik_tpu_torch.robots import kinematics
 from graphik_tpu_torch.utils import compiled
 
@@ -355,7 +355,7 @@ def _constraint_matrices(comp: CidgikCompiled, anchors_pos):
     # SCS-style row normalization: unit-Frobenius constraint matrices keep
     # the ADMM operator well conditioned across edge length scales
     def rownorm(A):
-        return torch.sqrt(torch.clamp((A * A).sum(dim=(-2, -1)), min=1e-12))
+        return torch.sqrt(torch.clamp(rowwise_sum(A * A, 2), min=1e-12))
 
     n_eq = rownorm(A_eq)
     A_eq, b_eq = A_eq / n_eq[..., None, None], b_eq / n_eq
@@ -541,12 +541,13 @@ def _vmap_step(consts, params):
         Z2, t2 = _cone_project(Zr + Uz, tr_ + ut, lo, hi, params, pad_mask)
         Uz_new = Uz + Zr - Z2
         ut_new = ut + tr_ - t2
-        pri = torch.sqrt(((Z1 - Z2) ** 2).sum(dim=zdims) + ((t1 - t2) ** 2).sum(-1))
+        pri = torch.sqrt(rowwise_sum((Z1 - Z2) ** 2, len(zdims)) + ((t1 - t2) ** 2).sum(-1))
         rho_new = rho_c
         if params.adapt_every:
             # residual balancing; the scaled duals rescale with 1/rho so the
             # unscaled dual variable is continuous
-            dua = rho_c * torch.sqrt(((Z2 - Z) ** 2).sum(dim=zdims) + ((t2 - t) ** 2).sum(-1))
+            dua = rho_c * torch.sqrt(rowwise_sum((Z2 - Z) ** 2, len(zdims))
+                                     + ((t2 - t) ** 2).sum(-1))
             up = pri > params.adapt_mu * dua
             down = dua > params.adapt_mu * pri
             if k % params.adapt_every == params.adapt_every - 1:
@@ -918,7 +919,7 @@ def _dense_split_step(consts, params, op: _SplitOperator, d: int):
         Zr = alpha * Z1 + (1.0 - alpha) * Z
         tr_ = alpha * t1 + (1.0 - alpha) * t
         Z2, t2 = _cone_project(Zr + Uz, tr_ + ut, lo, hi, params)
-        pri = torch.sqrt(((Z1 - Z2) ** 2).sum(dim=(-2, -1)) + ((t1 - t2) ** 2).sum(-1))
+        pri = torch.sqrt(rowwise_sum((Z1 - Z2) ** 2, 2) + ((t1 - t2) ** 2).sum(-1))
         return (Z2, t2, Uz + Zr - Z2, ut + tr_ - t2), pri
 
     return step, lambda r: r.amax() > params.admm_tol
@@ -1055,7 +1056,7 @@ def _convex_iteration(admm, fantope, rounds, Z, C, lo, hi, params: CidgikParams)
                 break
         Z_new, t_new, U_new, feas_new = admm(C, Z, t, U, round_params)
         C_new, eig_new = fantope(Z_new)
-        cost = (C * Z_new).sum(dim=zdims)
+        cost = rowwise_sum(C * Z_new, len(zdims))
         change = (last_cost - cost).abs()
         rel = change / torch.clamp(last_cost.abs(), min=1e-30)
         # lanes done before this round keep their state

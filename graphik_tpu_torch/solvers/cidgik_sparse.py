@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from graphik_tpu_torch.graphs.problem import ProblemStructure
+from graphik_tpu_torch.ops.linalg import rowwise_sum
 from graphik_tpu_torch.solvers.cidgik import (
     FEASIBLE,
     INFEASIBLE,
@@ -359,7 +360,7 @@ def _constraint_tensors(comp: CidgikSparseCompiled, anchors_pos):
     hi = torch.cat([const("in_hi"), const("ina_hi") - a2i], dim=-1)
 
     def rownorm(A):
-        return torch.sqrt(torch.clamp((A * A).sum(dim=(-3, -2, -1)), min=1e-12))
+        return torch.sqrt(torch.clamp(rowwise_sum(A * A, 3), min=1e-12))
 
     n_eq = rownorm(A_eq)
     A_eq, b_eq = A_eq / n_eq[..., None, None, None], b_eq / n_eq
@@ -403,7 +404,7 @@ def _fantope_blocks(Z, d, member, diag_valid=None):
     if diag_valid is None:
         diag_valid = torch.as_tensor(_valid_slots(member, d), dtype=Z.dtype, device=Z.device)
     C = torch.diag_embed(diag_valid) - top @ top.transpose(-1, -2)
-    eig_sum = lam.sum(dim=(-2, -1)) - lam[..., ds - d:].sum(dim=(-2, -1))
+    eig_sum = rowwise_sum(lam, 2) - rowwise_sum(lam[..., ds - d:], 2)
     return C, eig_sum
 
 
@@ -634,7 +635,8 @@ def _sparse_split_step(consts, params, op: _SparseSplitOperator, shape):
         tr_ = alpha * t1 + (1.0 - alpha) * t
         W2, t2 = _cone_project((Zr + Uz).reshape(shape), tr_ + ut, lo, hi, params, pad_mask)
         Z2 = W2.reshape(B, -1)
-        pri = torch.sqrt(((Z1 - Z2) ** 2).sum(-1) + ((t1 - t2) ** 2).sum(-1))
+        pri = torch.sqrt(rowwise_sum(((Z1 - Z2) ** 2).reshape(shape), 3)
+                         + ((t1 - t2) ** 2).sum(-1))
         return (Z2, t2, Uz + Zr - Z2, ut + tr_ - t2), pri
 
     return step, lambda r: r.amax() > params.admm_tol

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from graphik_tpu_torch.ops.linalg import rowwise_sum
 from graphik_tpu_torch.utils.dgp import distance_matrix_from_gram, distance_matrix_from_pos
 
 
@@ -92,11 +93,10 @@ def cost_and_egrad(Y, D_goal, omega, psi_L, psi_U, L_mask, U_mask, anchors=None,
                    grad: bool = True):
     """(f (...,), g (..., N, d)); with grad=False, f alone."""
     _, S0, E1, E2 = residuals(Y, D_goal, omega, psi_L, psi_U, L_mask, U_mask)
-    f = 0.5 * ((S0 * S0).sum(dim=(-2, -1)) + (E1 * E1).sum(dim=(-2, -1))
-               + (E2 * E2).sum(dim=(-2, -1)))
+    f = 0.5 * (rowwise_sum(S0 * S0, 2) + rowwise_sum(E1 * E1, 2) + rowwise_sum(E2 * E2, 2))
     if anchors is not None:
         adiff, a1, a2 = _anchor_residuals(Y, anchors)
-        f = f + (a1 * a1 + a2 * a2).sum(-1)
+        f = f + rowwise_sum(a1 * a1 + a2 * a2)
     if not grad:
         return f
     g = 2.0 * _adj_mv(S0 + E1 - E2, Y)
@@ -143,7 +143,7 @@ def residual_max(Y, D_goal, omega, psi_L, psi_U, L_mask, U_mask, anchors=None):
     _, S0, E1, E2 = residuals(Y, D_goal, omega, psi_L, psi_U, L_mask, U_mask)
     om = _t(omega, Y)
     eq_cnt = torch.clamp(om.sum(), min=1.0)
-    floor = (om * D_goal).sum(dim=(-2, -1)) / eq_cnt
+    floor = rowwise_sum(om * D_goal, 2) / eq_cnt
     fl = floor[..., None, None]
     r = S0.abs() / torch.maximum(D_goal, fl)
     r = torch.maximum(r, E1 / torch.maximum(_t(psi_L, Y), fl))

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from graphik_tpu_torch.graphs.problem import ProblemStructure
+from graphik_tpu_torch.ops.linalg import rowwise_sum
 from graphik_tpu_torch.robots import kinematics
 from graphik_tpu_torch.utils import lie
 from graphik_tpu_torch.utils.compiled import device_const
@@ -201,7 +202,10 @@ def solve_local(
             if params.clip_limits:
                 q_new = torch.clamp(q_new, lb, ub)
             r_new, _ = residuals(q_new, mult, rho, with_jacobian=False)
-            improved = (info == 0) & ((r_new * r_new).sum(-1) < (r * r).sum(-1))
+            # with obstacles a residual holds 6 + n_obs n values (606 on the
+            # table), which a card would sum in an order set by the lane's
+            # batch position
+            improved = (info == 0) & (rowwise_sum(r_new * r_new) < rowwise_sum(r * r))
             q_out = torch.where(improved[..., None], q_new, q)
             lam_new = torch.clamp(
                 torch.where(improved, lam * params.lm_down, lam * params.lm_up), 1e-12, 1e8)

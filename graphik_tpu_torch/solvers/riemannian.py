@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from graphik_tpu_torch.ops import edge as edge_ops
+from graphik_tpu_torch.ops.linalg import rowwise_sum
 from graphik_tpu_torch.ops.tr_solve import solve_tr
 from graphik_tpu_torch.solvers import costs
 from graphik_tpu_torch.utils import compiled, dgp
@@ -389,7 +390,7 @@ TR_READ_EVERY = 4
 
 def _inner(a, b):
     """Per-lane Frobenius inner product of (B, N, d) tensors."""
-    return (a * b).sum(dim=(-2, -1))
+    return rowwise_sum(a * b, 2)
 
 
 def _lane(v):

@@ -30,10 +30,17 @@ BIG = 1e9
 # ---------------------------------------------------------------------------
 
 def gram_from_distance_matrix(D):
-    """Double-centered Gram matrix from a squared EDM."""
+    """Double-centered Gram matrix from a squared EDM.
+
+    The whole mean is the mean of the row means: a reduction over the
+    merged (N, N) extent rounds, on a card, by each matrix's address (torch
+    vectorises the loads of a contiguous extent past 128 elements and
+    starts each at its own misalignment), so a goal's start would depend on
+    its batch position; a row holds N <= 64 values and is summed in one
+    order wherever it sits."""
     row = D.mean(dim=-1, keepdim=True)
     col = D.mean(dim=-2, keepdim=True)
-    tot = D.mean(dim=(-2, -1), keepdim=True)
+    tot = row.mean(dim=-2, keepdim=True)
     return -0.5 * (D - row - col + tot)
 
 

@@ -33,7 +33,8 @@ NAME_MAP = {
 }
 # JAX modules the port leaves out
 SKIP_MODULES = {
-    "ops.jacobi": "Jacobi eigh sweeps: a TPU workaround for XLA's eigh; the port uses torch.linalg.eigh",
+    "ops.jacobi": "Jacobi eigh sweeps: a TPU workaround for XLA's eigh; the port's eigendecompositions "
+                  "run on its own kernel, ops/eigh.py::sym_eigh",
     "ops.subspace": "subspace iteration: a TPU workaround for XLA's eigh",
     "utils.cache": "JAX's persistent compilation cache; the port compiles nothing with XLA",
 }

@@ -1199,3 +1199,247 @@ def test_evicted_sharded_solver_releases_its_pool(cuda, monkeypatch):
     fell = before - torch.cuda.memory_reserved()
     assert pool > 0 and abs(fell - pool) <= 0.05 * pool, (fell, pool)
     assert solver.graphs.graphs == {} and len(inputs) > 0
+
+
+# ---------------------------------------------------------------------------
+# K1 / K2 past 32 nodes and 128 edges
+# ---------------------------------------------------------------------------
+
+def _dh_chain(n):
+    """tests/test_torch_large.py's n-DoF DH chain (n = 19 is dh19), without
+    JAX: a ~ U(0.1, 0.5), d ~ U(0, 0.3), alpha from {-pi/2, 0, pi/2},
+    drawn from RandomState(n), limits +-pi/2."""
+    from graphik_tpu_torch.robots.templates import revolute_from_dh
+
+    rs = np.random.RandomState(n)
+    a = rs.uniform(0.1, 0.5, n)
+    d = rs.uniform(0.0, 0.3, n)
+    alpha = rs.choice([-np.pi / 2, 0.0, np.pi / 2], n)
+    return revolute_from_dh(a, alpha, d, np.zeros(n), lb=-np.pi / 2, ub=np.pi / 2)
+
+
+def _large_structure(robot):
+    """planar40 (N = 43, d = 2, E = 89), dh15 (34 / 3 / 106) or dh19 (42 / 3
+    / 126)."""
+    from graphik_tpu_torch.robots.library import load_planar_chain
+
+    if robot == "planar40":
+        return load_planar_chain(40, limits=np.pi / 2)[1]
+    return ProblemStructure.from_template(_dh_chain(int(robot[2:])))
+
+
+# planar40, dh19 and dh15 on goals prepared on the card (full smoothing, as
+# chip_smoke.py phase 20 runs them), and the largest instances, 64 nodes
+# and 256 edges at d = 2 and 3
+EDGE_WIDE_CASES = ["planar40", "dh19", "dh15", (64, 2, 256), (64, 3, 256)]
+
+
+def _edge_wide_case(case, B, device):
+    if isinstance(case, tuple):
+        return _synthetic(*case, seed=sum(case) + B, device=device, B=B)
+    ps = _large_structure(case)
+    ep = edge_ops.build_edge_problem(*ps.masks(), dim=ps.dim)
+    T_goal, _ = api.random_goals(ps, (B,), torch.Generator().manual_seed(B + ep.E),
+                                 dtype=torch.float32, device=device)
+    D_goal, Y0 = api.make_solver(ps, smooth_iters=None).prepare(T_goal)
+    return ep, Y0.contiguous(), ep.edge_values(D_goal).contiguous()
+
+
+def _edge_bitwise(ep, Y, dg):
+    """K1 / K2 against their kernel-order plain versions, goal distances at
+    stride Ep and, where it differs, E: bitwise and finite, one launch each
+    a stride."""
+    Z = torch.randn(Y.shape, generator=torch.Generator(device=Y.device).manual_seed(Y.shape[0]),
+                    device=Y.device)
+    before = (edge_ops.cost_and_egrad_cuda.launches, edge_ops.ehess_cuda.launches)
+    for dg_ in {ep.Ep: dg, ep.E: dg[:, :ep.E].contiguous()}.values():
+        f, g = edge_ops.cost_and_egrad_cuda(ep, Y, dg_)
+        H = edge_ops.ehess_cuda(ep, Y, Z, dg_)
+        fp, gp = edge_ops.cost_and_egrad_kernel_order(ep, Y, dg_)
+        Hp = edge_ops.ehess_kernel_order(ep, Y, Z, dg_)
+        assert torch.equal(f, fp) and torch.equal(g, gp) and torch.equal(H, Hp)
+        assert bool(torch.isfinite(f).all() and torch.isfinite(g).all() and torch.isfinite(H).all())
+    n = 1 if ep.E == ep.Ep else 2
+    assert (edge_ops.cost_and_egrad_cuda.launches, edge_ops.ehess_cuda.launches) == (
+        before[0] + n, before[1] + n)
+
+
+@pytest.mark.parametrize("B", [1, 33, 1001, 8192])
+@pytest.mark.parametrize("case", EDGE_WIDE_CASES, ids=str)
+def test_edge_kernels_past_32_nodes_bitwise(cuda, case, B):
+    """K1 / K2 at two node slots a lane (N > 32) with 3, 4 and 8 edges a
+    lane, bitwise their kernel-order plain versions: B = 1 and 33 leave
+    warps of a block idle, 1001 ends in a tile that is not full, 8192 is the
+    paths' batch."""
+    ep, Y, dg = _edge_wide_case(case, B, cuda)
+    assert ep.N > 32
+    _edge_bitwise(ep, Y, dg)
+
+
+@pytest.mark.parametrize("N,d,n_edges", LARGE_SHAPES)
+def test_edge_kernels_every_wide_instance_bitwise(cuda, N, d, n_edges):
+    """Every instance past 32 nodes or 128 edges (one node slot with 5-8
+    edges a lane, two with 1-8) at 1001 instances, bitwise."""
+    ep, Y, dg = _synthetic(N, d, n_edges, seed=N + n_edges, device=cuda, B=1001)
+    assert (ep.N, ep.E) == (N, n_edges)
+    _edge_bitwise(ep, Y, dg)
+
+
+@pytest.mark.parametrize("case", ["planar40", "dh19", (32, 3, 253), (64, 3, 256)], ids=str)
+def test_edge_kernel_shape_past_32_nodes_matches_plan(cuda, case):
+    """The C side's launch shape past 32 nodes or 128 edges is
+    edge_launch_plan's: one instance a warp, EPL up to 8."""
+    ep = _edge_wide_case(case, 1, cuda)[0]
+    for hess, B in ((False, 8192), (True, 8192), (True, 131072)):
+        shape = edge_ops.edge_kernel_shape(ep, B, ep.Ep, hess)
+        plan = edge_ops.edge_launch_plan(ep.N, ep.dim, ep.E, ep.Ep, B, hess)
+        assert {k: shape[k] for k in plan} == plan and not shape["two_per_warp"]
+        assert shape["blocks"] == min(plan["tiles"], shape["blocks_resident"])
+        assert shape["blocks_resident"] >= 132
+
+
+def test_edge_wide_instances_do_not_spill(cuda):
+    """No instance past 32 nodes or 128 edges spills (the build's ptxas
+    log): 48 of them, K1 and K2 at d = 2, 3 with NPL = 2 and EPL 1-8 or
+    NPL = 1 and EPL 5-8."""
+    import re
+
+    from graphik_tpu_torch.ops._build import library_path, load_library
+
+    load_library()
+    with open(library_path() + ".log") as f:
+        entries = f.read().split("Compiling entry function '")[1:]
+    wide = {}
+    for entry in entries:
+        name = re.match(
+            r"_ZN7graphik4wide\d+(cost_grad_kernel|hess_kernel)ILi(\d)ELi(\d)ELi32ELi(\d)E", entry)
+        if name:
+            wide[name.groups()] = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+    assert len(wide) == 48 and not any(wide.values()), wide
+
+
+def test_edge_kernels_refuse_past_the_build(cuda):
+    """N = 65 raises, naming the limit, on CUDA tensors too."""
+    ep, Y, dg = _synthetic(65, 3, 100, seed=1, device=cuda, B=4)
+    with pytest.raises(ValueError, match="N <= 64"):
+        edge_ops.cost_and_egrad_cuda(ep, Y, dg)
+    with pytest.raises(ValueError, match="N <= 64"):
+        edge_ops.ehess_cuda(ep, Y, Y, dg)
+
+
+# ---------------------------------------------------------------------------
+# Batch-position invariance: a goal's result does not depend on where it
+# sits in the batch
+# ---------------------------------------------------------------------------
+
+# the single-init compiled paths of chip_smoke.py (its parameters; planar40
+# at full smoothing and at the UR10 path's two squarings)
+POSITION_PATHS = ["ur10", "kuka_iiwa", "lwa4d", "planar6", "planar10", "ur10_table",
+                  "planar10_ring6", "planar40", "planar40_smooth2", "dh19", "ur10_table192"]
+# the graphed-loop paths, and CG and the float32 "dense" TR on planar10, whose
+# dense cost sums 13 x 13 values an instance (not a multiple of 16 bytes)
+POSITION_LOOP_PATHS = ["ur10_cidgik", "ur10_cidgik_sparse", "ur10_cg", "ur10_f64",
+                       "planar10_edge", "planar10_cg", "planar10_dense"]
+B_POSITION = 8192
+B_POSITION_LOOP = 256
+
+
+def _position_path(name):
+    """(structure, solver or CIDGIK call, goal dtype) of a path: solver(T)
+    -> {name: (B, ...) tensor}, prepare's D_goal and Y0 beside the
+    outputs."""
+    from graphik_tpu_torch.robots.library import (
+        load_kuka, load_planar_chain, load_schunk_lwa4d)
+    from graphik_tpu_torch.solvers import cidgik, cidgik_sparse
+    from graphik_tpu_torch.solvers.riemannian import CGParams
+    from graphik_tpu_torch.utils.environments import ring_environment
+
+    tpl, ps = load_ur10()
+    prod = TRParams.production(maxiter=100, maxinner=24)
+    long = TRParams.production(maxiter=250, maxinner=32)
+    smooth, params, dtype = 2, prod, torch.float32
+    if name in ("ur10_cidgik", "ur10_cidgik_sparse"):
+        sparse = name.endswith("sparse")
+        comp = (cidgik_sparse.compile_cidgik_sparse if sparse else cidgik.compile_cidgik)(ps)
+        solve = cidgik_sparse.solve_cidgik_sparse if sparse else cidgik.solve_cidgik
+        cp = cidgik.CidgikParams.production(admm_iters=700, admm_iters_rest=300)
+        finish = _cidgik_finish(ps)
+
+        def run(T):
+            out = solve(comp, T, params=cp)
+            return {**out, **{f"finish {k}": v for k, v in finish(out["q"], T).items()}}
+        return ps, run, dtype
+    if name == "kuka_iiwa":
+        ps = load_kuka()[1]
+    elif name == "lwa4d":
+        ps = load_schunk_lwa4d()[1]
+    elif name in ("planar6", "planar10", "planar10_edge", "planar10_cg", "planar10_dense"):
+        ps = load_planar_chain(int(name[6:8].rstrip("_")), limits=np.pi / 2)[1]
+        if name in ("planar10_edge", "planar10_dense"):
+            params = TRParams.production(maxiter=100, maxinner=24, backend=name[9:])
+        elif name == "planar10_cg":
+            params = CGParams.production()
+    elif name in ("ur10_table", "ur10_table192"):
+        env = (table_environment() if name == "ur10_table"
+               else table_environment(n_width=12, n_height=12))
+        ps = ProblemStructure.from_template(tpl, obstacles=env)
+        params = long if name == "ur10_table" else prod
+    elif name == "planar10_ring6":
+        ps = ProblemStructure.from_template(load_planar_chain(10, limits=np.pi / 2)[0],
+                                            obstacles=ring_environment())
+        params = long
+    elif name.startswith("planar40") or name == "dh19":
+        ps = _large_structure(name[:8] if name.startswith("planar40") else name)
+        smooth = 2 if name.endswith("smooth2") else None
+    elif name == "ur10_cg":
+        params = CGParams.production()
+    elif name == "ur10_f64":
+        dtype = torch.float64
+    solver = api.make_solver(ps, params=params, smooth_iters=smooth,
+                             polish_params=LocalParams(maxiter=10, tol_grad=1e-8))
+
+    def run(T):
+        D_goal, Y0 = solver.prepare(T)
+        return {"D_goal": D_goal, "Y0": Y0, **solver.finish(solver.solve(Y0, D_goal), T)}
+    run.solver = solver
+    return ps, run, dtype
+
+
+def _position_check(name, B, device):
+    """One seeded goal copied to every position of a B stack: every output
+    bitwise one at every position; B distinct goals in reverse order: each
+    goal's outputs bitwise its forward ones."""
+    ps, run, dtype = _position_path(name)
+    try:
+        T = api.random_goals(ps, (B,), torch.Generator().manual_seed(16), dtype=dtype,
+                             device=device)[0]
+        copied = run(T[:1].expand(T.shape).contiguous())
+        split = {k: int((v != v[:1]).reshape(B, -1).any(-1).sum()) for k, v in copied.items()
+                 if not torch.equal(v, v[:1].expand_as(v))}
+        fwd, rev = run(T), run(T.flip(0).contiguous())
+        moved = {k: int((rev[k].flip(0) != v).reshape(B, -1).any(-1).sum())
+                 for k, v in fwd.items() if not torch.equal(rev[k].flip(0), v)}
+        assert not split and not moved, (name, split, moved)
+        assert {"D_goal", "Y0", "Y", "q", "e_pos", "e_rot", "iterations"} <= set(copied) or (
+            name.startswith("ur10_cidgik"))
+    finally:
+        if hasattr(run, "solver"):
+            run.solver.graphs.release()
+
+
+@pytest.mark.parametrize("name", POSITION_PATHS)
+def test_one_goal_at_every_batch_position(cuda, name):
+    """Every single-init compiled path: one goal at all 8192 positions gives
+    bitwise one D_goal, Y0, Y, q, e_pos, e_rot, iterations (and every other
+    output) at every position; a reversed stack gives each goal its
+    forward result. (A restart path draws its fractions by position, so
+    its goals' starts differ by design.)"""
+    _position_check(name, B_POSITION, cuda)
+
+
+@pytest.mark.parametrize("name", POSITION_LOOP_PATHS)
+def test_loop_paths_one_goal_at_every_batch_position(cuda, name):
+    """The graphed-loop paths (CIDGIK's ADMM, CG, the float64 "dense" TR and
+    the "edge" TR), and CG and the float32 "dense" TR on planar10, at 256
+    goals: the same two checks."""
+    _position_check(name, B_POSITION_LOOP, cuda)

@@ -7,7 +7,9 @@ what csrc/edge.cu computes, bit for bit at float32 (tests/test_torch_cuda.py
 holds the kernels to them on the card). Here they meet JAX's Pallas
 kernels in interpret mode at float32, as tests/test_edge_ops.py runs them
 (2e-6 of the scale), and JAX's cost_and_egrad / ehess at float64 (1e-12 of
-the scale), on UR10, planar6, KUKA iiwa and the two-end-effector tree at
+the scale), on UR10, planar6, KUKA iiwa and the two-end-effector tree, and
+past 32 nodes on planar40 (N = 43, d = 2, E = 89) and the 15- and 19-DoF DH
+chains of tests/test_torch_large.py (N = 34 / 42, E = 106 / 126), at
 batches that are not multiples of any tile.
 """
 
@@ -24,10 +26,11 @@ from graphik_tpu.robots import library as jlib
 from graphik_tpu_torch.ops import edge as tedge
 from graphik_tpu_torch.robots import library as tlib
 from graphik_tpu_torch.utils import compiled
+from tests.test_torch_large import structures
 from tests.test_trees import tree_template
 
 torch.set_num_threads(1)
-ROBOTS = ["ur10", "planar6", "kuka_iiwa", "tree"]
+ROBOTS = ["ur10", "planar6", "kuka_iiwa", "tree", "planar40", "dh15", "dh19"]
 
 
 def _problems(robot):
@@ -39,8 +42,10 @@ def _problems(robot):
         ts = tlib.load_planar_chain(6, limits=np.pi / 2)[1]
     elif robot == "kuka_iiwa":
         js, ts = jlib.load_kuka()[1], tlib.load_kuka()[1]
-    else:
+    elif robot == "tree":
         js, ts = JPS.from_template(tree_template()), tlib.load_tree5()[1]
+    else:
+        js, ts = structures(robot)
     jep = jedge.build_edge_problem(*js.masks(), dim=js.dim)
     tep = tedge.build_edge_problem(*ts.masks(), dim=ts.dim)
     np.testing.assert_array_equal(jep.ei, tep.ei)
@@ -207,3 +212,72 @@ def test_launch_plan():
                     # under the 227 KB a block may take, with the ~4.7 KB
                     # of static edge tables
                     assert p["smem_bytes"] <= 200 * 1024
+
+
+def test_launch_plan_past_32_nodes():
+    """The plan past 32 nodes or 128 edges: one instance a warp (W = 32),
+    EPL = ceil(E / 32) up to 8, the instance's edge tables (2372 floats at
+    two node slots and 256 edges: 9 x 256 + 65, rounded up to 4), and
+    within the shared memory a block may take beside the 16 KB static code
+    table of 64 x 64 codes."""
+    plan = tedge.edge_launch_plan
+    # planar40 (N = 43, E = 89, Ep = 96) and dh19 (N = 42, E = 126, Ep = 128)
+    # at B = 8192: 8 instances a tile, 1024 tiles
+    p40 = plan(43, 2, 89, 96, 8192, False)
+    assert p40 == {"W": 32, "epl": 3, "two_per_warp": False, "tile": 8, "tiles": 1024,
+                   "smem_bytes": 4 * (2 * (688 + 768) + 2 * 688 + 8 * 2 * 97)}
+    assert plan(42, 3, 126, 128, 8192, True)["smem_bytes"] == 4 * (
+        2 * (2 * 1008 + 1024) + 2 * 1008 + 8 * 3 * 129)
+    # the largest instance: 64 nodes, 256 edges, stride 256
+    assert plan(64, 3, 256, 256, 8192, True) == {
+        "W": 32, "epl": 8, "two_per_warp": False, "tile": 8, "tiles": 1024,
+        "smem_bytes": 4 * (2 * (2 * 1536 + 2048) + 2 * 1536 + 8 * 3 * 257)}
+    # one node slot past 128 edges; two at a few edges a lane
+    assert plan(32, 3, 200, 200, 5, False)["smem_bytes"] == 4 * (
+        2 * (768 + 1600) + 2 * 768 + 8 * 3 * 225)
+    assert plan(33, 2, 40, 40, 3, False)["smem_bytes"] == 4 * (
+        2 * (528 + 320) + 2 * 528 + 8 * 2 * 65)
+    # the instances' edge tables: EdgeTablesT<32 NPL, max(128, 32 EPL)>
+    assert [tedge._table_floats(*k) for k in ((1, 128), (1, 224), (2, 128), (2, 256))] == [
+        1188, 2052, 1220, 2372]
+    for N in (17, 32, 33, 43, 64):
+        for d in (2, 3):
+            for E in range(1, 257):
+                for stride in {E, -(-E // 8) * 8}:
+                    p = plan(N, d, E, stride, 10**6, True)
+                    assert p["W"] == 32 and p["epl"] == -(-E // 32) <= 8
+                    assert (p["tile"] * N * d * 4) % 16 == 0
+                    assert (p["tile"] * stride * 4) % 16 == 0
+                    assert p["smem_bytes"] + 4 * 64 * 64 <= 227 * 1024
+
+
+def _largest():
+    """An EdgeProblem at the build's limits: 64 nodes, 256 edges (a chain
+    and 193 seeded chords)."""
+    rs = np.random.RandomState(64)
+    M = np.zeros((64, 64))
+    M[np.arange(63), np.arange(1, 64)] = 1.0
+    iu = np.triu_indices(64, 2)
+    pick = rs.choice(len(iu[0]), 256 - 63, replace=False)
+    M[iu[0][pick], iu[1][pick]] = 1.0
+    M = M + M.T
+    return tedge.build_edge_problem(M, M, M, dim=3)
+
+
+@pytest.mark.parametrize("robot", ["planar40", "dh19", "n64_e256"])
+def test_tables_past_32_nodes(robot):
+    """The host tables of a robot past 32 nodes, and of a problem at the
+    limits (N = 64, E = 256): codes (max degree, N) with every node's
+    incident edges at their slots and the zero place 2 x 32 EPL past its
+    degree; slots inside their groups of 32 edges, each its own."""
+    tep = _largest() if robot == "n64_e256" else _problems(robot)[1]
+    ei, ej, epar, rowptr, codes, slots = (t.numpy() for t in tedge.edge_kernel_tables(tep, "cpu"))
+    epl = -(-tep.E // 32)
+    inc = tedge.incidence(tep)
+    assert codes.shape == (max(map(len, inc)), tep.N) and tep.N > 32
+    for i, lst in enumerate(inc):
+        assert codes[:len(lst), i].tolist() == [2 * slots[c >> 1] + (c & 1) for c in lst]
+        assert (codes[len(lst):, i] == 2 * 32 * epl).all()
+    assert (slots // 32 == np.arange(tep.E) // 32).all() and slots.max() < 32 * epl
+    assert len(set(slots.tolist())) == tep.E
+    assert rowptr[-1] == 2 * tep.E and epar.shape == (tep.E, 5)

@@ -27,6 +27,7 @@ PORT_FILES = sorted(
                                       "tools/tr_f64_spread.py",
                                       "tools/torch_f64_card_cpu.py",
                                       "tools/torch_prepare_spread.py",
+                                      "tools/torch_position_probe.py",
                                       "examples/torch_riemannian_example.py",
                                       "examples/torch_cidgik_example.py")]
 

@@ -343,3 +343,27 @@ def test_tr_kernel_refuses_past_its_limits(case, match):
     Y = torch.zeros(2, ep.N, 3)
     with pytest.raises(ValueError, match=match):
         tr_solve.solve_tr_cuda(ep, Y, torch.zeros(2, ep.Ep))
+
+
+@pytest.mark.parametrize("wrapper", ["cost_and_egrad_cuda", "ehess_cuda"])
+@pytest.mark.parametrize("case,match", [
+    ("N", "N <= 64"), ("E", "E <= 256"), ("stride", "dg_stride <= 256")])
+def test_edge_kernels_refuse_past_their_limits(wrapper, case, match):
+    """K1 / K2's wrappers refuse, before they look at the device: N > 64,
+    E > 256, and goal distances read at a stride past 256 (E = 250, whose
+    padded Ep is 256, with 264 columns)."""
+    if case == "N":
+        ep = _anchored(65, 0, [])
+    else:
+        N = 24
+        full = np.ones((N, N)) - np.eye(N)  # 276 edges
+        if case == "stride":
+            full[np.triu_indices(N, 1)[0][250:], np.triu_indices(N, 1)[1][250:]] = 0.0
+            full = np.minimum(full, full.T)
+        ep = tedge.build_edge_problem(full, full, full, dim=3)
+    assert (ep.N, ep.E) == {"N": (65, 64), "E": (24, 276), "stride": (24, 250)}[case]
+    Y = torch.zeros(2, ep.N, 3)
+    dg = torch.zeros(2, 264 if case == "stride" else ep.Ep)
+    args = (ep, Y, dg) if wrapper == "cost_and_egrad_cuda" else (ep, Y, Y, dg)
+    with pytest.raises(ValueError, match=match):
+        getattr(tedge, wrapper)(*args)

@@ -92,3 +92,26 @@ def test_distance_helpers():
     np.testing.assert_allclose(tdgp.gram_from_distance_matrix(D_t).numpy(),
                                np.asarray(jdgp.gram_from_distance_matrix(D_j)),
                                rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [9, 13, 43])
+def test_gram_is_one_at_every_batch_position(n):
+    """One matrix copied to every position of a stack gives one Gram,
+    bitwise, at every position, and so does the same stack read through a
+    view 4 bytes into its storage (every matrix misaligned); that Gram is
+    the matrix's alone and JAX's within 1e-6 of its scale (float32). n = 9,
+    13, 43: planar6's, planar10's and planar40's node counts, whose n^2
+    values are not a multiple of 4."""
+    rs = np.random.RandomState(n)
+    P = rs.normal(size=(n, 2)).astype(np.float32)
+    D = ((P[:, None] - P[None]) ** 2).sum(-1)
+    one = tdgp.gram_from_distance_matrix(torch.from_numpy(D))
+    stack = torch.from_numpy(D).expand(11, n, n).contiguous()
+    buf = torch.empty(stack.numel() + 1, dtype=torch.float32)
+    view = buf[1:].view(stack.shape)
+    view.copy_(stack)
+    for S in (stack, view):
+        G = tdgp.gram_from_distance_matrix(S)
+        assert torch.equal(G, one.expand_as(G))
+    Gj = np.asarray(jdgp.gram_from_distance_matrix(jnp.asarray(D)))
+    np.testing.assert_allclose(one.numpy(), Gj, rtol=0, atol=1e-6 * np.abs(Gj).max())

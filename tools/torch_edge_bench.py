@@ -157,7 +157,7 @@ def child(label, tree, inputs, flushes, calls, flush_by):
     regs = []
     for entry in ptxas.split("Compiling entry function '")[1:]:
         name = re.search(r"([a-z][a-z_]*_kernel)I((?:Li\d+E|Lb\d+E)+)E", entry)
-        if name.group(1) not in KERNELS.values():
+        if not name or name.group(1) not in KERNELS.values():  # K5's take a type argument
             continue
         args = ",".join(re.findall(r"L[ib](\d+)E", name.group(2)))
         r, s = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", entry).groups()
