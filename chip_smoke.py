@@ -213,6 +213,24 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      B = 8192, compiled: one goal at every position, and the stack
      reversed, as phase 18 checks the other paths.
 
+ 21. K6, the LM polish's clamped-pivot SPD solve (`spd_phase`, run after
+     phase 19, before the paths): on the card, against its plain version
+     bitwise (NaN where the plain version has NaN) on each path's LM
+     systems at the batch its polish hands K6 (`lm_systems`: UR10, KUKA
+     iiwa, LWA4D, planar6, planar10, the tree's 3 x 1000, planar40, dh19
+     at float32, UR10 at float64, dense CIDGIK's finish at B = 1024) and on
+     random SPD, ill-conditioned (J^T J + 1e-12 I, J 3 x m), indefinite and
+     NaN systems at m = 3, 33, 64 (`spd_random`, float32 and float64);
+     K6's time beside its bound (`spd_bound`) and beside cholesky_ex and
+     two solve_triangular on the same inputs (what the port ran before);
+     the plain version's time and batch invariance at UR10's shape. Every
+     path's timed calls (phases 3, 6, 8-10, 15, 20) count K6 once an LM
+     step (`lm_launches`: the polish's maxiter, times its
+     augmented-Lagrangian rounds with obstacles), phases 11-14 and 17 over
+     their finishes, and phase 18's profiled finishes, compiled and eager,
+     hold K6's kernel count and show no cuSOLVER potrf or cuBLAS trsm
+     (`lm_kernels`).
+
 Phases 3, 6, 8-10, 15, 16 and 20 run the compiled solver (make_solver,
 make_restart_solver, solve_ik_sharded): the warm call is the first call
 at the batch shape, which runs prepare, solve and finish eagerly and
@@ -228,7 +246,7 @@ configuration's 1000 goals (tools/torch_parity.py jax --config <name>), less
 0.02.
 
 The records of phases 11-14, 16 and 17 are logged as JSON lines before the
-total. The last lines are the kernels' JSON record (K5 first, with each
+total. The last lines are the kernels' JSON record (K5 first, K6 last, with each
 kernel's bound: the larger of its flops over the peak of its type and its
 bytes over the memory rate, counted from the shapes and this run's
 iteration counts), the
@@ -535,9 +553,9 @@ def profiled(fn, dev):
     """Device activities of one run of fn (torch.profiler): (kernel
     launches, other device activities - copies and sets -, device-busy ms,
     host launches - the CUDA API calls by which the host starts device
-    work, a graph launch counting one). The profiler's raw
-    events are read directly: building its per-event Python objects takes
-    ~50 us an event, minutes for a CIDGIK call."""
+    work, a graph launch counting one -, the device kernels' names). The
+    profiler's raw events are read directly: building its per-event Python
+    objects takes ~50 us an event, minutes for a CIDGIK call."""
     import torch
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -549,7 +567,32 @@ def profiled(fn, dev):
     copies = sum(1 for e in dev_ev if e.name().startswith(("Memcpy", "Memset")))
     busy_ms = sum(e.duration_ns() for e in dev_ev) / 1e6
     host = sum(1 for e in events if e.device_type() != cuda and e.name() in HOST_LAUNCH_CALLS)
-    return len(dev_ev) - copies, copies, busy_ms, host
+    kernels = [e.name() for e in dev_ev if not e.name().startswith(("Memcpy", "Memset"))]
+    return len(kernels), copies, busy_ms, host, kernels
+
+
+def lm_launches(solver):
+    """K6 launches of one finish of `solver` (an api.Solver or
+    RestartSolver): one an LM step, the polish's maxiter steps
+    (api.polish_solution's 30 by default) in each of its
+    augmented-Lagrangian rounds where the structure has obstacles."""
+    from graphik_tpu_torch.solvers.local import LocalParams
+
+    if not solver.polish:
+        return 0
+    pp = solver.polish_params or LocalParams(maxiter=30, tol_grad=1e-8)
+    return pp.maxiter * (pp.al_iters if solver.structure.n_obstacles else 1)
+
+
+def lm_kernels(tag, names, want):
+    """Check a finish's device kernels (profiler names): K6 `want` times,
+    and no library Cholesky factor or triangular solve (cuSOLVER potrf,
+    cuBLAS trsm) beside it. Returns K6's count."""
+    k6 = sum("spd_solve_kernel" in n for n in names)
+    lib = sorted({n for n in names if re.search("potrf|trsm|cholesky", n, re.I)})
+    check(k6 == want, f"{tag}: the finish launched K6 {k6} times, not {want}")
+    check(not lib, f"{tag}: the finish launched a library factor or solve: {lib}")
+    return k6
 
 
 def flushed_kernel_ms(fn, name, reps):
@@ -863,7 +906,7 @@ def prepare_vs_eager(tag, dev, solver, T_goal, gen):
         sync(dev)
         walls[name] = (time.perf_counter() - t0) * 1e3
         k5[name] = sym_eigh_cuda.launches - before
-    kernels, copies, busy, host = profiled(lambda: solver.prepare(T_goal, *restored()), dev)
+    kernels, copies, busy, host, _ = profiled(lambda: solver.prepare(T_goal, *restored()), dev)
     same = all(bool(a.equal(b)) for a, b in zip(outs["compiled"], outs["eager"]))
     rec = {"bitwise": same, "compiled_ms": walls["compiled"], "eager_ms": walls["eager"],
            "k5_launches": k5["compiled"], "k5_launches_eager": k5["eager"],
@@ -973,6 +1016,9 @@ def compiled_phase(dev, paths, prepare_paths=(), position_runs=()):
         prof = {name: profiled(lambda s=s: s.finish(sol_c, T_goal), dev)
                 for name, s in (("compiled", solver), ("eager", eager))}
         t_prof = time.perf_counter() - t_prof
+        # K6 once an LM step in both forms, no library factor or solve
+        k6 = {name: lm_kernels(f"{tag} {name} finish", p[4], lm_launches(solver))
+              for name, p in prof.items()}
         B = Y0.shape[0]
         # the first call ran each stage eagerly (the warm-up), then captured it
         rec = {"path": tag, "B": B, "bitwise": not differ, "lanes_differ": differ,
@@ -982,11 +1028,12 @@ def compiled_phase(dev, paths, prepare_paths=(), position_runs=()):
                "capture_ms": {"solve": (first[1] - walls["eager"][0]) * 1e3,
                               "finish": (first[2] - walls["eager"][1]) * 1e3}}
         for name in ("compiled", "eager"):
-            kernels, copies, busy, host = prof[name]
+            kernels, copies, busy, host, _ = prof[name]
             n_dev = kernels + copies
             ts, tf = walls[name]
             rec[name] = {"solve_ms": ts * 1e3, "finish_ms": tf * 1e3, "finish_host_launches": host,
-                         "finish_device_activities": n_dev, "finish_busy_ms": busy,
+                         "finish_device_activities": n_dev, "finish_k6_launches": k6[name],
+                         "finish_busy_ms": busy,
                          "finish_busy_share": busy / (tf * 1e3),
                          "finish_peak_mib": peaks[name] / 2**20}
         c, e = rec["compiled"], rec["eager"]
@@ -994,7 +1041,8 @@ def compiled_phase(dev, paths, prepare_paths=(), position_runs=()):
             f"{e['solve_ms']:.1f} eager; finish {c['finish_ms']:.1f} / {e['finish_ms']:.1f} ms "
             f"({e['finish_ms'] / c['finish_ms']:.1f}x); finish host launches "
             f"{c['finish_host_launches']} / {e['finish_host_launches']}, device activities "
-            f"{c['finish_device_activities']} / {e['finish_device_activities']}, busy "
+            f"{c['finish_device_activities']} / {e['finish_device_activities']} (K6 "
+            f"{c['finish_k6_launches']} / {e['finish_k6_launches']}), busy "
             f"{100 * c['finish_busy_share']:.1f}% / {100 * e['finish_busy_share']:.1f}%; first "
             f"call (warm-up + capture) solve {first[1] * 1e3:.1f} ms, finish "
             f"{first[2] * 1e3:.1f} ms, less the eager stage: capture "
@@ -1230,6 +1278,147 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
     return {"shapes": shapes, "timing": timing, "paths": paths, "max_abs_err": err}
 
 
+def spd_bound(m, B, dtype):
+    """(ms, "operations" or "bytes") of B clamped-pivot solves of size m,
+    counted from csrc/spd_solve.cu: column j of the factor takes m - j dots
+    of j products and j adds and a subtract each, a square root and
+    m - j - 1 divisions; each substitution m subtracts and divisions and
+    m (m - 1) / 2 products and adds; A's lower triangle (m (m + 1) / 2,
+    the only part the kernel and the function it replaces read) and b (m)
+    read and x (m) written a system. Over the card's non-tensor rate of the
+    type and its memory rate."""
+    import torch
+
+    size = 8 if dtype == torch.float64 else 4
+    peak = PEAK_F64 if dtype == torch.float64 else PEAK_F32
+    flops = (sum((m - j) * (2 * j + 1) + 1 + (m - j - 1) for j in range(m))
+             + 2 * (2 * m + m * (m - 1)))
+    t_op, t_b = flops * B / peak * 1e3, (m * (m + 1) // 2 + 2 * m) * size * B / PEAK_BYTES * 1e3
+    return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
+
+
+def lm_systems(ps_, B, dtype, gen, dev):
+    """The LM's damped systems (H = J^T J + lam I, g = J^T r, as
+    solvers/local.py forms them) of B random goals of `ps_` at other
+    random configurations, lam from 1e-12 to 1e-3 (log-uniform): the
+    shape and the content the polish hands K6 at that path's batch."""
+    import torch
+
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.solvers import local
+
+    T_goal = api.random_goals(ps_, (B,), gen, dtype=dtype, device=dev)[0]
+    q = api.random_goals(ps_, (B,), gen, dtype=dtype, device=dev)[1]
+    r, J = local._pose_residuals(ps_.template, T_goal, q)
+    lam = 10.0 ** (-12.0 + 9.0 * torch.rand((B, 1, 1), generator=gen, dtype=dtype).to(dev))
+    n = ps_.template.n
+    H = J.transpose(-1, -2) @ J + lam * torch.eye(n, dtype=dtype, device=dev)
+    return H, (J * r[..., :, None]).sum(-2)
+
+
+def spd_random(m, B, dtype, gen, dev):
+    """B random systems of size m, a quarter each: SPD (X X^T / m + I),
+    ill-conditioned (J^T J + 1e-12 I, J 3 x m: planar40's LM systems at the
+    damping's floor), indefinite (X D X^T / m, D = +-1: the clamp engages),
+    and the ill-conditioned ones with a NaN in A's lower triangle or in b."""
+    import torch
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64).to(dev)
+
+    q = B // 4
+    X, J = normal(B, m, m), normal(B, 3, m)
+    D = torch.where(torch.rand((B, 1, m), generator=gen, dtype=torch.float64).to(dev) < 0.3,
+                    -1.0, 1.0)
+    eye = torch.eye(m, dtype=torch.float64, device=dev)
+    A = torch.cat([(X @ X.transpose(1, 2) / m + eye)[:q],
+                   (J.transpose(1, 2) @ J + 1e-12 * eye)[q:2 * q],
+                   ((X * D) @ X.transpose(1, 2) / m)[2 * q:3 * q],
+                   (J.transpose(1, 2) @ J + 1e-12 * eye)[3 * q:]])
+    b = normal(B, m)
+    rows = torch.arange(3 * q, B, device=dev)
+    A[rows[::2], m - 1, 0] = float("nan")
+    b[rows[1::2], m // 2] = float("nan")
+    return A.to(dtype), b.to(dtype)
+
+
+def spd_phase(dev, gen):
+    """Phase 21: K6 (csrc/spd_solve.cu), the LM's clamped-pivot solve, on
+    the card. For each path's LM systems at the batch its polish hands
+    K6 (`lm_systems`: UR10, KUKA iiwa, LWA4D, planar6, planar10, the tree's
+    3 x 1000 restarts, planar40, dh19 at float32, UR10 at float64, dense
+    CIDGIK's finish at B_CIDGIK) and for random systems at m = 3, 33, 64
+    (`spd_random`, B_MAIN, float32 and float64): K6 against its plain
+    version (ops/linalg.py spd_solve_reference) bitwise, NaN where the
+    plain version has NaN; K6's time (CUDA events) beside its bound and
+    beside the library's cholesky_ex and two solve_triangular on the same
+    inputs (what the port ran before: not the same function, its pivots
+    are not clamped); the plain version's time at UR10's shape; UR10's
+    first 501 systems bitwise the same alone. Returns the phase's record
+    (UR10's float32 shape heads K6's kernels entry)."""
+    import torch
+
+    from graphik_tpu_torch.ops.linalg import spd_solve_cuda, spd_solve_reference
+    from graphik_tpu_torch.robots.library import (
+        load_kuka, load_planar_chain, load_schunk_lwa4d, load_tree5, load_ur10)
+
+    def library(A, b):
+        L = torch.linalg.cholesky_ex(A)[0]
+        w = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+        return torch.linalg.solve_triangular(L.transpose(-1, -2), w, upper=True)[..., 0]
+
+    t_phase = time.perf_counter()
+    ps_u = load_ur10()[1]
+    cases = [("ur10", *lm_systems(ps_u, B_MAIN, torch.float32, gen, dev)),
+             ("kuka_iiwa", *lm_systems(load_kuka()[1], B_MAIN, torch.float32, gen, dev)),
+             ("lwa4d", *lm_systems(load_schunk_lwa4d()[1], B_MAIN, torch.float32, gen, dev)),
+             ("planar6", *lm_systems(load_planar_chain(6, limits=np.pi / 2)[1], B_MAIN,
+                                     torch.float32, gen, dev)),
+             ("planar10", *lm_systems(load_planar_chain(10, limits=np.pi / 2)[1], B_MAIN,
+                                      torch.float32, gen, dev)),
+             ("tree_restarts3", *lm_systems(load_tree5()[1], 3 * B_TREE, torch.float32, gen,
+                                            dev)),
+             *((tag, *lm_systems(ps_l, B_MAIN, torch.float32, gen, dev))
+               for tag, ps_l, _ in large_structures()[:2]),
+             ("ur10_f64", *lm_systems(ps_u, B_F64, torch.float64, gen, dev)),
+             ("ur10_cidgik", *lm_systems(ps_u, B_CIDGIK, torch.float32, gen, dev))]
+    for m in (3, 33, 64):
+        for dt in (torch.float32, torch.float64):
+            cases.append((f"random m={m}", *spd_random(m, B_MAIN, dt, gen, dev)))
+    records, err = [], 0.0
+    for tag, A, b in cases:
+        key = "f64" if A.dtype == torch.float64 else "f32"
+        B, m = b.shape
+        x = spd_solve_cuda(A, b)
+        x_p = spd_solve_reference(A, b)
+        sync(dev)
+        nan_k, nan_p = torch.isnan(x), torch.isnan(x_p)
+        same = bool(torch.equal(nan_k, nan_p)
+                    and torch.equal(torch.nan_to_num(x, nan=0.0), torch.nan_to_num(x_p, nan=0.0)))
+        fin = torch.isfinite(x) & torch.isfinite(x_p)
+        err = max(err, float((x - x_p)[fin].abs().max()) if bool(fin.any()) else 0.0)
+        ms = event_ms(lambda: spd_solve_cuda(A, b), 20)
+        ms_lib = event_ms(lambda: library(A, b), 5)
+        bd = spd_bound(m, B, A.dtype)
+        rec = {"case": tag, "B": B, "m": m, "dtype": key, "bitwise": same,
+               "nan_systems": int(nan_k.any(-1).sum()), "ms": ms, "library_ms": ms_lib,
+               "bound_ms": bd[0], "bound_by": bd[1]}
+        if tag == "ur10":
+            rec["plain_ms"] = event_ms(lambda: spd_solve_reference(A, b), 3)
+            x1 = spd_solve_cuda(A[:501].clone(), b[:501].clone())
+            alone = torch.equal(x1, x[:501])
+            log(f"[21] ur10: the first 501 of {B} systems alone bitwise as in the batch: {alone}")
+            check(alone, "K6 is not batch-invariant")
+        log(f"[21] {tag}: B = {B}, m = {m}, {key}: K6 bitwise its plain version {same} "
+            f"({rec['nan_systems']} systems with NaN); K6 {ms:.4f} ms, cholesky_ex + 2 "
+            f"solve_triangular {ms_lib:.4f} ms, bound {bd[0] * 1e3:.2f} us ({bd[1]})"
+            + (f", plain version {rec['plain_ms']:.2f} ms" if "plain_ms" in rec else ""))
+        check(same, f"{tag}: K6 differs from its plain version")
+        records.append(rec)
+    log(f"[21] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"cases": records, "max_abs_err": err}
+
+
 def cidgik_phases(dev, gen, cfgs, position_runs=None):
     """The CIDGIK paths: for each (tag, phase, structure, B, production
     overrides, sparse), the compiled form - the ADMM through the
@@ -1253,6 +1442,7 @@ def cidgik_phases(dev, gen, cfgs, position_runs=None):
 
     from graphik_tpu_torch import api
     from graphik_tpu_torch.ops import edge as edge_ops
+    from graphik_tpu_torch.ops.linalg import spd_solve_cuda
     from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda
     from graphik_tpu_torch.solvers import cidgik, cidgik_sparse
     from graphik_tpu_torch.utils import compiled
@@ -1296,6 +1486,7 @@ def cidgik_phases(dev, gen, cfgs, position_runs=None):
         counters = (solve_tr_cuda, edge_ops.cost_and_egrad_cuda, edge_ops.ehess_cuda)
         for f in counters:
             f.launches = 0
+        spd_solve_cuda.launches = 0
         finish = cidgik_finish(ps_c)
         prof, timed = {}, {}
         for name, (mode, graphs) in forms.items():
@@ -1311,8 +1502,13 @@ def cidgik_phases(dev, gen, cfgs, position_runs=None):
             timed[name] = (t_admm, t_fin, o, cidgik.solve_cidgik.admm_steps,
                            cidgik.solve_cidgik.host_reads)
         hand = sum(f.launches for f in counters)
-        log(f"[{phase}] {tag}: K1-K4 launches during the phase's calls: {hand}")
+        # the finish's polish_solution: K6 once an LM step, four finishes
+        k6_want = 4 * lm_launches(api.Solver(ps_c))  # polish_solution's default polish
+        log(f"[{phase}] {tag}: K1-K4 launches during the phase's calls: {hand}; K6 "
+            f"{spd_solve_cuda.launches} (4 finishes, {k6_want // 4} each)")
         check(hand == 0, f"{tag}: the CIDGIK path launched one of K1-K4")
+        check(spd_solve_cuda.launches == k6_want, f"{tag}: the finish did not launch K6 once an "
+              "LM step")
         t_admm, t_fin, o, steps, reads = timed["compiled"]
         differ = differing(o, timed["eager"][2])
         log(f"[{phase}] {tag}: compiled against eager on the same goals: outputs bitwise equal "
@@ -1358,7 +1554,7 @@ def cidgik_phases(dev, gen, cfgs, position_runs=None):
 
         stats = {}
         for name in forms:
-            (k_a, c_a, busy_a, h_a), (k_f, c_f, busy_f, h_f) = prof[name]
+            (k_a, c_a, busy_a, h_a, _), (k_f, c_f, busy_f, h_f, _) = prof[name]
             ta, tf = timed[name][:2]
             stats[name] = {"admm_ms": ta * 1e3, "finish_ms": tf * 1e3,
                            "solves_per_s": B_c / (ta + tf),
@@ -1533,10 +1729,13 @@ def compiled_vs_eager(phase, tag, dev, solver, T_goal, counter, profile=True):
         f"finish): solve {first[0] * 1e3:.1f} ms, finish {first[1] * 1e3:.1f} ms")
     rec = {"B": int(Y0.shape[0]), "prepare_ms": t_prep * 1e3,
            "first_call_ms": {"solve": first[0] * 1e3, "finish": first[1] * 1e3}}
+    from graphik_tpu_torch.ops.linalg import spd_solve_cuda
+
     outs = {}
+    spd_solve_cuda.launches = 0
     for name, s in (("compiled", solver), ("eager", eager)):
         if profile:
-            k_s, c_s, busy, host = profiled(lambda: s.solve(Y0, D_goal), dev)
+            k_s, c_s, busy, host, _ = profiled(lambda: s.solve(Y0, D_goal), dev)
         counter.host_reads = 0
         sync(dev)
         t0 = time.perf_counter()
@@ -1562,6 +1761,9 @@ def compiled_vs_eager(phase, tag, dev, solver, T_goal, counter, profile=True):
                    f"solve wall")
         log(f"[{phase}] {tag} {name}: solve {r['solve_ms']:.1f} ms ({n_it} iterations, {reads} "
             f"host reads), finish {r['finish_ms']:.1f} ms{msg}")
+    check(spd_solve_cuda.launches == 2 * lm_launches(solver),
+          f"{tag}: the two finishes launched K6 {spd_solve_cuda.launches} times, not once an LM "
+          "step")
     differ = dict(differing(outs["compiled"][0], outs["eager"][0]),
                   **differing(outs["compiled"][1], outs["eager"][1]))
     pool = pool_bytes([solver.graphs]) / 2**20
@@ -1677,6 +1879,7 @@ def ring_phase(dev, gen, polish, graphed):
     from graphik_tpu_torch.graphs.problem import ProblemStructure
     from graphik_tpu_torch.ops import edge as edge_ops
     from graphik_tpu_torch.ops import tr_solve
+    from graphik_tpu_torch.ops.linalg import spd_solve_cuda
     from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda, solve_tr_reference
     from graphik_tpu_torch.robots.library import load_planar_chain
     from graphik_tpu_torch.solvers.riemannian import TRParams
@@ -1741,16 +1944,18 @@ def ring_phase(dev, gen, polish, graphed):
     first = first_call("15", solver, goals(B_MAIN))
     calls = []
     sets = [goals(B_MAIN) for _ in range(2)]
-    solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = 0
+    solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = spd_solve_cuda.launches = 0
     for T_goal in sets:
         tp, ts, tf, peak, o = staged(solver, T_goal)
         calls.append((tp, ts, tf, peak, api.summarize(o), o))
     graphed.append((tag, solver, sets[-1], (), first))
     launches = solve_tr_cuda.anchored_launches
     log(f"[15] {tag}: TR launches during the 2 timed calls: {solve_tr_cuda.launches} "
-        f"(anchored {launches})")
+        f"(anchored {launches}); K6 {spd_solve_cuda.launches}")
     check(launches == 2 and solve_tr_cuda.launches == 2,
           f"{tag}: the anchored TR kernel did not launch once per call")
+    check(spd_solve_cuda.launches == 2 * lm_launches(solver),
+          f"{tag}: the finish did not launch K6 once an LM step")
     centers = torch.tensor(np.stack([c[:2] for c, _ in ps.obstacles]), dtype=torch.float32,
                            device=dev)
     radii = torch.tensor([r for _, r in ps.obstacles], dtype=torch.float32, device=dev)
@@ -2059,6 +2264,7 @@ def main() -> int:
     from graphik_tpu_torch.ops import tr_solve
     from graphik_tpu_torch.ops._build import library_path, load_library
     from graphik_tpu_torch.ops.eigh import sym_eigh_cuda
+    from graphik_tpu_torch.ops.linalg import spd_solve_cuda
     from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda, solve_tr_reference
     from graphik_tpu_torch.parallel.mesh import make_restart_solver
     from graphik_tpu_torch.robots.library import (
@@ -2169,6 +2375,8 @@ def main() -> int:
     # phases' goals stay as they were)
     eigh_rec = eigh_phase(dev, *eigh_cases(), eigh_path_inputs(
         dev, torch.Generator(device="cpu").manual_seed(SEED + 19)))
+    # ---- phase 21 (run here too): K6, the LM's clamped-pivot solve ----
+    spd_rec = spd_phase(dev, torch.Generator(device="cpu").manual_seed(SEED + 21))
 
     # ---- phase 3: the main path ----
     graphed = []  # the compiled f32 kernel paths, for phase 18
@@ -2176,15 +2384,19 @@ def main() -> int:
     goal_sets = [goals(B_MAIN) for _ in range(3)]
     calls = []
     solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = sym_eigh_cuda.launches = 0
+    spd_solve_cuda.launches = 0
     for T_goal in goal_sets:
         tp, ts, tf, _, out = staged(solver, T_goal)
         calls.append((tp, ts, tf, api.summarize(out), out))
     launches, launches_eigh = solve_tr_cuda.launches, sym_eigh_cuda.launches
+    launches_spd = spd_solve_cuda.launches
     log(f"[3] kernel launches during the 3 timed main-path calls: TR {launches} "
-        f"(anchored {solve_tr_cuda.anchored_launches}), K5 {launches_eigh}")
+        f"(anchored {solve_tr_cuda.anchored_launches}), K5 {launches_eigh}, K6 {launches_spd}")
     check(launches == 3 and solve_tr_cuda.anchored_launches == 0,
           "the UR10 path did not launch the anchor-free TR kernel once per call")
     check(launches_eigh == 6, "the UR10 path's prepare did not launch K5 twice per call")
+    check(launches_spd == 3 * lm_launches(solver),
+          "the UR10 path's polish did not launch K6 once an LM step")
     shapes = {"q": (B_MAIN, tpl.n), "Y": (B_MAIN, ps.N, ps.dim), "e_pos": (B_MAIN,),
               "e_rot": (B_MAIN,), "cost": (B_MAIN,), "iterations": (B_MAIN,)}
     for i, (tp, ts, tf, summ, o) in enumerate(calls):
@@ -2279,15 +2491,19 @@ def main() -> int:
     goal_sets = [goals_t(B_MAIN) for _ in range(3)]
     calls_t = []
     solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = sym_eigh_cuda.launches = 0
+    spd_solve_cuda.launches = 0
     for T_goal in goal_sets:
         tp, ts, tf, peak, o = staged(solver_t, T_goal)
         calls_t.append((tp, ts, tf, peak, api.summarize(o), o))
     launches_a = solve_tr_cuda.anchored_launches
     log(f"[6] TR kernel launches during the 3 timed table-path calls: "
-        f"{solve_tr_cuda.launches}, anchored {launches_a}; K5 {sym_eigh_cuda.launches}")
+        f"{solve_tr_cuda.launches}, anchored {launches_a}; K5 {sym_eigh_cuda.launches}; K6 "
+        f"{spd_solve_cuda.launches}")
     check(launches_a == 3 and solve_tr_cuda.launches == 3,
           "the table path did not launch the anchored TR kernel once per call")
     check(sym_eigh_cuda.launches == 6, "the table path's prepare did not launch K5 twice a call")
+    check(spd_solve_cuda.launches == 3 * lm_launches(solver_t),
+          "the table path's polish did not launch K6 once an LM step in each round")
     centers = torch.tensor(np.stack([c for c, _ in ps_t.obstacles]), dtype=torch.float32,
                            device=dev)
     radii = torch.tensor([r for _, r in ps_t.obstacles], dtype=torch.float32, device=dev)
@@ -2351,17 +2567,20 @@ def main() -> int:
         the success floor."""
         out_calls = []
         solve_tr_cuda.launches = solve_tr_cuda.anchored_launches = sym_eigh_cuda.launches = 0
+        spd_solve_cuda.launches = 0
         for T_goal in goal_sets_:
             tp, ts, tf, _, o = staged(solver_, T_goal, *gen)
             out_calls.append((tp, ts, tf, api.summarize(o), o))
         n_launch = solve_tr_cuda.anchored_launches if anchored else solve_tr_cuda.launches
         log(f"[{tag}] TR launches during the {len(goal_sets_)} timed calls: "
             f"{solve_tr_cuda.launches} (anchored {solve_tr_cuda.anchored_launches}); K5 "
-            f"{sym_eigh_cuda.launches}")
+            f"{sym_eigh_cuda.launches}; K6 {spd_solve_cuda.launches}")
         check(n_launch == len(goal_sets_) and solve_tr_cuda.launches == len(goal_sets_),
               f"{tag}: the TR kernel did not launch once per call")
         check(sym_eigh_cuda.launches == 2 * len(goal_sets_),
               f"{tag}: prepare did not launch K5 twice per call")
+        check(spd_solve_cuda.launches == len(goal_sets_) * lm_launches(solver_),
+              f"{tag}: the polish did not launch K6 once an LM step")
         for i, (tp, ts, tf, summ, o) in enumerate(out_calls):
             B_ = o["e_pos"].shape[0]
             wall = tp + ts + tf
@@ -2595,6 +2814,7 @@ def main() -> int:
     shape_ta = tr_solve.kernel_shape(ep_t, B_MAIN, 3)
     log(f"[kernels] TR launch shapes at B={B_MAIN}: UR10 {shape_tr}; table {shape_ta}")
     t_e = eigh_rec["timing"]["f32"]
+    t_s = spd_rec["cases"][0]
     record = {"kernels": [
         {"name": "sym_eigh", "route": "cuda", "source": "graphik_tpu_torch/csrc/eigh.cu",
          "replaces": "graphik_tpu/utils/dgp.py:62", "launches": launches_eigh,
@@ -2627,6 +2847,15 @@ def main() -> int:
          + anchored_paths},
         *edge_records,
         ring_kernel,
+        {"name": "spd_solve", "route": "cuda", "source": "graphik_tpu_torch/csrc/spd_solve.cu",
+         "replaces": "graphik_tpu/ops/linalg.py:55", "launches": launches_spd,
+         "max_abs_err": spd_rec["max_abs_err"], "ms": t_s["ms"], "plain_ms": t_s["plain_ms"],
+         "bound_ms": t_s["bound_ms"], "bound_by": t_s["bound_by"],
+         "library_ms": t_s["library_ms"],
+         "at": f"UR10's LM systems, B={t_s['B']}, m={t_s['m']}, float32; spd_solve_unrolled in "
+               "the JAX package's LM step, not a Pallas kernel; library_ms is cholesky_ex + "
+               "2 solve_triangular (pivots not clamped)",
+         "paths": spd_rec["cases"]},
     ]}
     log(f"[11-13] CIDGIK paths: {json.dumps(cidgik_paths)}")
     log(f"[14] CG path: {json.dumps(cg_path)}")

@@ -72,6 +72,11 @@ _SIGNATURES = {
         _I, _I, _I,                                         # B, n, is_double
         _P,                                                 # stream
     ],
+    "graphik_spd_solve": [
+        _P, _P, _P,                                         # A, b, x
+        _I, _I, _I,                                         # B, m, is_double
+        _P,                                                 # stream
+    ],
 }
 
 

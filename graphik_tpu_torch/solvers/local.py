@@ -4,8 +4,9 @@ Port of graphik_tpu/solvers/local.py. The cost is the body-frame pose log
 residual e = log(T(q)^-1 T_goal) with the analytic Jacobian
 J_e = inv_left_jacobian(e) Ad(T^-1) J (for planar robots, SE(2)'s log and
 its analytic derivative, where the JAX package takes jax.jacfwd); each
-step solves the damped n x n system with a batched Cholesky and clips to
-the joint limits. Spherical
+step solves the damped n x n system with the reference's clamped-pivot
+Cholesky (ops/linalg.py spd_solve: K6 on a card) and clips to the joint
+limits. Spherical
 obstacles add hinge residuals r - ||c - p_i(q)|| on the main points
 p1..pn, enforced by an augmented-Lagrangian loop around the LM. Lanes run
 in lockstep; a lane that has converged is frozen by masks.
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from graphik_tpu_torch.graphs.problem import ProblemStructure
-from graphik_tpu_torch.ops.linalg import rowwise_sum
+from graphik_tpu_torch.ops.linalg import rowwise_sum, spd_solve
 from graphik_tpu_torch.robots import kinematics
 from graphik_tpu_torch.utils import lie
 from graphik_tpu_torch.utils.compiled import device_const
@@ -188,16 +189,10 @@ def solve_local(
             Jt = J.transpose(-1, -2)
             g = (J * r[..., :, None]).sum(-2)  # J^T r, batch-invariant as lie.matvec_small
             H = Jt @ J + lam[..., None, None] * eye
-            # A lane whose f32 system is not numerically SPD (info != 0)
-            # takes no step and raises its damping - the same outcome as the
-            # JAX package's clamped-pivot solve, whose step then fails the
-            # improvement test. The two triangular solves (cuBLAS's batched
-            # trsm) can be captured in a CUDA graph; torch.cholesky_solve's
-            # batched MAGMA path builds its pointer arrays on the host.
-            Lc, info = torch.linalg.cholesky_ex(H)
-            w = torch.linalg.solve_triangular(Lc, g[..., None], upper=False)
-            step = -torch.linalg.solve_triangular(Lc.transpose(-1, -2), w, upper=True)[..., 0]
-            step = torch.where((info == 0)[..., None], step, torch.zeros_like(step))
+            # the reference's clamped-pivot Cholesky (K6 on a card): where a
+            # float32 system is not numerically SPD its step is huge or NaN,
+            # and the improvement test takes or refuses it
+            step = -spd_solve(H, g)
             q_new = q + step
             if params.clip_limits:
                 q_new = torch.clamp(q_new, lb, ub)
@@ -205,7 +200,7 @@ def solve_local(
             # with obstacles a residual holds 6 + n_obs n values (606 on the
             # table), which a card would sum in an order set by the lane's
             # batch position
-            improved = (info == 0) & (rowwise_sum(r_new * r_new) < rowwise_sum(r * r))
+            improved = rowwise_sum(r_new * r_new) < rowwise_sum(r * r)
             q_out = torch.where(improved[..., None], q_new, q)
             lam_new = torch.clamp(
                 torch.where(improved, lam * params.lm_down, lam * params.lm_up), 1e-12, 1e8)

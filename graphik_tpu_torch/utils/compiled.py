@@ -100,11 +100,12 @@ def _counters():
     """The kernels' launch counters: (wrapper function, attribute)."""
     from graphik_tpu_torch.ops.edge import cost_and_egrad_cuda, ehess_cuda
     from graphik_tpu_torch.ops.eigh import sym_eigh_cuda
+    from graphik_tpu_torch.ops.linalg import spd_solve_cuda
     from graphik_tpu_torch.ops.tr_solve import solve_tr_cuda
 
     return ((solve_tr_cuda, "launches"), (solve_tr_cuda, "anchored_launches"),
             (cost_and_egrad_cuda, "launches"), (ehess_cuda, "launches"),
-            (sym_eigh_cuda, "launches"))
+            (sym_eigh_cuda, "launches"), (spd_solve_cuda, "launches"))
 
 
 def _read_counters():

@@ -40,9 +40,13 @@ SKIP_MODULES = {
 }
 # (JAX module, name) the port leaves out
 SKIP_NAMES = {
-    ("ops.linalg", "chol_unrolled"): "unrolled Cholesky, a TPU workaround; the port uses torch.linalg",
-    ("ops.linalg", "chol_solve_unrolled"): "unrolled Cholesky solve, a TPU workaround",
-    ("ops.linalg", "spd_solve_unrolled"): "unrolled SPD solve, a TPU workaround",
+    ("ops.linalg", "chol_unrolled"):
+        "the clamped-pivot Cholesky: ported, with its two substitutions, as one function, "
+        "ops/linalg.py::spd_solve (K6)",
+    ("ops.linalg", "chol_solve_unrolled"):
+        "its substitutions: ported inside ops/linalg.py::spd_solve (K6)",
+    ("ops.linalg", "spd_solve_unrolled"):
+        "ported as ops/linalg.py::spd_solve (K6, the LM's step), under the port's name",
     ("ops.linalg", "chol_blocked"): "blocked Cholesky, a TPU workaround",
     ("ops.linalg", "tri_lower_inv_blocked"): "blocked triangular inverse, a TPU workaround",
     ("ops.linalg", "mm_unrolled"): "unrolled matmul, a TPU dispatch-latency workaround",

@@ -11,6 +11,7 @@ machine without it:
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -1443,3 +1444,131 @@ def test_loop_paths_one_goal_at_every_batch_position(cuda, name):
     the "edge" TR), and CG and the float32 "dense" TR on planar10, at 256
     goals: the same two checks."""
     _position_check(name, B_POSITION_LOOP, cuda)
+
+
+# ---------------------------------------------------------------------------
+# K6, the LM's clamped-pivot SPD solve (csrc/spd_solve.cu)
+# ---------------------------------------------------------------------------
+
+# every path's n (UR10 and planar6 6, KUKA iiwa and LWA4D 7, the tree 5,
+# planar10 10, dh19 19, planar40 40) and the instances' ends
+SPD_SIZES = [1, 3, 5, 6, 7, 10, 19, 32, 33, 40, 64]
+
+
+def _spd_systems(m, dtype, device, B=1001, seed=0):
+    """B systems a quarter each: SPD (X X^T / m + I), LM systems J^T J +
+    lam I with J 3 x m (planar40's residual rows) and lam from 1e-12 to
+    1e-3, indefinite (X D X^T, D = +-1: the clamp engages), and the LM
+    systems with a NaN in the lower triangle or the right-hand side."""
+    rs = np.random.RandomState(seed * 100 + m)
+    q = B // 4
+    X = rs.normal(size=(B, m, m))
+    J = rs.normal(size=(B, 3, m))
+    lam = 10.0 ** rs.uniform(-12, -3, size=(B, 1, 1))
+    D = np.where(rs.uniform(size=(B, 1, m)) < 0.3, -1.0, 1.0)
+    A = np.concatenate([(X @ X.transpose(0, 2, 1) / m + np.eye(m))[:q],
+                        (J.transpose(0, 2, 1) @ J + lam * np.eye(m))[q:2 * q],
+                        ((X * D) @ X.transpose(0, 2, 1) / m)[2 * q:3 * q],
+                        (J.transpose(0, 2, 1) @ J + lam * np.eye(m))[3 * q:]])
+    b = rs.normal(size=(B, m))
+    i = rs.randint(0, m, size=B)
+    k = rs.randint(0, m, size=B)
+    lo, hi = np.maximum(i, k), np.minimum(i, k)
+    rows = np.arange(3 * q, B)
+    A[rows[::2], lo[rows[::2]], hi[rows[::2]]] = np.nan
+    b[rows[1::2], i[rows[1::2]]] = np.nan
+    return (torch.tensor(A, dtype=dtype, device=device),
+            torch.tensor(b, dtype=dtype, device=device))
+
+
+def _bitwise_nan(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("m", SPD_SIZES)
+def test_spd_solve_kernel_matches_plain(cuda, dtype, m):
+    """K6 against its plain version on the card at every path's n and the
+    instances' ends, on SPD, ill-conditioned LM, indefinite and NaN
+    systems, 1001 of them (a ragged last block): bitwise, NaN where the
+    plain version has NaN, one launch counted; the first 77 systems alone
+    give the same bits (a system a warp: batch-invariant)."""
+    from graphik_tpu_torch.ops import linalg
+
+    A, b = _spd_systems(m, dtype, cuda)
+    before = linalg.spd_solve_cuda.launches
+    x = linalg.spd_solve_cuda(A, b)
+    assert linalg.spd_solve_cuda.launches == before + 1
+    x_p = linalg.spd_solve_reference(A, b)
+    assert _bitwise_nan(x, x_p)
+    assert bool(torch.isfinite(x[:250]).all())  # the SPD quarter
+    x1 = linalg.spd_solve_cuda(A[:77], b[:77])
+    assert _bitwise_nan(x1, x[:77])
+    assert _bitwise_nan(linalg.spd_solve(A, b), x)
+
+
+def test_spd_solve_kernel_refuses(cuda):
+    """Past m = 64, a CPU tensor, an integer or a mixed dtype raise, naming
+    the limit or the dtype; an empty batch launches nothing."""
+    from graphik_tpu_torch.ops import linalg
+
+    A = torch.eye(65, device=cuda).expand(2, 65, 65)
+    with pytest.raises(ValueError, match="m <= 64"):
+        linalg.spd_solve_cuda(A, torch.ones(2, 65, device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        linalg.spd_solve_cuda(torch.eye(3).expand(2, 3, 3), torch.ones(2, 3))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        linalg.spd_solve_cuda(torch.ones(2, 3, 3, dtype=torch.int32, device=cuda),
+                              torch.ones(2, 3, dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        linalg.spd_solve_cuda(torch.eye(3, device=cuda).expand(2, 3, 3),
+                              torch.ones(2, 3, dtype=torch.float64, device=cuda))
+    before = linalg.spd_solve_cuda.launches
+    assert linalg.spd_solve_cuda(torch.ones(0, 4, 4, device=cuda),
+                                 torch.ones(0, 4, device=cuda)).shape == (0, 4)
+    assert linalg.spd_solve_cuda.launches == before
+
+
+def test_spd_solve_instances_do_not_spill(cuda):
+    """K6's four instances (float32 / float64, one or two rows a lane) in
+    the build's ptxas log, none spilling."""
+
+    from graphik_tpu_torch.ops._build import library_path, load_library
+
+    load_library()
+    with open(library_path() + ".log") as f:
+        entries = f.read().split("Compiling entry function '")[1:]
+    spills = {}
+    for entry in entries:
+        name = re.search(r"spd_solve_kernelI([fd])Li(\d)E", entry.split("'", 1)[0])
+        if name:
+            spills[name.groups()] = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+    assert len(spills) == 4 and not any(spills.values()), spills
+
+
+@pytest.mark.parametrize("name", ["ur10", "table"])
+def test_compiled_finish_launches_spd_solve(cuda, name):
+    """The compiled finish launches K6 once an LM step: 10 a call on UR10
+    (LocalParams(maxiter=10)), 40 on the table (4 augmented-Lagrangian
+    rounds), counted on the capture's call and on every replay; the LM
+    runs no cuSOLVER or cuBLAS factor or triangular solve (profiler)."""
+    from graphik_tpu_torch.ops import linalg
+
+    ps, comp, _, _ = _compiled_and_eager(name)
+    T_goal = api.random_goals(ps, (64,), torch.Generator().manual_seed(23),
+                              dtype=torch.float32, device=cuda)[0]
+    want = 10 * (4 if name == "table" else 1)
+    for _ in range(3):
+        before = linalg.spd_solve_cuda.launches
+        comp(T_goal)
+        assert linalg.spd_solve_cuda.launches == before + want, name
+    D, Y0 = comp.prepare(T_goal)
+    sol = comp.solve(Y0, D)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        comp.finish(sol, T_goal)
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert sum("spd_solve_kernel" in n for n in names) == want
+    assert not [n for n in names if re.search("potrf|trsm|cholesky", n, re.I)]

@@ -26,6 +26,7 @@ PORT_FILES = sorted(
                                       "tools/torch_edge_bench.py", "tools/torch_eigh_bench.py",
                                       "tools/tr_f64_spread.py",
                                       "tools/torch_f64_card_cpu.py",
+                                      "tools/card_cpu_stages.py",
                                       "tools/torch_prepare_spread.py",
                                       "tools/torch_position_probe.py",
                                       "examples/torch_riemannian_example.py",

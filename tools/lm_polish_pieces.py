@@ -16,13 +16,15 @@ this order, j: JAX, t: the port):
   residual  the pose residual r and its Jacobian J;
   normal    g = J^T r and H = J^T J + lam I;
   solve     the damped step -H^-1 g (JAX: its unrolled Cholesky with
-            clamped pivots, graphik_tpu/ops/linalg.py; the port:
-            torch.linalg.cholesky_ex and two triangular solves, no step
-            where the factorization fails).
+            clamped pivots, graphik_tpu/ops/linalg.py; the port: the same
+            algorithm, ops/linalg.py spd_solve, summed one product at a
+            time).
 
-Two more solves: u, JAX's unrolled Cholesky and substitutions transcribed
-in torch (the same algorithm in torch's rounding), and d, the port's solve
-in float64 on the float32 system. Every combination's polished q is judged
+Three more solves: c, torch.linalg.cholesky_ex and two triangular solves,
+no step where the factorization fails (the port's solve before it took
+the clamped pivots); u, JAX's unrolled Cholesky and substitutions
+transcribed in torch (torch's sums); and d, the port's solve in float64
+on the float32 system. Every combination's polished q is judged
 alike, by JAX's polish_solution selection (pose error and distance
 limits against the pre-polish q's). jjj must reproduce JAX's solve_local
 and ttt the port's, lane for lane (checked; the improvement test's sum of
@@ -50,7 +52,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-COMBOS = ["jjj", "ttt", "tjj", "jtj", "jjt", "jtt", "tjt", "ttj", "ttu", "ttd"]
+COMBOS = ["jjj", "ttt", "tjj", "jtj", "jjt", "jtt", "tjt", "ttj", "ttc", "ttu", "ttd"]
 
 
 def main():
@@ -81,6 +83,7 @@ def main():
     from graphik_tpu.solvers.riemannian import CGParams as JCG, TRParams as JTR
     from graphik_tpu.utils.environments import table_environment as jtable
     from graphik_tpu_torch.graphs.problem import ProblemStructure as TPS
+    from graphik_tpu_torch.ops import linalg as tlinalg
     from graphik_tpu_torch.robots import library as tlib
     from graphik_tpu_torch.solvers import local as tlocal
     from graphik_tpu_torch.utils.environments import table_environment as ttable
@@ -150,6 +153,9 @@ def main():
         return g.numpy(), (J.transpose(-1, -2) @ J + lam[:, None, None] * torch.eye(m)).numpy()
 
     def t_solve(H, g):
+        return (-tlinalg.spd_solve_reference(torch.tensor(H), torch.tensor(g))).numpy()
+
+    def c_solve(H, g):
         H, g = torch.tensor(H), torch.tensor(g)
         L, info = torch.linalg.cholesky_ex(H)
         w = torch.linalg.solve_triangular(L, g[..., None], upper=False)
@@ -178,7 +184,7 @@ def main():
 
     pieces = {"res": {"j": lambda q: j_res(q, Tj), "t": t_res},
               "normal": {"j": j_normal, "t": t_normal},
-              "solve": {"j": j_solve, "t": t_solve, "u": u_solve, "d": d_solve}}
+              "solve": {"j": j_solve, "t": t_solve, "c": c_solve, "u": u_solve, "d": d_solve}}
 
     def lm(combo, q, path=None):
         """solvers/local.py's lm_solve (no obstacles) with the pieces of
@@ -230,11 +236,11 @@ def main():
                 r_c, J_c = (np.asarray(x) for x in pieces["res"][c](q))
                 g_c, H_c = (np.asarray(x) for x in pieces["normal"][c](r, J, lam))
                 s_c = np.asarray(pieces["solve"][c](H, g))
-                # the lanes whose system the port's Cholesky factors
-                ok = np.isfinite(s_c).all(1) & (t_solve(H, g) != 0).any(1)
+                # the lanes whose system the library's Cholesky factors
+                ok = np.isfinite(s_c).all(1) & (c_solve(H, g) != 0).any(1)
                 row[c] = {"r": rel(r_c, e64), "J": rel(J_c, J64), "g": rel(g_c, g64),
                           "H": rel(H_c, H64), "step": rel(s_c[ok], s64[ok])}
-            row["lanes_port_cholesky_fails"] = int(n - ok.sum())
+            row["lanes_library_cholesky_fails"] = int(n - ok.sum())
             print(json.dumps(row), flush=True)
         return 0
 

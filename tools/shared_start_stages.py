@@ -14,12 +14,12 @@ times the perturbation, and run the config's stages: the solve (JAX's
 limits and pose error, and the LM polish. For each stage it reports how
 far the packages lie apart (Y: lanes bitwise equal, max |dY| over max |Y|,
 iteration counts; q before the polish: max |dq|), the success counts
-before and after the polish, and a cross-feed: the port's polish from
-JAX's pre-polish q, against JAX's from the same q, with the lanes whose
-damped LM system failed the port's Cholesky at some step (the port takes
-no step there). A stage whose counts part systematically over the K
-starts (the permutation test of tools/torch_parity.py) is where the
-packages differ; one JSON line per start, then a summary line. Needs both
+before and after the polish (before it also with each package's q held
+to the distance limits in float64), and a cross-feed: the port's polish
+from JAX's pre-polish q, against JAX's from the same q. A stage whose
+counts part systematically over the K starts (the permutation test of
+tools/torch_parity.py) is where the packages differ; one JSON line per
+start, then a summary line. Needs both
 packages (JAX on the CPU); 6-17 s a start for planar40's 1000 goals.
 """
 
@@ -117,32 +117,20 @@ def main():
         e_pos, e_rot = tapi.pose_error(tps, q, Tg)
         return q, e_pos, e_rot, viol, ok
 
-    # the LM steps whose damped normal equations failed their Cholesky: the
-    # port takes no step there and raises the damping, where JAX's
-    # clamped-pivot solve steps (ROADMAP, known deviations)
-    chol = {"lane_steps": 0, "lanes": None}
-    cholesky_ex = torch.linalg.cholesky_ex
-
-    def counted(A, **kw):
-        L, info = cholesky_ex(A, **kw)
-        bad = info != 0
-        chol["lane_steps"] += int(bad.sum())
-        chol["lanes"] = bad if chol["lanes"] is None else chol["lanes"] | bad
-        return L, info
-
     def t_polish(pre, Tg):
-        chol.update(lane_steps=0, lanes=None)
-        torch.linalg.cholesky_ex = counted
-        try:
-            _, e_pos, e_rot, _, ok = tapi.polish_solution(tps, *pre[:1], Tg, *pre[1:],
-                                                          limit_tol=lt,
-                                                          params=tkw.get("polish_params"))
-        finally:
-            torch.linalg.cholesky_ex = cholesky_ex
+        _, e_pos, e_rot, _, ok = tapi.polish_solution(tps, *pre[:1], Tg, *pre[1:],
+                                                      limit_tol=lt,
+                                                      params=tkw.get("polish_params"))
         return ((e_pos < tp.CRIT_POS) & (e_rot < tp.CRIT_ROT) & ok).numpy()
 
     def hits(e_pos, e_rot, ok):
         return np.asarray((e_pos < tp.CRIT_POS) & (e_rot < tp.CRIT_ROT) & ok)
+
+    def hits_float64_limits(pre):
+        # the same errors, the distance limits of q checked in float64
+        q = torch.from_numpy(np.asarray(pre[0])).double()
+        ok = tps.check_distance_limits(tps.realization(q), tol=lt)[1].numpy()
+        return int(hits(np.asarray(pre[1]), np.asarray(pre[2]), ok).sum())
 
     Tj, Tt = jnp.asarray(T), torch.from_numpy(T)
     if "Y0" in ref:
@@ -166,7 +154,6 @@ def main():
         ok_t = t_polish(pre_t, Tt)
         # the port's polish from JAX's pre-polish q, limits and errors
         cross = t_polish(tuple(torch.from_numpy(np.asarray(x)) for x in pre_j), Tt)
-        bad = chol["lanes"].numpy() if chol["lanes"] is not None else np.zeros(n, bool)
         row = {
             "k": k, "Y_lanes_equal": int((Yj == Yt).reshape(n, -1).all(1).sum()),
             "Y_max_rel": float(np.abs(Yj - Yt).max() / max(np.abs(Yj).max(), 1e-30)),
@@ -174,13 +161,12 @@ def main():
             "q_pre_max_abs": float(np.abs(qj - qt).max()),
             "pre_polish": [int(hits(*pre_j[1:3], pre_j[4]).sum()),
                            int(hits(pre_t[1].numpy(), pre_t[2].numpy(), pre_t[4].numpy()).sum())],
+            "pre_polish_float64_limits": [hits_float64_limits(pre_j),
+                                          hits_float64_limits(pre_t)],
             "post_polish": [int(ok_j.sum()), int(ok_t.sum())],
             "port_polish_from_jax_q": int(cross.sum()),
             "post_disagree": int((ok_j != ok_t).sum()),
             "cross_disagree": int((ok_j != cross).sum()),
-            "cross_cholesky_failed_lane_steps": chol["lane_steps"],
-            "cross_cholesky_failed_lanes": int(bad.sum()),
-            "cross_disagree_on_those_lanes": int(((ok_j != cross) & bad).sum()),
             "seconds": time.perf_counter() - t0}
         rows.append(row)
         print(json.dumps(row), flush=True)
@@ -192,15 +178,13 @@ def main():
         "iterations_equal_mean": float(np.mean([r["iterations_equal"] for r in rows])),
         "q_pre_max_abs": max(r["q_pre_max_abs"] for r in rows),
         "mean_pre_polish": [float(np.mean([r["pre_polish"][i] for r in rows])) for i in (0, 1)],
+        "mean_pre_polish_float64_limits": [
+            float(np.mean([r["pre_polish_float64_limits"][i] for r in rows])) for i in (0, 1)],
         "mean_post_polish": [float(np.mean(jax_post)),
                              float(np.mean([r["post_polish"][1] for r in rows]))],
         "mean_port_polish_from_jax_q": float(np.mean([r["port_polish_from_jax_q"]
                                                       for r in rows])),
-        "mean_cross_disagree": float(np.mean([r["cross_disagree"] for r in rows])),
-        "mean_cross_disagree_on_cholesky_failed_lanes": float(np.mean(
-            [r["cross_disagree_on_those_lanes"] for r in rows])),
-        "mean_cholesky_failed_lanes": float(np.mean([r["cross_cholesky_failed_lanes"]
-                                                     for r in rows]))}
+        "mean_cross_disagree": float(np.mean([r["cross_disagree"] for r in rows]))}
     if len(rows) > 1:
         summary.update(
             p_post=tp.permutation_p(np.array(jax_post),

@@ -10,13 +10,19 @@ robot specs it reads (for example the parent commit's, unpacked with
 `git archive HEAD graphik_tpu_torch graphik_tpu/robots/specs | tar -x -C
 build/dev/parent`). Each tree runs in its own process, in the order
 A B B A A B ..., and each run makes the same inputs from a seed: B = 8192
-goals for the UR10 path (10-step polish) and for the table path (UR10 +
-100 spheres, the augmented-Lagrangian polish), and solved-looking node
-positions, the goals' FK positions plus 1 mm of noise, in place of the TR
-solve's Y (so no kernel is built). It then times `--reps` finish calls of
-each path with the host clock between two `torch.cuda.synchronize()`
-calls, after one warm call, and reports their median, the success rate and
-a hash of q (equal hashes mean bitwise-equal results); at the end, for each
+goals for the UR10 path (10-step polish), the table path (UR10 + 100
+spheres, the augmented-Lagrangian polish) and planar40
+(load_planar_chain(40, limits=pi/2), 10-step polish), and solved-looking
+node positions, the goals' FK positions plus 1 mm of noise, in place of
+the TR solve's Y (so the TR kernel is not run). Each path's finish runs
+compiled (make_solver's CUDA graph, captured on the warm call). It then
+times `--reps` finish calls of each path with the host clock between two
+`torch.cuda.synchronize()` calls and reports their median, the success
+rate and a hash of q (equal hashes mean bitwise-equal results), and from
+one more call under torch.profiler the host launches (CUDA API calls that
+start device work, a graph launch counting one), the device kernels, and
+among them the LM's solves: K6 (spd_solve_kernel) and the library's
+Cholesky factor and triangular solves (potrf, trsm); at the end, for each
 tree and path, the quartiles of its runs' medians. The last line is one
 JSON object. Without a CUDA device it exits 2.
 
@@ -54,13 +60,41 @@ def count_ops(fn):
                if e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))
 
 
+# the CUDA API calls (runtime cuda*, low-level cu*) by which the host starts device work
+HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync"}
+PATHS = ("ur10", "table", "planar40")
+
+
+def launch_counts(fn):
+    """One run of fn under torch.profiler: host launches, device kernels,
+    and the kernels of the LM's solve by kind."""
+    import re
+
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    kernels = [e.name() for e in events if e.device_type() == cuda
+               and not e.name().startswith(("Memcpy", "Memset"))]
+    return {"host_launches": sum(1 for e in events if e.device_type() != cuda
+                                 and e.name() in HOST_LAUNCH_CALLS),
+            "device_kernels": len(kernels),
+            "k6_kernels": sum("spd_solve_kernel" in n for n in kernels),
+            "potrf_kernels": sum(bool(re.search("potrf|cholesky", n, re.I)) for n in kernels),
+            "trsm_kernels": sum(bool(re.search("trsm", n, re.I)) for n in kernels)}
+
+
 def run_one(reps, ops=False):
     import numpy as np
     import torch
 
     from graphik_tpu_torch import api
     from graphik_tpu_torch.graphs.problem import ProblemStructure
-    from graphik_tpu_torch.robots.library import load_ur10
+    from graphik_tpu_torch.robots.library import load_planar_chain, load_ur10
     from graphik_tpu_torch.solvers.local import LocalParams
     from graphik_tpu_torch.utils.environments import table_environment
 
@@ -70,11 +104,12 @@ def run_one(reps, ops=False):
     gen = torch.Generator().manual_seed(SEED)
     dev, B_ = ("cpu", B_OPS) if ops else ("cuda", B)
     out = {}
-    for name, structure in (("ur10", ps), ("table", ps_t)):
+    ps_40 = load_planar_chain(40, limits=np.pi / 2)[1]
+    for name, structure in zip(PATHS, (ps, ps_t, ps_40)):
         solver = api.make_solver(structure, polish_params=LocalParams(maxiter=10, tol_grad=1e-8),
                                  smooth_iters=2)
         T_goal, q = api.random_goals(structure, (B_,), gen, dtype=torch.float32, device=dev)
-        noise = torch.randn((B_, structure.N, 3), generator=gen).to(dev)
+        noise = torch.randn((B_, structure.N, structure.dim), generator=gen).to(dev)
         zero = torch.zeros(B_, device=dev)
         sol = {"Y": structure.realization(q) + 1e-3 * noise, "cost": zero, "gradnorm": zero,
                "iterations": zero.int(), "num_inner": zero.int()}
@@ -91,7 +126,8 @@ def run_one(reps, ops=False):
             walls.append((time.perf_counter() - t0) * 1e3)
         out[name] = {"finish_ms_median": float(np.median(walls)), "finish_ms": walls,
                      "success": api.summarize(res)["success_rate"],
-                     "q_sha256": hashlib.sha256(res["q"].cpu().numpy().tobytes()).hexdigest()[:16]}
+                     "q_sha256": hashlib.sha256(res["q"].cpu().numpy().tobytes()).hexdigest()[:16],
+                     **launch_counts(lambda: solver.finish(sol, T_goal))}
     return out
 
 
@@ -137,11 +173,14 @@ def main():
         r = json.loads(res.stdout.strip().splitlines()[-1])
         runs.append({"tree": label, **r})
         print(f"{label}: " + ", ".join(f"{k} {v['finish_ms_median']:.1f} ms (success "
-                                       f"{v['success']:.4f}, q {v['q_sha256']})"
+                                       f"{v['success']:.4f}, q {v['q_sha256']}; host launches "
+                                       f"{v['host_launches']}, kernels {v['device_kernels']}: "
+                                       f"K6 {v['k6_kernels']}, potrf {v['potrf_kernels']}, "
+                                       f"trsm {v['trsm_kernels']})"
                                        for k, v in r.items()), flush=True)
     summary = {}  # tree -> path -> quartiles of the runs' medians
     for label, _ in trees:
-        for path in ("ur10", "table"):
+        for path in PATHS:
             meds = [r[path]["finish_ms_median"] for r in runs if r["tree"] == label]
             q = np.percentile(meds, [25, 50, 75]).tolist()
             summary.setdefault(label, {})[path] = {"runs": len(meds), "q25_q50_q75_ms": q}

@@ -26,9 +26,17 @@ one configuration at its bench parameters, float32:
         ("replay_init"); `--init-noise K` adds K solves from Y0 (1 + 1e-6
         g_k), one g_k ~ N(0, 1) per (node, coordinate) shared by every
         goal, drawn from RandomState(k), in both halves, each half
-        perturbing its own Y0. Where both Y0 have zero spread over the
-        goals (the tool reads it from the data) and K >= PERTURBED_MIN,
-        the verdict is on the perturbed starts (see below);
+        perturbing its own Y0 (the port half also solves from the same
+        K perturbations of JAX's Y0, reported as
+        `port_counts_from_jax_starts`, outside the verdict). Where both Y0
+        have zero spread over the goals (the tool reads it from the data)
+        and K >= PERTURBED_MIN, the verdict is on the perturbed starts
+        (see below);
+    planar40_perturbed: planar40 (full smoothing) with its Y0 saved and,
+        with `--init-noise K`, K perturbed starts in each half as above;
+        every goal has its own Y0 there, so the verdict is planar40's
+        single-init test and the perturbed counts only show how far one
+        start's count moves;
   restarts (parallel.make_restart_solver, restart key / generator seed 7):
     ur10_restarts4, planar6_restarts2, planar10_restarts2: production(100, 24),
         10-step polish, 2-squaring smoothing;
@@ -148,6 +156,11 @@ CONFIGS = {
                              shared_start=True),
     "dh19_smooth2": dict(BENCH, robot="dh19", restarts=0, seed=56, backend="edge",
                          shared_start=True),
+    # planar40 with its Y0 saved and perturbed: every goal has its own start,
+    # so the verdict stays planar40's single-init test; the perturbed counts
+    # of both halves show how far one start's count moves
+    "planar40_perturbed": dict(BENCH, robot="planar40", restarts=0, seed=55, backend="edge",
+                               smooth=None, shared_start=True),
     "ur10_table192": dict(BENCH, robot="ur10_table192", restarts=0, seed=57),
     "ur10_restarts4": dict(BENCH, robot="ur10", restarts=4, seed=45),
     "ur10_table_restarts2": dict(TABLE, robot="ur10_table", restarts=2, seed=46),
@@ -527,13 +540,19 @@ def run_torch(args):
         port_counts = [
             int(count(Y0 * torch.as_tensor(init_noise(k, Y0.shape[-2:]), device=dev)).sum())
             for k in range(K)]
+        # the same K perturbations of JAX's Y0: the JAX half's starts
+        Y0_j = torch.as_tensor(ref["Y0"], device=dev)
+        counts_from_jax = [
+            int(count(Y0_j * torch.as_tensor(init_noise(k, Y0.shape[-2:]), device=dev)).sum())
+            for k in range(K)]
         port_spread = float((Y0 - Y0[:1]).abs().max())
         replay = {"replay_init": {
             "port_success": int(ok_r.sum()), "both": int((ok_j & ok_r).sum()),
             "port_only": int((ok_r & ~ok_j).sum()), "jax_only": int((ok_j & ~ok_r).sum()),
             "port_Y0_spread_over_goals": port_spread,
             "port_Y0_max_abs": float(Y0.abs().max()), "jax": jax_stats,
-            "port_init_noise_counts": port_counts}}
+            "port_init_noise_counts": port_counts,
+            "port_counts_from_jax_starts": counts_from_jax}}
     if "fracs" in ref:  # the JAX half's own inits, draw by draw
         ok_r = np.stack([ok_of(solver(T_goal, fracs=torch.as_tensor(f, device=dev)))
                          for f in ref["fracs"]])
