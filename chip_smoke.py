@@ -839,6 +839,31 @@ def event_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps, replays=3):
+    """Mean device ms of fn a run: `reps` runs captured into one CUDA graph
+    (after a warm run), its replays timed by CUDA events, so that the host's
+    pace of launches does not count."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del g
+    return ms
+
+
 def staged(solver, T_goal, *gen):
     """One call of the path, stage by stage: (prepare, solve, finish walls
     in s, peak device memory of prepare in bytes, out). A restart
@@ -969,9 +994,11 @@ def compiled_phase(dev, paths, prepare_paths=(), position_runs=()):
     the earlier phases ran it) against the same solver with every stage
     eager (api.solve_ik's), on the same prepared inputs at the path's
     batch: every output of the solve and of the finish bitwise equal; the
-    stages' walls; the finish's host launches, device activities and
-    device-busy share (one profiled call each, busy over the unprofiled
-    wall); the first call's walls (warm-up + capture, from the path's
+    stages' walls; the compiled finish's host launches, device activities
+    and device-busy share (one profiled call, busy over the unprofiled
+    wall), and K6's launches in each form's finish (its counter; the eager
+    finish is not profiled: its tens of thousands of host launches made the
+    profiler the phase's largest cost); the first call's walls (warm-up + capture, from the path's
     phase) and, less the eager stage's wall, the capture's; the memory
     the solver's graph pools hold and each finish's peak. Before that,
     the path's prepare compiled against eager (`prepare_vs_eager`), and
@@ -986,6 +1013,8 @@ def compiled_phase(dev, paths, prepare_paths=(), position_runs=()):
     position_runs: [(tag, run, T_goal, forward outputs or None)]. Returns the records and the position records."""
     import torch
 
+    from graphik_tpu_torch.ops.linalg import spd_solve_cuda
+
     t_phase = time.perf_counter()
     records = []
     prepares = {tag: prepare_vs_eager(tag, dev, s, T, g) for tag, s, T, g in prepare_paths}
@@ -993,7 +1022,7 @@ def compiled_phase(dev, paths, prepare_paths=(), position_runs=()):
         prepares[tag] = prepare_vs_eager(tag, dev, solver, T_goal, gen)
         eager = dataclasses.replace(solver, graphs=None)
         D, Y0 = eager.prepare(T_goal, *gen)
-        walls, outs, peaks = {}, {}, {}
+        walls, outs, peaks, k6 = {}, {}, {}, {}
         for name, s in (("compiled", solver), ("eager", eager)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1002,9 +1031,11 @@ def compiled_phase(dev, paths, prepare_paths=(), position_runs=()):
             t1 = time.perf_counter()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
+            before = spd_solve_cuda.launches
             out = s.finish(sol, T_goal)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
+            k6[name] = spd_solve_cuda.launches - before
             peaks[name] = torch.cuda.max_memory_allocated() - base
             walls[name] = (t1 - t0, t2 - t1)
             outs[name] = (sol, out)
@@ -1013,12 +1044,13 @@ def compiled_phase(dev, paths, prepare_paths=(), position_runs=()):
                   if not torch.equal(a[k], b[k])}
         sol_c = outs["compiled"][0]
         t_prof = time.perf_counter()
-        prof = {name: profiled(lambda s=s: s.finish(sol_c, T_goal), dev)
-                for name, s in (("compiled", solver), ("eager", eager))}
+        kernels, copies, busy, host, names = profiled(lambda: solver.finish(sol_c, T_goal), dev)
         t_prof = time.perf_counter() - t_prof
         # K6 once an LM step in both forms, no library factor or solve
-        k6 = {name: lm_kernels(f"{tag} {name} finish", p[4], lm_launches(solver))
-              for name, p in prof.items()}
+        lm_kernels(f"{tag} compiled finish", names, lm_launches(solver))
+        for name in k6:
+            check(k6[name] == lm_launches(solver),
+                  f"{tag}: the {name} finish launched K6 {k6[name]} times")
         B = Y0.shape[0]
         # the first call ran each stage eagerly (the warm-up), then captured it
         rec = {"path": tag, "B": B, "bitwise": not differ, "lanes_differ": differ,
@@ -1028,27 +1060,23 @@ def compiled_phase(dev, paths, prepare_paths=(), position_runs=()):
                "capture_ms": {"solve": (first[1] - walls["eager"][0]) * 1e3,
                               "finish": (first[2] - walls["eager"][1]) * 1e3}}
         for name in ("compiled", "eager"):
-            kernels, copies, busy, host, _ = prof[name]
-            n_dev = kernels + copies
             ts, tf = walls[name]
-            rec[name] = {"solve_ms": ts * 1e3, "finish_ms": tf * 1e3, "finish_host_launches": host,
-                         "finish_device_activities": n_dev, "finish_k6_launches": k6[name],
-                         "finish_busy_ms": busy,
-                         "finish_busy_share": busy / (tf * 1e3),
-                         "finish_peak_mib": peaks[name] / 2**20}
+            rec[name] = {"solve_ms": ts * 1e3, "finish_ms": tf * 1e3,
+                         "finish_k6_launches": k6[name], "finish_peak_mib": peaks[name] / 2**20}
         c, e = rec["compiled"], rec["eager"]
+        c.update(finish_host_launches=host, finish_device_activities=kernels + copies,
+                 finish_busy_ms=busy, finish_busy_share=busy / c["finish_ms"])
         log(f"[18] {tag}, {B} instances: solve {c['solve_ms']:.1f} ms compiled / "
             f"{e['solve_ms']:.1f} eager; finish {c['finish_ms']:.1f} / {e['finish_ms']:.1f} ms "
-            f"({e['finish_ms'] / c['finish_ms']:.1f}x); finish host launches "
-            f"{c['finish_host_launches']} / {e['finish_host_launches']}, device activities "
-            f"{c['finish_device_activities']} / {e['finish_device_activities']} (K6 "
-            f"{c['finish_k6_launches']} / {e['finish_k6_launches']}), busy "
-            f"{100 * c['finish_busy_share']:.1f}% / {100 * e['finish_busy_share']:.1f}%; first "
+            f"({e['finish_ms'] / c['finish_ms']:.1f}x); compiled finish host launches "
+            f"{c['finish_host_launches']}, device activities {c['finish_device_activities']}, busy "
+            f"{100 * c['finish_busy_share']:.1f}%; K6 {c['finish_k6_launches']} / "
+            f"{e['finish_k6_launches']}; first "
             f"call (warm-up + capture) solve {first[1] * 1e3:.1f} ms, finish "
             f"{first[2] * 1e3:.1f} ms, less the eager stage: capture "
             f"{rec['capture_ms']['solve']:.1f} / {rec['capture_ms']['finish']:.1f} ms; finish peak {c['finish_peak_mib']:.1f} / "
             f"{e['finish_peak_mib']:.1f} MiB; outputs bitwise equal {not differ} {differ or ''}; "
-            f"the two profiled finishes took {t_prof:.1f} s")
+            f"the profiled finish took {t_prof:.1f} s")
         check(not differ, f"{tag}: the compiled solver's outputs differ from the eager ones")
         records.append(rec)
     pools = graph_pool_bytes([p[1] for p in paths])
@@ -1342,32 +1370,17 @@ def spd_random(m, B, dtype, gen, dev):
     return A.to(dtype), b.to(dtype)
 
 
-def spd_phase(dev, gen):
-    """Phase 21: K6 (csrc/spd_solve.cu), the LM's clamped-pivot solve, on
-    the card. For each path's LM systems at the batch its polish hands
-    K6 (`lm_systems`: UR10, KUKA iiwa, LWA4D, planar6, planar10, the tree's
-    3 x 1000 restarts, planar40, dh19 at float32, UR10 at float64, dense
-    CIDGIK's finish at B_CIDGIK) and for random systems at m = 3, 33, 64
-    (`spd_random`, B_MAIN, float32 and float64): K6 against its plain
-    version (ops/linalg.py spd_solve_reference) bitwise, NaN where the
-    plain version has NaN; K6's time (CUDA events) beside its bound and
-    beside the library's cholesky_ex and two solve_triangular on the same
-    inputs (what the port ran before: not the same function, its pivots
-    are not clamped); the plain version's time at UR10's shape; UR10's
-    first 501 systems bitwise the same alone. Returns the phase's record
-    (UR10's float32 shape heads K6's kernels entry)."""
+def spd_cases(dev, gen):
+    """(tag, A, b) of phase 21: each path's LM systems at the batch its
+    polish hands K6 (`lm_systems`: UR10, KUKA iiwa, LWA4D, planar6,
+    planar10, the tree's 3 x 1000 restarts, planar40, dh19 at float32, UR10
+    at float64, dense CIDGIK's finish at B_CIDGIK), then random systems at
+    m = 3, 33, 64 (`spd_random`, B_MAIN, float32 and float64)."""
     import torch
 
-    from graphik_tpu_torch.ops.linalg import spd_solve_cuda, spd_solve_reference
     from graphik_tpu_torch.robots.library import (
         load_kuka, load_planar_chain, load_schunk_lwa4d, load_tree5, load_ur10)
 
-    def library(A, b):
-        L = torch.linalg.cholesky_ex(A)[0]
-        w = torch.linalg.solve_triangular(L, b[..., None], upper=False)
-        return torch.linalg.solve_triangular(L.transpose(-1, -2), w, upper=True)[..., 0]
-
-    t_phase = time.perf_counter()
     ps_u = load_ur10()[1]
     cases = [("ur10", *lm_systems(ps_u, B_MAIN, torch.float32, gen, dev)),
              ("kuka_iiwa", *lm_systems(load_kuka()[1], B_MAIN, torch.float32, gen, dev)),
@@ -1385,6 +1398,34 @@ def spd_phase(dev, gen):
     for m in (3, 33, 64):
         for dt in (torch.float32, torch.float64):
             cases.append((f"random m={m}", *spd_random(m, B_MAIN, dt, gen, dev)))
+    return cases
+
+
+def spd_phase(dev, gen):
+    """Phase 21: K6 (csrc/spd_solve.cu), the LM's clamped-pivot solve, on
+    the card. For each path's LM systems at the batch its polish hands
+    K6 (`lm_systems`: UR10, KUKA iiwa, LWA4D, planar6, planar10, the tree's
+    3 x 1000 restarts, planar40, dh19 at float32, UR10 at float64, dense
+    CIDGIK's finish at B_CIDGIK) and for random systems at m = 3, 33, 64
+    (`spd_random`, B_MAIN, float32 and float64): K6 against its plain
+    version (ops/linalg.py spd_solve_reference) bitwise, NaN where the
+    plain version has NaN; K6's time (CUDA events) beside its bound and
+    beside the library's cholesky_ex and two solve_triangular on the same
+    inputs (what the port ran before: not the same function, its pivots
+    are not clamped); the plain version's time at UR10's shape; UR10's
+    first 501 systems bitwise the same alone. Returns the phase's record
+    (UR10's float32 shape heads K6's kernels entry)."""
+    import torch
+
+    from graphik_tpu_torch.ops.linalg import spd_solve_cuda, spd_solve_reference
+
+    def library(A, b):
+        L = torch.linalg.cholesky_ex(A)[0]
+        w = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+        return torch.linalg.solve_triangular(L.transpose(-1, -2), w, upper=True)[..., 0]
+
+    t_phase = time.perf_counter()
+    cases = spd_cases(dev, gen)
     records, err = [], 0.0
     for tag, A, b in cases:
         key = "f64" if A.dtype == torch.float64 else "f32"
@@ -1397,12 +1438,13 @@ def spd_phase(dev, gen):
                     and torch.equal(torch.nan_to_num(x, nan=0.0), torch.nan_to_num(x_p, nan=0.0)))
         fin = torch.isfinite(x) & torch.isfinite(x_p)
         err = max(err, float((x - x_p)[fin].abs().max()) if bool(fin.any()) else 0.0)
-        ms = event_ms(lambda: spd_solve_cuda(A, b), 20)
+        call = event_ms(lambda: spd_solve_cuda(A, b), 20)
+        ms = graph_ms(lambda: spd_solve_cuda(A, b), 20)
         ms_lib = event_ms(lambda: library(A, b), 5)
         bd = spd_bound(m, B, A.dtype)
         rec = {"case": tag, "B": B, "m": m, "dtype": key, "bitwise": same,
-               "nan_systems": int(nan_k.any(-1).sum()), "ms": ms, "library_ms": ms_lib,
-               "bound_ms": bd[0], "bound_by": bd[1]}
+               "nan_systems": int(nan_k.any(-1).sum()), "ms": ms, "call_ms": call,
+               "library_ms": ms_lib, "bound_ms": bd[0], "bound_by": bd[1]}
         if tag == "ur10":
             rec["plain_ms"] = event_ms(lambda: spd_solve_reference(A, b), 3)
             x1 = spd_solve_cuda(A[:501].clone(), b[:501].clone())
@@ -1410,13 +1452,87 @@ def spd_phase(dev, gen):
             log(f"[21] ur10: the first 501 of {B} systems alone bitwise as in the batch: {alone}")
             check(alone, "K6 is not batch-invariant")
         log(f"[21] {tag}: B = {B}, m = {m}, {key}: K6 bitwise its plain version {same} "
-            f"({rec['nan_systems']} systems with NaN); K6 {ms:.4f} ms, cholesky_ex + 2 "
+            f"({rec['nan_systems']} systems with NaN); K6 {ms:.4f} ms device (a graph of "
+            f"20 launches), {call:.4f} ms a wrapper call, cholesky_ex + 2 "
             f"solve_triangular {ms_lib:.4f} ms, bound {bd[0] * 1e3:.2f} us ({bd[1]})"
             + (f", plain version {rec['plain_ms']:.2f} ms" if "plain_ms" in rec else ""))
         check(same, f"{tag}: K6 differs from its plain version")
         records.append(rec)
     log(f"[21] phase took {time.perf_counter() - t_phase:.1f} s")
     return {"cases": records, "max_abs_err": err}
+
+
+def finish_rounding_phase(dev, gen, params, polish):
+    """Phase 22: the finish's one rounding (utils/lie.py matmul_small and
+    its kin). On 64 planar40 goals (full smoothing) and 64 UR10 goals at the
+    UR10 path's parameters, solved on the card eagerly: each stage of the
+    finish before the polish from the card's own input to it, on the card
+    and on the CPU (joint_variables from Y, realization from the card's q,
+    check_distance_limits from the card's positions, pose_error from the
+    card's q); then the polish (api.polish_solution) from the card's
+    values before it, on the card and on the CPU. Every entry of every stage
+    and of the polish's q, pose errors, violation and verdict must be the
+    same bits on both, and so must the verdicts (1 mm, 1 degree, the limits)
+    before the polish and after it: UR10's goals succeed only after it.
+    (sin, cos and atan2 are taken in float64 and rounded once, lie.sin_rn
+    and kin, which could part only where a float64 value lies within its own
+    error of a float32 rounding boundary, about 2^-28 of them.) Returns the
+    phase's record."""
+    import torch
+
+    from graphik_tpu_torch import api
+    from graphik_tpu_torch.robots.library import load_planar_chain, load_ur10
+
+    def verdict(e_pos, e_rot, ok):
+        return (e_pos < 1e-3) & (e_rot < np.pi / 180) & ok
+
+    t_phase = time.perf_counter()
+    record = {}
+    for tag, ps_, smooth in (("planar40", load_planar_chain(40, limits=np.pi / 2)[1], None),
+                             ("ur10", load_ur10()[1], 2)):
+        solver = api.Solver(ps_, params=params, polish_params=polish, smooth_iters=smooth)
+        T_goal = api.random_goals(ps_, (B_SMALL,), gen, dtype=torch.float32, device=dev)[0]
+        Y = solver.solve(*reversed(solver.prepare(T_goal)))["Y"]
+
+        def both(fn, *args):
+            card = fn(*args)
+            cards = card if isinstance(card, tuple) else (card,)
+            cpu = fn(*[a.cpu() for a in args])
+            cpus = cpu if isinstance(cpu, tuple) else (cpu,)
+            return card, sum(int((a.cpu() != b).sum()) for a, b in zip(cards, cpus)), cpu
+
+        q, d_q, _ = both(ps_.joint_variables, Y, T_goal)
+        pos, d_pos, _ = both(ps_.realization, q)
+        (viol, ok), d_viol, _ = both(ps_.check_distance_limits, pos)
+        (e_pos, e_rot), d_err, _ = both(lambda a, b: api.pose_error(ps_, a, b), q, T_goal)
+        pre = (q, e_pos, e_rot, viol, ok)
+        post, d_post, post_cpu = both(lambda T, *v: api.polish_solution(
+            ps_, v[0], T, *v[1:], limit_tol=solver.limit_tol, params=polish), T_goal, *pre)
+        q_c = ps_.joint_variables(Y.cpu(), T_goal.cpu())
+        v_c, ok_c = ps_.check_distance_limits(ps_.realization(q_c))
+        ep_c, er_c = api.pose_error(ps_, q_c, T_goal.cpu())
+        ok_pre = verdict(e_pos, e_rot, ok).cpu()
+        ok_post = verdict(post[1], post[2], post[4]).cpu()
+        ok_post_c = verdict(post_cpu[1], post_cpu[2], post_cpu[4])
+        rec = {"B": B_SMALL, "differing_entries": {
+            "joint_variables": d_q, "realization": d_pos, "check_distance_limits": d_viol,
+            "pose_error": d_err, "polish": d_post},
+            "verdicts_differ": int((ok_pre != verdict(ep_c, er_c, ok_c)).sum()),
+            "verdicts_differ_after_polish": int((ok_post != ok_post_c).sum()),
+            "card_successes": int(ok_pre.sum()), "card_successes_after_polish": int(ok_post.sum())}
+        record[tag] = rec
+        log(f"[22] {tag}: the finish, card against CPU from the card's own inputs, "
+            f"{B_SMALL} goals: differing entries {rec['differing_entries']}; verdicts that "
+            f"differ between the card's finish and the CPU's finish of the card's Y: "
+            f"{rec['verdicts_differ']} before the polish ({rec['card_successes']} successes), "
+            f"{rec['verdicts_differ_after_polish']} after it "
+            f"({rec['card_successes_after_polish']} successes)")
+        for stage, n in rec["differing_entries"].items():
+            check(n == 0, f"{tag}: {stage} rounds otherwise on the card ({n} entries)")
+        check(rec["verdicts_differ"] == 0 and rec["verdicts_differ_after_polish"] == 0,
+              f"{tag}: the card's verdicts differ from the CPU's")
+    log(f"[22] phase took {time.perf_counter() - t_phase:.1f} s")
+    return record
 
 
 def cidgik_phases(dev, gen, cfgs, position_runs=None):
@@ -1480,9 +1596,11 @@ def cidgik_phases(dev, gen, cfgs, position_runs=None):
         t_cap = cidgik_call(solve, comp, ps_c, T_goal, params, fin_graphs)[:2]
         log(f"[{phase}] {tag} first compiled call (warm-up + capture): ADMM {t_cap[0] * 1e3:.1f} "
             f"ms, finish {t_cap[1] * 1e3:.1f} ms")
-        # per form: the launches and device-busy share of each stage from one
-        # profiled call (the eager one is also the eager timed call's
-        # warm-up), then one timed call
+        # the launches and device-busy share of each compiled stage from one
+        # profiled call (the eager form's hundreds of thousands of host
+        # launches made its profile the phase's largest cost), then one
+        # timed call of each form, the eager one after a warm-up call (one
+        # ADMM round cut to 50 steps, then the finish)
         counters = (solve_tr_cuda, edge_ops.cost_and_egrad_cuda, edge_ops.ehess_cuda)
         for f in counters:
             f.launches = 0
@@ -1492,13 +1610,17 @@ def cidgik_phases(dev, gen, cfgs, position_runs=None):
         for name, (mode, graphs) in forms.items():
             out_p = {}
             with mode():
-                p_a = profiled(lambda: out_p.update(solve(comp, T_goal, params=params)), dev)
-                q0 = out_p["q"]
-                p_f = profiled(lambda: finish(q0, T_goal) if graphs is None
-                               else graphs.run("finish", finish, q0, T_goal), dev)
+                if graphs is not None:
+                    p_a = profiled(lambda: out_p.update(solve(comp, T_goal, params=params)), dev)
+                    q0 = out_p["q"]
+                    p_f = profiled(lambda: graphs.run("finish", finish, q0, T_goal), dev)
+                    prof[name] = (p_a, p_f)
+                else:
+                    warm = solve(comp, T_goal, params=dataclasses.replace(
+                        params, max_outer=1, admm_iters=50))
+                    finish(warm["q"], T_goal)
                 cidgik.solve_cidgik.admm_steps = cidgik.solve_cidgik.host_reads = 0
                 t_admm, t_fin, o = cidgik_call(solve, comp, ps_c, T_goal, params, graphs)
-            prof[name] = (p_a, p_f)
             timed[name] = (t_admm, t_fin, o, cidgik.solve_cidgik.admm_steps,
                            cidgik.solve_cidgik.host_reads)
         hand = sum(f.launches for f in counters)
@@ -1554,15 +1676,17 @@ def cidgik_phases(dev, gen, cfgs, position_runs=None):
 
         stats = {}
         for name in forms:
-            (k_a, c_a, busy_a, h_a, _), (k_f, c_f, busy_f, h_f, _) = prof[name]
             ta, tf = timed[name][:2]
             stats[name] = {"admm_ms": ta * 1e3, "finish_ms": tf * 1e3,
-                           "solves_per_s": B_c / (ta + tf),
-                           "launches_admm": k_a, "launches_per_iteration": k_a / steps,
-                           "host_launches_admm": h_a, "host_launches_per_iteration": h_a / steps,
-                           "launches_finish": k_f, "host_launches_finish": h_f,
-                           "busy_admm": busy_a / (ta * 1e3), "busy_finish": busy_f / (tf * 1e3),
-                           "host_reads": timed[name][4]}
+                           "solves_per_s": B_c / (ta + tf), "host_reads": timed[name][4]}
+            if name not in prof:
+                continue
+            (k_a, c_a, busy_a, h_a, _), (k_f, c_f, busy_f, h_f, _) = prof[name]
+            stats[name].update(
+                launches_admm=k_a, launches_per_iteration=k_a / steps, host_launches_admm=h_a,
+                host_launches_per_iteration=h_a / steps, launches_finish=k_f,
+                host_launches_finish=h_f, busy_admm=busy_a / (ta * 1e3),
+                busy_finish=busy_f / (tf * 1e3))
             st = stats[name]
             log(f"[{phase}] {tag} {name}: ADMM {k_a} kernel launches + {c_a} copies/sets "
                 f"({st['launches_per_iteration']:.1f} an iteration), {h_a} host launches "
@@ -1706,9 +1830,9 @@ def compiled_vs_eager(phase, tag, dev, solver, T_goal, counter, profile=True):
     the TR's "dense" / "edge" backends; utils/compiled.py Loop) and whose
     finish is one graph, against the same solver eager on the same
     prepared inputs: the first compiled call (warm-up and capture), then
-    for each form one profiled solve (with `profile`: launches, host
-    launches, device-busy share; the eager one is also the eager timed
-    call's warm-up) and one timed solve and finish. Checks every output
+    one profiled compiled solve (with `profile`: launches, host launches,
+    device-busy share) and for each form one timed solve and finish, the
+    eager one after a warm-up solve cut to 2 iterations. Checks every output
     bitwise equal and the host reads (`counter.host_reads`) equal. Returns
     (record, the compiled call's (sol, out))."""
     eager = dataclasses.replace(solver, graphs=None)
@@ -1734,8 +1858,14 @@ def compiled_vs_eager(phase, tag, dev, solver, T_goal, counter, profile=True):
     outs = {}
     spd_solve_cuda.launches = 0
     for name, s in (("compiled", solver), ("eager", eager)):
-        if profile:
+        # the eager solve is not profiled: its hundreds of thousands of host
+        # launches made the profiler the phase's largest cost
+        prof_solve = profile and name == "compiled"
+        if prof_solve:
             k_s, c_s, busy, host, _ = profiled(lambda: s.solve(Y0, D_goal), dev)
+        if name == "eager":
+            dataclasses.replace(s, params=dataclasses.replace(s.params, maxiter=2)).solve(
+                Y0, D_goal)
         counter.host_reads = 0
         sync(dev)
         t0 = time.perf_counter()
@@ -1752,7 +1882,7 @@ def compiled_vs_eager(phase, tag, dev, solver, T_goal, counter, profile=True):
                          "solves_per_s": rec["B"] / (t_prep + t2 - t0), "host_reads": reads,
                          "iterations": n_it}
         msg = ""
-        if profile:
+        if prof_solve:
             r.update(launches_solve=k_s, launches_per_iteration=k_s / n_it, host_launches_solve=host,
                      host_launches_per_iteration=host / n_it, busy_solve=busy / r["solve_ms"])
             msg = (f"; profiled solve: {k_s} kernel launches + {c_s} copies/sets "
@@ -2377,6 +2507,9 @@ def main() -> int:
         dev, torch.Generator(device="cpu").manual_seed(SEED + 19)))
     # ---- phase 21 (run here too): K6, the LM's clamped-pivot solve ----
     spd_rec = spd_phase(dev, torch.Generator(device="cpu").manual_seed(SEED + 21))
+    # ---- phase 22 (run here too): the finish rounds as on the CPU ----
+    rounding_rec = finish_rounding_phase(dev, torch.Generator(device="cpu").manual_seed(SEED + 22),
+                                         prod, polish)
 
     # ---- phase 3: the main path ----
     graphed = []  # the compiled f32 kernel paths, for phase 18
@@ -2851,9 +2984,10 @@ def main() -> int:
          "replaces": "graphik_tpu/ops/linalg.py:55", "launches": launches_spd,
          "max_abs_err": spd_rec["max_abs_err"], "ms": t_s["ms"], "plain_ms": t_s["plain_ms"],
          "bound_ms": t_s["bound_ms"], "bound_by": t_s["bound_by"],
-         "library_ms": t_s["library_ms"],
+         "library_ms": t_s["library_ms"], "call_ms": t_s["call_ms"],
          "at": f"UR10's LM systems, B={t_s['B']}, m={t_s['m']}, float32; spd_solve_unrolled in "
-               "the JAX package's LM step, not a Pallas kernel; library_ms is cholesky_ex + "
+               "the JAX package's LM step, not a Pallas kernel; ms is the device time (a CUDA "
+               "graph of 20 launches), call_ms the wrapper's call; library_ms is cholesky_ex + "
                "2 solve_triangular (pivots not clamped)",
          "paths": spd_rec["cases"]},
     ]}
@@ -2863,6 +2997,7 @@ def main() -> int:
     log(f"[17] TR backend paths: {json.dumps(backend_paths)}")
     log(f"[18] compiled paths: {json.dumps(compiled_paths)}")
     log(f"[18, 20] batch-position checks: {json.dumps(positions)}")
+    log(f"[22] finish rounding: {json.dumps(rounding_rec)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(f"card: {smi}")

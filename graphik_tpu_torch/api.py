@@ -61,12 +61,12 @@ def pose_error(structure: ProblemStructure, q, T_goal):
     for e, ee in enumerate(tpl.ee):
         T_sol = T_all[..., int(ee), :, :]
         Tg = T_goal[..., e, :, :]
-        e_pos.append(torch.linalg.norm(Tg[..., :dim, dim] - T_sol[..., :dim, dim], dim=-1))
-        R_rel = Tg[..., :dim, :dim] @ T_sol[..., :dim, :dim].transpose(-1, -2)
+        e_pos.append(lie.norm_small(Tg[..., :dim, dim] - T_sol[..., :dim, dim]))
+        R_rel = lie.matmul_small(Tg[..., :dim, :dim], T_sol[..., :dim, :dim].transpose(-1, -2))
         if dim == 3:
-            e_rot.append(torch.linalg.norm(lie.so3_log(R_rel), dim=-1))
+            e_rot.append(lie.norm_small(lie.so3_log(R_rel)))
         else:
-            e_rot.append(torch.atan2(R_rel[..., 1, 0], R_rel[..., 0, 0]).abs())
+            e_rot.append(lie.atan2_rn(R_rel[..., 1, 0], R_rel[..., 0, 0]).abs())
     return (torch.stack(e_pos, dim=-1).amax(dim=-1),
             torch.stack(e_rot, dim=-1).amax(dim=-1))
 

@@ -410,15 +410,20 @@ class ProblemStructure:
         """Max violation of BELOW/ABOVE bounded edges at positions `pos`.
 
         Returns (max_violation, ok) where ok = max_violation <= 0 at `tol`.
+        Only the bounded pairs' distances are formed (dgp.pair_distances,
+        sqrt correctly rounded): the JAX package's rounding, on the CPU and
+        on a card alike.
         """
-        D = torch.sqrt(torch.clamp(dgp.distance_matrix_from_pos(pos), min=0.0))
-        bounded = device_const(self, "bounded_mask", self.bounded_mask, device=pos.device)
-        cL = _const(self, "check_L", self.check_L, pos)
-        cU = _const(self, "check_U", self.check_U, pos)
-        ninf = torch.full_like(D, -float("inf"))
-        below = torch.where(bounded, (cL - tol) - D, ninf)
-        above = torch.where(bounded, D - (cU + tol), ninf)
-        max_viol = torch.amax(torch.maximum(below, above), dim=(-2, -1))
+        ii, jj = np.nonzero(self.bounded_mask)
+        if ii.size == 0:
+            max_viol = torch.full(pos.shape[:-2], -float("inf"), dtype=pos.dtype,
+                                  device=pos.device)
+            return max_viol, max_viol <= 0.0
+        pairs = device_const(self, "bounded_pairs", np.stack([ii, jj]), device=pos.device)
+        D = lie.sqrt_rn(torch.clamp(dgp.pair_distances(pos, pairs[0], pairs[1]), min=0.0))
+        cL = _const(self, "check_L_pairs", self.check_L[ii, jj], pos)
+        cU = _const(self, "check_U_pairs", self.check_U[ii, jj], pos)
+        max_viol = torch.amax(torch.maximum((cL - tol) - D, D - (cU + tol)), dim=-1)
         return max_viol, max_viol <= 0.0
 
     def joint_variables(self, pos, T_goal=None):
@@ -747,7 +752,7 @@ def _joint_variables_revolute(ps: ProblemStructure, pos, T_goal):
     batch = pos.shape[:-2]
 
     def nrm(v):
-        return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+        return v / lie.norm_small(v, keepdim=True)
 
     # gauge fix from base points
     p0 = pos[..., ps.idx_p(0), :]
@@ -767,22 +772,22 @@ def _joint_variables_revolute(ps: ProblemStructure, pos, T_goal):
         T_prev = T_all[pred]
 
         T_prev_0_inv = lie.se3_inv(T0[pred])
-        T_rel = T_prev_0_inv @ T0[k]
-        qs_0 = (T_prev_0_inv @ (T0[k] @ T_axis))[:3, 3]
+        T_rel = lie.matmul_small(T_prev_0_inv, T0[k])
+        qs_0 = lie.matmul_small(T_prev_0_inv, lie.matmul_small(T0[k], T_axis))[:3, 3]
 
         p_pt = pos[..., k, :]
         diff = pos[..., n + 1 + k, :] - p_pt
-        qnorm = p_pt + diff / torch.linalg.norm(diff, dim=-1, keepdim=True)
+        qnorm = p_pt + diff / lie.norm_small(diff, keepdim=True)
         q_in_B = lie.matvec_small(B_inv[..., :3, :3], qnorm) + B_inv[..., :3, 3]
         qs = lie.matvec_small(T_prev[..., :3, :3].transpose(-1, -2), q_in_B - T_prev[..., :3, 3])
 
         # theta = atan2(-qs0^T Omega_z qs, qs0^T Omega_z Omega_z^T qs)
         num = -(qs_0[0] * (-qs[..., 1]) + qs_0[1] * qs[..., 0])
         den = qs_0[0] * qs[..., 0] + qs_0[1] * qs[..., 1]
-        th = torch.atan2(num, den)
+        th = lie.atan2_rn(num, den)
 
         theta.append(th)
-        T_all.append(lie.matmul_small(T_prev @ lie.se3_rotz(th), T_rel))
+        T_all.append(lie.matmul_small(lie.matmul_small(T_prev, lie.se3_rotz(th)), T_rel))
 
     # final-joint correction when the last axis is along ee z
     if T_goal is not None:
@@ -795,8 +800,8 @@ def _joint_variables_revolute(ps: ProblemStructure, pos, T_goal):
             pred = int(tpl.parents[ee])
             T_rel_np = np.linalg.inv(tpl.T0[pred]) @ tpl.T0[ee]
             if np.linalg.norm(np.cross(T_rel_np[:3, 3], [0.0, 0.0, 1.0])) < 1e-10:
-                T_th = lie.se3_inv(T_all[ee]) @ Tg[..., e, :, :]
-                delta = torch.atan2(T_th[..., 1, 0], T_th[..., 0, 0])
+                T_th = lie.matmul_small(lie.se3_inv(T_all[ee]), Tg[..., e, :, :])
+                delta = lie.atan2_rn(T_th[..., 1, 0], T_th[..., 0, 0])
                 theta[ee] = lie.wraptopi(theta[ee] + delta)
     return torch.stack(theta[1:], dim=-1)
 
@@ -816,9 +821,9 @@ def _joint_variables_planar(ps: ProblemStructure, pos):
     for k in range(1, tpl.n + 1):
         u = int(tpl.parents[k])
         diff = lie.matvec_small(R_, pos[..., k, :] - pos[..., u, :])
-        diff = diff / torch.linalg.norm(diff, dim=-1, keepdim=True)
+        diff = diff / lie.norm_small(diff, keepdim=True)
         sol = lie.matvec_small(R_acc[u].transpose(-1, -2), diff)
-        th = lie.wraptopi(torch.atan2(sol[..., 1], sol[..., 0]))
+        th = lie.wraptopi(lie.atan2_rn(sol[..., 1], sol[..., 0]))
         theta.append(th)
-        R_acc.append(R_acc[u] @ lie.rot2(th))
+        R_acc.append(lie.matmul_small(R_acc[u], lie.rot2(th)))
     return torch.stack(theta[1:], dim=-1)

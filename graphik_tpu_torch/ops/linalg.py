@@ -18,9 +18,10 @@ which the LM's improvement test then takes or refuses. Its numerics are the
 reference's, so the port keeps them:
 
 * `spd_solve_cuda(A, b)` - wrapper of the hand-written CUDA kernel
-  csrc/spd_solve.cu (K6: one warp a system, the factor and both
-  substitutions in one launch): float32 or float64 CUDA tensors, m <= 64;
-  counts its launches in `spd_solve_cuda.launches`.
+  csrc/spd_solve.cu (K6: a thread a system up to m = 10, a warp a system
+  past it, the factor and both substitutions in one launch): float32 or
+  float64 CUDA tensors, m <= 64; counts its launches in
+  `spd_solve_cuda.launches`.
 * `spd_solve_reference(A, b)` - the plain torch version, the kernel's
   arithmetic in the kernel's order, on any device.
 * `spd_solve(A, b)` - the kernel for CUDA tensors, the plain version for
@@ -33,6 +34,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from graphik_tpu_torch.utils import lie
 
 # torch's CUDA reduction vectorises the loads of a contiguous extent longer
 # than this and starts each output's slice at its own misalignment, so the
@@ -117,8 +120,9 @@ def spd_solve_reference(A, b):
     product and one add at a time (over k = 0, 1, ... in the factor and the
     forward substitution, k = m - 1, m - 2, ... in the backward one), and
     subtracted after; on a card the kernel's results are these bit for
-    bit (torch's CUDA sqrt and division are correctly rounded, as the
-    kernel's are). The loops run over k, vectorised over the batch and the
+    bit. The pivot's sqrt is lie.sqrt_rn, correctly rounded on every
+    device, as the kernel's and the JAX package's are (torch's own float32
+    sqrt is not on the CPU); torch's division is correctly rounded. The loops run over k, vectorised over the batch and the
     rows: each column's products are added to every later column's sums
     as soon as it is known, which keeps each sum's order."""
     check_spd_limits(A, b)
@@ -129,7 +133,7 @@ def spd_solve_reference(A, b):
     acc = torch.zeros_like(A)  # acc[:, i, j] = sum over k < j of L_ik L_jk
     for j in range(m):
         col = A[:, j:, j] - acc[:, j:, j]
-        d = torch.sqrt(torch.clamp(col[:, 0], min=PIVOT_FLOOR))
+        d = lie.sqrt_rn(torch.clamp(col[:, 0], min=PIVOT_FLOOR))
         L[:, j, j] = d
         if j + 1 < m:
             L[:, j + 1:, j] = col[:, 1:] / d[:, None]

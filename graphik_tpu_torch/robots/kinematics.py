@@ -51,7 +51,7 @@ def prefix_products(template: RobotTemplate, q):
     A = [_const(tpl, "T0", tpl.T0, q)[0].expand(q.shape[:-1] + (hd, hd))]
     for i in range(1, tpl.n + 1):
         p = int(tpl.parents[i])
-        A.append(A[p] @ _exp(tpl, S[p] * q[..., i - 1, None]))
+        A.append(lie.matmul_small(A[p], _exp(tpl, S[p] * q[..., i - 1, None])))
     return torch.stack(A, dim=-3)
 
 
@@ -104,9 +104,9 @@ def jacobian(template: RobotTemplate, q, node: int, A: Optional[torch.Tensor] = 
     par = device_const(tpl, "joint_parents", tpl.parents[1:], device=q.device)
     S = _const(tpl, "S", tpl.S, q)[par]  # (n, tw)
     Ad = _adjoint(tpl, A[..., par, :, :])  # (..., n, tw, tw)
-    # an elementwise product and sum, not an einsum: einsum folds the batch
+    # elementwise (lie.matvec_small), not an einsum: einsum folds the batch
     # into a GEMM's rows, whose rounding then depends on the batch size
-    cols = (Ad * S[:, None, :]).sum(-1)
+    cols = lie.matvec_small(Ad, S)
     on_path = device_const(tpl, ("on_path", node), _path_membership(tpl, node)[1:],
                            device=q.device)
     cols = torch.where(on_path[:, None], cols, torch.zeros_like(cols))

@@ -85,11 +85,11 @@ def _pose_residuals(tpl, T_goal, q, with_jacobian=True, A=None):
     for e_idx, ee in enumerate(tpl.ee):
         if planar:
             T_inv = lie.se2_inv(T_all[..., int(ee), :, :])
-            M = T_inv @ T_goal[..., e_idx, :, :]
+            M = lie.matmul_small(T_inv, T_goal[..., e_idx, :, :])
             e = lie.se2_log(M)
         else:
             T_inv = lie.se3_inv(T_all[..., int(ee), :, :])
-            e = lie.se3_log(T_inv @ T_goal[..., e_idx, :, :])
+            e = lie.se3_log(lie.matmul_small(T_inv, T_goal[..., e_idx, :, :]))
         es.append(e)
         if with_jacobian:
             J = kinematics.jacobian(tpl, q, int(ee), A=A)
@@ -179,6 +179,23 @@ def solve_local(
             J = torch.cat([J, w * torch.where(act[..., None], Jg, torch.zeros_like(Jg))], dim=-2)
         return e, J
 
+    def normal_equations(J, r):
+        """J^T r and J^T J. A pose residual's few rows as lie.matmul_small
+        rounds them (the JAX package's bits on the CPU, the same on a card);
+        with obstacles, hundreds of rows, a sum of products and a batched
+        GEMM (one fused multiply-add a row would be hundreds of kernels)."""
+        Jt = J.transpose(-1, -2)
+        if ps.n_obstacles:
+            return (J * r[..., :, None]).sum(-2), Jt @ J
+        return lie.matvec_small(Jt, r), lie.matmul_small(Jt, J)
+
+    def sumsq(r):
+        """The residual's sum of squares: a pose residual's few values as
+        lie.dot_small sums them (one rounding on every device); with
+        obstacles a residual holds 6 + n_obs n values (606 on the table),
+        summed by rows (rowwise_sum: one order at every batch position)."""
+        return rowwise_sum(r * r) if ps.n_obstacles else lie.dot_small(r, r)
+
     def lm_solve(q, mult, rho):
         lam = torch.full(batch, params.lm_init, dtype=dt, device=dev)
         iters = torch.zeros(batch, dtype=torch.int32, device=dev)
@@ -186,9 +203,8 @@ def solve_local(
         for _ in range(params.maxiter):
             live = ~done
             r, J = residuals(q, mult, rho)
-            Jt = J.transpose(-1, -2)
-            g = (J * r[..., :, None]).sum(-2)  # J^T r, batch-invariant as lie.matvec_small
-            H = Jt @ J + lam[..., None, None] * eye
+            g, JtJ = normal_equations(J, r)
+            H = JtJ + lam[..., None, None] * eye
             # the reference's clamped-pivot Cholesky (K6 on a card): where a
             # float32 system is not numerically SPD its step is huge or NaN,
             # and the improvement test takes or refuses it
@@ -197,16 +213,15 @@ def solve_local(
             if params.clip_limits:
                 q_new = torch.clamp(q_new, lb, ub)
             r_new, _ = residuals(q_new, mult, rho, with_jacobian=False)
-            # with obstacles a residual holds 6 + n_obs n values (606 on the
-            # table), which a card would sum in an order set by the lane's
-            # batch position
-            improved = rowwise_sum(r_new * r_new) < rowwise_sum(r * r)
+            improved = sumsq(r_new) < sumsq(r)
             q_out = torch.where(improved[..., None], q_new, q)
             lam_new = torch.clamp(
                 torch.where(improved, lam * params.lm_down, lam * params.lm_up), 1e-12, 1e8)
             q = torch.where(live[..., None], q_out, q)
             lam = torch.where(live, lam_new, lam)
             iters = iters + live.to(torch.int32)
+            # one kernel: the stop test's rounding moved no verdict and no bit
+            # of q between card and CPU (PERF.md section 6, the polish's table)
             done = done | (live & (torch.linalg.norm(g, dim=-1) < params.tol_grad))
         return q, iters
 

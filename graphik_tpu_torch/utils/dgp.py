@@ -19,6 +19,7 @@ import math
 import torch
 
 from graphik_tpu_torch.ops.eigh import sym_eigh
+from graphik_tpu_torch.utils import lie
 
 # Sentinel for "no edge" in min-plus shortest paths. Large but far from
 # overflow so sums of two stay representable in float32.
@@ -53,6 +54,16 @@ def distance_matrix_from_gram(X):
 def distance_matrix_from_pos(Y):
     """Squared EDM of an (..., N, d) point set."""
     return distance_matrix_from_gram(Y @ Y.transpose(-1, -2))
+
+
+def pair_distances(Y, i, j):
+    """Squared distances of the point pairs (i[p], j[p]) of an (..., N, d)
+    point set, (..., P): each the entry of distance_matrix_from_pos,
+    |p_i|^2 + |p_j|^2 - 2 p_i . p_j from the Gram, with the Gram's dots
+    rounded as lie.matmul_small rounds (the JAX package's einsum on the CPU,
+    on every device), and only the pairs asked for."""
+    Yi, Yj = Y[..., i, :], Y[..., j, :]
+    return (lie.dot_small(Yi, Yi) + lie.dot_small(Yj, Yj)) - 2.0 * lie.dot_small(Yi, Yj)
 
 
 # ---------------------------------------------------------------------------
@@ -141,20 +152,21 @@ def best_fit_transform(A, B):
     at atan2(H01 + H10, H00 - H11) reaches |(H00 - H11, H01 + H10)|, and the
     squares of the two differ by 4 det H, so the SVD's R is the rotation
     when det H > 0 and the reflection when det H < 0."""
-    ca = A.mean(dim=-2, keepdim=True)
-    cb = B.mean(dim=-2, keepdim=True)
-    H = (A - ca).transpose(-1, -2) @ (B - cb)
+    ca = lie.mean_small(A, -2, keepdim=True)
+    cb = lie.mean_small(B, -2, keepdim=True)
+    H = lie.matmul_small((A - ca).transpose(-1, -2), B - cb)
     if A.shape[-1] == 2:
         h00, h01, h10, h11 = H[..., 0, 0], H[..., 0, 1], H[..., 1, 0], H[..., 1, 1]
         rot = h00 * h11 - h01 * h10 >= 0
-        ang = torch.where(rot, torch.atan2(h01 - h10, h00 + h11), torch.atan2(h01 + h10, h00 - h11))
-        c, s = torch.cos(ang), torch.sin(ang)
+        ang = torch.where(rot, lie.atan2_rn(h01 - h10, h00 + h11),
+                          lie.atan2_rn(h01 + h10, h00 - h11))
+        c, s = lie.cos_rn(ang), lie.sin_rn(ang)
         R = torch.stack([torch.stack([c, torch.where(rot, -s, s)], dim=-1),
                          torch.stack([s, torch.where(rot, c, -c)], dim=-1)], dim=-2)
     else:
         U, _, Vt = torch.linalg.svd(H)
         R = Vt.transpose(-1, -2) @ U.transpose(-1, -2)
-    t = cb[..., 0, :] - torch.einsum("...ij,...j->...i", R, ca[..., 0, :])
+    t = cb[..., 0, :] - lie.matvec_small(R, ca[..., 0, :])
     return R, t
 
 

@@ -24,21 +24,97 @@ _TINY = 1e-9
 
 
 def matmul_small(a, b):
-    """a @ b for small matrices, broadcast over the leading dims, as
-    elementwise products summed over the shared axis. Every lane's
-    result is then independent of the batch size: a batched GEMM or GEMV
+    """a @ b for small matrices, broadcast over the leading dims, with one
+    rounding on the CPU and on a card: each entry starts as a_i0 b_0j and
+    takes a_ik b_kj for k = 1, 2, ... in order, each by one fused
+    multiply-add (torch.addcmul, fused on both devices). That is the
+    rounding of the JAX package's float32 products on the CPU (jnp.matmul
+    at "highest", jnp.einsum, J.T @ J) bit for bit. It is elementwise, so
+    every lane's result is independent of the batch: a batched GEMM or GEMV
     chooses its kernel, and so its rounding, by the batch count and shape,
-    which on the card parted the port's results lane for lane between a
-    batch and its shards (a constant broadcast over the batch, the batch
-    folded with another axis, matrix-vector products)."""
-    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
+    and on a card cuBLAS's rounding is not the CPU's."""
+    cols = a.unsqueeze(-1).unbind(-2)  # a[..., :, k, None]: one dispatch for all k
+    rows = b.unsqueeze(-3).unbind(-2)  # b[..., None, k, :]
+    out = cols[0] * rows[0]
+    for c, r in zip(cols[1:], rows[1:]):
+        out = torch.addcmul(out, c, r)
+    return out
 
 
 def matvec_small(a, v):
     """a @ v for small matrices and vectors, (..., m, k) x (..., k) ->
-    (..., m), as an elementwise product summed over k: batch-invariant
-    like matmul_small."""
-    return (a * v[..., None, :]).sum(-1)
+    (..., m), rounded as matmul_small."""
+    return matmul_small(a, v[..., None])[..., 0]
+
+
+# A tensor is divided by a Python number only where the number is a power of
+# two. A card takes x / c as x * (1 / c), with 1 / c rounded to x's type, and
+# so does the JAX package's jit; torch's CPU divides. Elsewhere the finish
+# writes the reciprocal out, x * (1.0 / c), which rounds the same on both
+# devices and as the JAX package's jitted code (1 / c in float64, then in
+# float32, is the float32 1 / c for every constant here).
+
+
+def _rn(fn, *xs):
+    """fn of float32 tensors taken in float64 and rounded once to float32:
+    the correctly rounded value but where the float64 one lies within its
+    own error of a float32 rounding boundary (about 2^-28 of the inputs), so
+    the same bits on the CPU and on a card, whose float32 sqrt, sin, cos and
+    atan2 round otherwise (torch's own float32 sqrt is not correctly rounded
+    on the CPU either). float64 tensors take fn itself."""
+    if xs[0].dtype == torch.float32:
+        return fn(*[x.double() for x in xs]).to(torch.float32)
+    return fn(*xs)
+
+
+def sqrt_rn(x):
+    """sqrt(x) by _rn (jnp.sqrt's bits on the CPU in float32)."""
+    return _rn(torch.sqrt, x)
+
+
+def sin_rn(x):
+    """sin(x) by _rn."""
+    return _rn(torch.sin, x)
+
+
+def cos_rn(x):
+    """cos(x) by _rn."""
+    return _rn(torch.cos, x)
+
+
+def atan2_rn(y, x):
+    """atan2(y, x) by _rn."""
+    return _rn(torch.atan2, y, x)
+
+
+def dot_small(a, b):
+    """The dot product over the last (short) dim, summed as matmul_small
+    sums."""
+    xs, ys = a.unbind(-1), b.unbind(-1)
+    s = xs[0] * ys[0]
+    for x, y in zip(xs[1:], ys[1:]):
+        s = torch.addcmul(s, x, y)
+    return s
+
+
+def norm_small(v, keepdim: bool = False):
+    """The Euclidean norm over the last (short) dim: dot_small(v, v), then
+    sqrt_rn (jnp.linalg.norm's bits on the CPU)."""
+    s = sqrt_rn(dot_small(v, v))
+    return s[..., None] if keepdim else s
+
+
+def mean_small(x, dim: int, keepdim: bool = False):
+    """The mean over a short dim: the values added in order, then times 1 / n
+    in x's dtype (jnp.mean's bits on the CPU; torch divides on the CPU and
+    sums in another order on a card)."""
+    n = x.shape[dim]
+    parts = x.unbind(dim)
+    s = parts[0]
+    for p in parts[1:]:
+        s = s + p
+    s = s * (1.0 / n)
+    return s.unsqueeze(dim) if keepdim else s
 
 
 def _taylor_threshold(dtype):
@@ -82,14 +158,14 @@ def _sinc(theta):
     """sin(theta)/theta, stable at 0 (only the 0/0 guard)."""
     small = theta.abs() < _TINY
     safe = torch.where(small, torch.ones_like(theta), theta)
-    return torch.where(small, torch.ones_like(theta), torch.sin(safe) / safe)
+    return torch.where(small, torch.ones_like(theta), sin_rn(safe) / safe)
 
 
 def _cosc(theta):
     """(1 - cos(theta))/theta^2 = 2 sin^2(theta/2)/theta^2 (no cancellation)."""
     small = theta.abs() < _TINY
     safe = torch.where(small, torch.ones_like(theta), theta)
-    s = torch.sin(safe / 2.0)
+    s = sin_rn(safe / 2.0)
     return torch.where(small, torch.full_like(theta, 0.5),
                        2.0 * (s / safe) * (s / safe))
 
@@ -99,15 +175,16 @@ def _one_minus_sinc_over_sq(theta):
     t2 = theta * theta
     small = theta.abs() < _taylor_threshold(theta.dtype)
     safe = torch.where(small, torch.ones_like(theta), theta)
-    series = 1.0 / 6.0 - t2 / 120.0 + t2 * t2 / 5040.0 - t2 * t2 * t2 / 362880.0
-    return torch.where(small, series, (safe - torch.sin(safe)) / safe**3)
+    series = (1.0 / 6.0 - t2 * (1.0 / 120.0) + t2 * t2 * (1.0 / 5040.0)
+              - t2 * t2 * t2 * (1.0 / 362880.0))
+    return torch.where(small, series, (safe - sin_rn(safe)) / (safe * safe * safe))
 
 
 def so3_exp(w):
     """Rodrigues formula: (..., 3) axis-angle -> (..., 3, 3) rotation."""
-    theta = torch.linalg.norm(w, dim=-1)
+    theta = norm_small(w)
     W = so3_hat(w)
-    W2 = W @ W
+    W2 = matmul_small(W, W)
     a = _sinc(theta)[..., None, None]
     b = _cosc(theta)[..., None, None]
     return _eye(3, w) + a * W + b * W2
@@ -147,7 +224,7 @@ def quat_from_rotation(R):
     k = torch.argmax(pivots, dim=-1)
     q = torch.gather(cands, -2, k[..., None, None].expand(k.shape + (1, 4)))[..., 0, :]
     piv = torch.gather(pivots, -1, k[..., None])[..., 0]
-    q = q / (2.0 * torch.sqrt(torch.clamp(piv, min=1e-30)))[..., None]
+    q = q / (2.0 * sqrt_rn(torch.clamp(piv, min=1e-30)))[..., None]
     # canonical sign: w >= 0
     sign = torch.where(q[..., 0] < 0, -1.0, 1.0).to(q.dtype)
     return q * sign[..., None]
@@ -161,8 +238,8 @@ def so3_log(R):
     """
     q = quat_from_rotation(R)
     v = q[..., 1:]
-    vn = torch.linalg.norm(v, dim=-1)
-    half = torch.atan2(vn, q[..., 0])
+    vn = norm_small(v)
+    half = atan2_rn(vn, q[..., 0])
     small = vn < 1e-9
     factor = torch.where(
         small, torch.full_like(vn, 2.0),
@@ -173,9 +250,9 @@ def so3_log(R):
 
 def so3_left_jacobian(w):
     """Left Jacobian of SO(3), (..., 3) -> (..., 3, 3)."""
-    theta = torch.linalg.norm(w, dim=-1)
+    theta = norm_small(w)
     W = so3_hat(w)
-    W2 = W @ W
+    W2 = matmul_small(W, W)
     b = _cosc(theta)[..., None, None]
     c = _one_minus_sinc_over_sq(theta)[..., None, None]
     return _eye(3, w) + b * W + c * W2
@@ -183,24 +260,25 @@ def so3_left_jacobian(w):
 
 def so3_inv_left_jacobian(w):
     """Closed-form inverse of the SO(3) left Jacobian."""
-    theta = torch.linalg.norm(w, dim=-1)
+    theta = norm_small(w)
     W = so3_hat(w)
-    W2 = W @ W
+    W2 = matmul_small(W, W)
     small = theta < _taylor_threshold(theta.dtype)
     safe = torch.where(small, torch.ones_like(theta), theta)
     # coefficient of W2: (1/theta^2)(1 - sinc/(2 cosc)) with stable limit 1/12
     t2 = theta * theta
-    series = 1.0 / 12.0 + t2 / 720.0 + t2 * t2 / 30240.0 + t2 * t2 * t2 / 1209600.0
+    series = (1.0 / 12.0 + t2 * (1.0 / 720.0) + t2 * t2 * (1.0 / 30240.0)
+              + t2 * t2 * t2 * (1.0 / 1209600.0))
     cot_term = torch.where(
         small,
         series,
-        (1.0 / safe**2) * (1.0 - (_sinc(safe) / (2.0 * _cosc(safe)))),
+        (1.0 / (safe * safe)) * (1.0 - (_sinc(safe) / (2.0 * _cosc(safe)))),
     )
     return _eye(3, w) - 0.5 * W + cot_term[..., None, None] * W2
 
 
 def rotx(theta):
-    c, s = torch.cos(theta), torch.sin(theta)
+    c, s = cos_rn(theta), sin_rn(theta)
     one = torch.ones_like(c)
     zero = torch.zeros_like(c)
     return torch.stack(
@@ -214,7 +292,7 @@ def rotx(theta):
 
 
 def roty(theta):
-    c, s = torch.cos(theta), torch.sin(theta)
+    c, s = cos_rn(theta), sin_rn(theta)
     one = torch.ones_like(c)
     zero = torch.zeros_like(c)
     return torch.stack(
@@ -228,7 +306,7 @@ def roty(theta):
 
 
 def rotz(theta):
-    c, s = torch.cos(theta), torch.sin(theta)
+    c, s = cos_rn(theta), sin_rn(theta)
     one = torch.ones_like(c)
     zero = torch.zeros_like(c)
     return torch.stack(
@@ -322,19 +400,19 @@ def se3_inv_left_jacobian(xi):
     w = xi[..., 3:]
     Jw_inv = so3_inv_left_jacobian(w)
     Q = _se3_curlyQ(v, w)
-    top = torch.cat([Jw_inv, -Jw_inv @ Q @ Jw_inv], dim=-1)
+    top = torch.cat([Jw_inv, -matmul_small(matmul_small(Jw_inv, Q), Jw_inv)], dim=-1)
     bottom = torch.cat([torch.zeros_like(Jw_inv), Jw_inv], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 
 
 def _se3_curlyQ(rho, w):
     """The Q matrix in the SE(3) left Jacobian (Barfoot, eq. 7.86)."""
-    th = torch.linalg.norm(w, dim=-1)
+    th = norm_small(w)
     W = so3_hat(w)
     V = so3_hat(rho)
-    WV = W @ V
-    VW = V @ W
-    WVW = WV @ W
+    WV = matmul_small(W, V)
+    VW = matmul_small(V, W)
+    WVW = matmul_small(WV, W)
     th2 = th * th
     small = th < _taylor_threshold(th.dtype)
     safe = torch.where(small, torch.ones_like(th), th)
@@ -343,14 +421,17 @@ def _se3_curlyQ(rho, w):
     # c3 = (th^2/2 + cos - 1)/th^4 = -a4, limit 1/24
     c3 = torch.where(
         small,
-        1.0 / 24.0 - th2 / 720.0 + th4 / 40320.0 - th4 * th2 / 3628800.0,
-        (th2 / 2.0 + torch.cos(safe) - 1.0) / safe**4,
+        1.0 / 24.0 - th2 * (1.0 / 720.0) + th4 * (1.0 / 40320.0)
+        - th4 * th2 * (1.0 / 3628800.0),
+        (th2 / 2.0 + cos_rn(safe) - 1.0) / ((safe * safe) * (safe * safe)),
     )
     # c4 = a5 = (th - sin - th^3/6)/th^5, limit -1/120
     c4 = torch.where(
         small,
-        -1.0 / 120.0 + th2 / 5040.0 - th4 / 362880.0 + th4 * th2 / 39916800.0,
-        (safe - torch.sin(safe) - safe**3 / 6.0) / safe**5,
+        -1.0 / 120.0 + th2 * (1.0 / 5040.0) - th4 * (1.0 / 362880.0)
+        + th4 * th2 * (1.0 / 39916800.0),
+        (safe - sin_rn(safe) - safe * safe * safe * (1.0 / 6.0))
+        / ((safe * safe) * (safe * safe) * safe),
     )
     c2 = c2[..., None, None]
     c3 = c3[..., None, None]
@@ -359,8 +440,8 @@ def _se3_curlyQ(rho, w):
     return (
         0.5 * V
         + c2 * (WV + VW + WVW)
-        + c3 * (W @ WV + VW @ W - 3.0 * WVW)
-        + 0.5 * (c3 + 3.0 * c4) * (WVW @ W + W @ WVW)
+        + c3 * (matmul_small(W, WV) + matmul_small(VW, W) - 3.0 * WVW)
+        + 0.5 * (c3 + 3.0 * c4) * (matmul_small(WVW, W) + matmul_small(W, WVW))
     )
 
 
@@ -369,7 +450,7 @@ def _se3_curlyQ(rho, w):
 # ---------------------------------------------------------------------------
 
 def rot2(theta):
-    c, s = torch.cos(theta), torch.sin(theta)
+    c, s = cos_rn(theta), sin_rn(theta)
     return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
 
 
@@ -397,7 +478,7 @@ def se2_trans(T):
 
 
 def se2_angle(T):
-    return torch.atan2(T[..., 1, 0], T[..., 0, 0])
+    return atan2_rn(T[..., 1, 0], T[..., 0, 0])
 
 
 def se2_inv(T):
@@ -438,9 +519,10 @@ def se2_log_dangle(w):
     w2 = w * w
     small = w.abs() < _taylor_threshold(w.dtype)
     safe = torch.where(small, torch.ones_like(w), w)
-    series = -w * (1.0 / 6.0 + w2 / 180.0 + w2 * w2 / 5040.0 + w2 * w2 * w2 / 151200.0)
-    s = torch.sin(safe / 2.0)
-    return torch.where(small, series, (torch.sin(safe) - safe) / (4.0 * s * s))
+    series = -w * (1.0 / 6.0 + w2 * (1.0 / 180.0) + w2 * w2 * (1.0 / 5040.0)
+                   + w2 * w2 * w2 * (1.0 / 151200.0))
+    s = sin_rn(safe / 2.0)
+    return torch.where(small, series, (sin_rn(safe) - safe) / (4.0 * s * s))
 
 
 def se2_adjoint(T):

@@ -1451,8 +1451,9 @@ def test_loop_paths_one_goal_at_every_batch_position(cuda, name):
 # ---------------------------------------------------------------------------
 
 # every path's n (UR10 and planar6 6, KUKA iiwa and LWA4D 7, the tree 5,
-# planar10 10, dh19 19, planar40 40) and the instances' ends
-SPD_SIZES = [1, 3, 5, 6, 7, 10, 19, 32, 33, 40, 64]
+# planar10 10, dh19 19, planar40 40) and the instances' ends (a thread a
+# system up to 8 and 10, a warp up to 32 and 64)
+SPD_SIZES = [1, 3, 5, 6, 7, 8, 10, 11, 16, 19, 32, 33, 40, 64]
 
 
 def _spd_systems(m, dtype, device, B=1001, seed=0):
@@ -1492,8 +1493,9 @@ def test_spd_solve_kernel_matches_plain(cuda, dtype, m):
     """K6 against its plain version on the card at every path's n and the
     instances' ends, on SPD, ill-conditioned LM, indefinite and NaN
     systems, 1001 of them (a ragged last block): bitwise, NaN where the
-    plain version has NaN, one launch counted; the first 77 systems alone
-    give the same bits (a system a warp: batch-invariant)."""
+    plain version has NaN, one launch counted; the first 77 and the first
+    501 systems alone give the same bits (a system a thread or a warp:
+    batch-invariant)."""
     from graphik_tpu_torch.ops import linalg
 
     A, b = _spd_systems(m, dtype, cuda)
@@ -1503,8 +1505,8 @@ def test_spd_solve_kernel_matches_plain(cuda, dtype, m):
     x_p = linalg.spd_solve_reference(A, b)
     assert _bitwise_nan(x, x_p)
     assert bool(torch.isfinite(x[:250]).all())  # the SPD quarter
-    x1 = linalg.spd_solve_cuda(A[:77], b[:77])
-    assert _bitwise_nan(x1, x[:77])
+    for n in (77, 501):
+        assert _bitwise_nan(linalg.spd_solve_cuda(A[:n].clone(), b[:n].clone()), x[:n])
     assert _bitwise_nan(linalg.spd_solve(A, b), x)
 
 
@@ -1531,8 +1533,9 @@ def test_spd_solve_kernel_refuses(cuda):
 
 
 def test_spd_solve_instances_do_not_spill(cuda):
-    """K6's four instances (float32 / float64, one or two rows a lane) in
-    the build's ptxas log, none spilling."""
+    """K6's eight instances (float32 / float64; a thread a system up to m = 8
+    and 10, a warp a system with one or two rows a lane) in the build's
+    ptxas log, none spilling."""
 
     from graphik_tpu_torch.ops._build import library_path, load_library
 
@@ -1541,10 +1544,10 @@ def test_spd_solve_instances_do_not_spill(cuda):
         entries = f.read().split("Compiling entry function '")[1:]
     spills = {}
     for entry in entries:
-        name = re.search(r"spd_solve_kernelI([fd])Li(\d)E", entry.split("'", 1)[0])
+        name = re.search(r"(\w*)spd_solve_kernelI([fd])Li(\d+)E", entry.split("'", 1)[0])
         if name:
             spills[name.groups()] = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
-    assert len(spills) == 4 and not any(spills.values()), spills
+    assert len(spills) == 8 and not any(spills.values()), spills
 
 
 @pytest.mark.parametrize("name", ["ur10", "table"])
@@ -1572,3 +1575,79 @@ def test_compiled_finish_launches_spd_solve(cuda, name):
              if e.device_type() == torch.autograd.DeviceType.CUDA]
     assert sum("spd_solve_kernel" in n for n in names) == want
     assert not [n for n in names if re.search("potrf|trsm|cholesky", n, re.I)]
+
+
+# ---------------------------------------------------------------------------
+# The finish's one rounding (utils/lie.py matmul_small and its kin): the
+# card's bits are the CPU's
+# ---------------------------------------------------------------------------
+
+def _seeded(seed, *shape, dtype=torch.float32):
+    return torch.tensor(np.random.RandomState(seed).normal(size=shape), dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_small_products_round_as_on_the_cpu(cuda, dtype):
+    """lie.matmul_small at k = 2, 3, 4, 6, J^T J of planar40's 3 x 40
+    Jacobians, the Grams of planar40's and UR10's point sets, matvec_small,
+    dot_small and mean_small at 8192 instances, and in float32 norm_small and
+    sqrt_rn: the card's bits are the CPU's on the same seeded inputs (float64
+    sqrt is torch's own, which on the CPU is not correctly rounded)."""
+    from graphik_tpu_torch.utils import lie
+
+    B = 8192
+    cases = []
+    for k in (2, 3, 4, 6):
+        cases += [(lie.matmul_small, (_seeded(k, B, k, k, dtype=dtype),
+                                      _seeded(k + 1, B, k, k, dtype=dtype))),
+                  (lie.matvec_small, (_seeded(k + 2, B, k, k, dtype=dtype),
+                                      _seeded(k + 3, B, k, dtype=dtype)))]
+    J = _seeded(7, B, 3, 40, dtype=dtype)
+    cases.append((lie.matmul_small, (J.transpose(-1, -2), J)))
+    for n, d in ((43, 2), (16, 3)):
+        Y = _seeded(n, B, n, d, dtype=dtype)
+        cases += [(lie.matmul_small, (Y, Y.transpose(-1, -2))),
+                  (lie.dot_small, (Y, Y.flip(-2))),
+                  (lambda a: lie.mean_small(a, -2, keepdim=True), (Y[:, :3],))]
+        if dtype == torch.float32:
+            cases.append((lie.norm_small, (Y,)))
+    if dtype == torch.float32:
+        cases.append((lambda a: lie.sqrt_rn(a.abs()), (_seeded(9, B, 64),)))
+    for fn, args in cases:
+        assert torch.equal(fn(*[a.to(cuda) for a in args]).cpu(), fn(*args))
+
+
+def test_addcmul_rounds_once_on_the_card(cuda):
+    """torch.addcmul on float32 CUDA tensors is a fused multiply-add: on 2^22
+    seeded triples it equals a * b + c taken in float64 and rounded once to
+    float32 (the two can differ only where the float64 value is a float32
+    midpoint, left out), and it is not the product rounded before the add."""
+    a, b, c = (_seeded(s, 2 ** 22).to(cuda) for s in (1, 2, 3))
+    fused = torch.addcmul(c, a, b)
+    exact = a.double() * b.double() + c.double()
+    r = exact.float()
+    gap = exact - r.double()
+    other = torch.nextafter(r, torch.where(gap > 0, float("inf"), -float("inf")))
+    midpoint = (gap != 0) & (2 * gap.abs() == (other.double() - r.double()).abs())
+    assert torch.equal(fused[~midpoint], r[~midpoint])
+    assert not torch.equal(fused, a * b + c)
+
+
+@pytest.mark.parametrize("name", ["planar40", "ur10"])
+def test_check_distance_limits_rounds_as_on_the_cpu(cuda, name):
+    """check_distance_limits (dgp.pair_distances, sqrt_rn) on 8192 seeded
+    planar40 and UR10 configurations' positions with 1 mm of noise, and on
+    a violating set: the card's violations and verdicts are the CPU's, bit
+    for bit."""
+    from graphik_tpu_torch.robots.library import load_planar_chain
+
+    ps = load_planar_chain(40, limits=np.pi / 2)[1] if name == "planar40" else load_ur10()[1]
+    tpl = ps.template
+    rs = np.random.RandomState(41)
+    q = torch.tensor(rs.uniform(tpl.lb[1:], tpl.ub[1:], size=(8192, tpl.n)), dtype=torch.float32)
+    pos = ps.realization(q)
+    pos = pos + torch.tensor(1e-3 * rs.normal(size=pos.shape), dtype=torch.float32)
+    for P in (pos, 1.3 * pos):
+        v, ok = ps.check_distance_limits(P)
+        v_c, ok_c = ps.check_distance_limits(P.to(cuda))
+        assert torch.equal(v_c.cpu(), v) and torch.equal(ok_c.cpu(), ok)

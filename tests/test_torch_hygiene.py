@@ -24,6 +24,7 @@ PORT_FILES = sorted(
     for f in files if f.endswith(".py")
 ) + [os.path.join(ROOT, f) for f in ("chip_smoke.py", "tools/torch_distributed_worker.py",
                                       "tools/torch_edge_bench.py", "tools/torch_eigh_bench.py",
+                                      "tools/torch_spd_bench.py", "tools/kernel_trees.py",
                                       "tools/tr_f64_spread.py",
                                       "tools/torch_f64_card_cpu.py",
                                       "tools/card_cpu_stages.py",

@@ -51,11 +51,8 @@ REPEAT = 16  # B = 131,072
 SEED = 0
 PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 KERNELS = {"cost_grad": "cost_grad_kernel", "hess": "hess_kernel"}
-
-
-def smi(query):
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import kernel_trees  # noqa: E402  (beside this script)
 
 
 def edge_flops(N, d, E):
@@ -188,7 +185,7 @@ def child(label, tree, inputs, flushes, calls, flush_by):
     for key, (kernel, fn) in fns.items():
         dev = device_times(fn, KERNELS[kernel], flushes, flush_by)
         res[key].update(device_ms=statistics.median(dev), device_ms_min=min(dev),
-                        device_events=len(dev), sm_clock=smi("clocks.sm"))
+                        device_events=len(dev), sm_clock=kernel_trees.smi("clocks.sm"))
     print(json.dumps(res))
 
 
@@ -214,8 +211,8 @@ def main():
     if not torch.cuda.is_available():
         print("torch_edge_bench: no CUDA device", file=sys.stderr)
         return 2
-    trees = [t.split("=", 1) for t in (args.tree or ["change=."])]
-    card = smi("name,power.limit")
+    trees = kernel_trees.trees(args.tree, "change=.")
+    card = kernel_trees.smi("name,power.limit")
     print(f"card: {card}", flush=True)
     make_inputs(args.inputs)
     ps, ep = ur10_problem()
@@ -223,9 +220,7 @@ def main():
               for k in KERNELS for B in (B_PATH, B_PATH * REPEAT)}
     for key, (ms, by, nbytes) in bounds.items():
         print(f"bound {key}: {ms * 1e3:.2f} us ({by}; {nbytes / 1e6:.1f} MB)", flush=True)
-    order = []
-    for r in range(args.reps):
-        order += trees if r % 2 == 0 else trees[::-1]
+    order = kernel_trees.alternate(trees, args.reps)
     runs = []
     for label, tree in order:
         cmd = [sys.executable, os.path.abspath(__file__), "--child", f"{label}={tree}",

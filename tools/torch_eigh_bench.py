@@ -9,9 +9,9 @@ what each tree's kernel compiles to.
 A tree is a directory holding `graphik_tpu_torch/csrc/eigh*.cu` (for example
 the parent commit's, unpacked with `git archive HEAD graphik_tpu_torch | tar
 -x -C build/dev/parent`). Each tree's eigh*.cu are compiled with this tree's
-nvcc flags, one nvcc process a source (ops/_build.py compile_library), into
-a library under build/eigh_bench/<label>/ and loaded with ctypes; its C
-entry point `graphik_sym_eigh` has not changed since it was written.
+nvcc flags, one nvcc process a source, into a library under
+build/eigh_bench/<label>/ and called through its C entry point
+`graphik_sym_eigh`, unchanged since it was written (tools/kernel_trees.py).
 `--wide-warps 1,2` also builds each tree that has csrc/eigh_wide.cuh with
 every instance past n = 32 at one and at two warps a matrix
 (-DGRAPHIK_EIGH_WIDE_WARPS), labelled <label>_nw1, <label>_nw2: the
@@ -55,8 +55,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import ctypes
-import glob
 import gzip
 import hashlib
 import json
@@ -64,32 +62,14 @@ import os
 import re
 import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+import kernel_trees  # noqa: E402  (beside this script)
+
 REPS = 20  # launches a timing
 SEED = 0
 SIZES_B = 8192
-
-
-def smi(query):
-    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-
-
-def build(label, tree, flags=()):
-    """(library path, nvcc seconds, nvcc's output) of the tree's K5 sources,
-    csrc/eigh*.cu, each by its own nvcc process, with `flags` added."""
-    from graphik_tpu_torch.ops._build import compile_library
-
-    out_dir = os.path.join(ROOT, "build", "eigh_bench", label)
-    os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, "libeigh.so")
-    srcs = sorted(glob.glob(os.path.join(tree, "graphik_tpu_torch", "csrc", "eigh*.cu")))
-    t0 = time.perf_counter()
-    log = compile_library(srcs, lib, flags)
-    return lib, time.perf_counter() - t0, log
 
 
 def sass_classes(lines):
@@ -171,10 +151,7 @@ class Kernel:
     """One tree's graphik_sym_eigh, with outputs preallocated per input."""
 
     def __init__(self, lib):
-        self.lib = ctypes.CDLL(lib)
-        fn = self.lib.graphik_sym_eigh
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        self.entry = kernel_trees.Entry(lib, "graphik_sym_eigh", 4, 3)
         self.out = {}
 
     def __call__(self, A):
@@ -187,11 +164,7 @@ class Kernel:
                              torch.empty((B, n, n), dtype=A.dtype, device=A.device),
                              torch.empty((B,), dtype=torch.int32, device=A.device))
         w, V, conv = self.out[key]
-        rc = self.lib.graphik_sym_eigh(A.data_ptr(), w.data_ptr(), V.data_ptr(), conv.data_ptr(),
-                                       B, n, int(A.dtype == torch.float64),
-                                       torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"eigh kernel launch failed: cudaError {rc}")
+        self.entry((A, w, V, conv), (B, n, int(A.dtype == torch.float64)))
         return w, V, conv
 
 
@@ -225,27 +198,23 @@ def main():
         return 2
     import chip_smoke
 
-    trees = [t.split("=", 1) for t in (args.tree or ["this=."])]
+    trees = kernel_trees.trees(args.tree)
     builds = [(label, tree, ()) for label, tree in trees]
     for k in [int(x) for x in args.wide_warps.split(",") if x]:
         builds += [(f"{label}_nw{k}", tree, (f"-DGRAPHIK_EIGH_WIDE_WARPS={k}",))
                    for label, tree in trees if os.path.exists(
                        os.path.join(tree, "graphik_tpu_torch", "csrc", "eigh_wide.cuh"))]
-    card = smi("name,power.limit")
+    card = kernel_trees.smi("name,power.limit")
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda:0")
     record = {"card": card, "trees": {}}
     kernels = {}
     for label, tree, flags in builds:
-        lib, secs, log = build(label, os.path.abspath(tree), flags)
+        lib, entry = kernel_trees.build("eigh_bench", label, tree, "eigh*.cu", flags)
         kernels[label] = Kernel(lib)
-        entry = {"tree": tree, "flags": list(flags), "build_s": secs,
-                 "ptxas": {k: {"registers": r, "smem": s, "spill_stores": sp}
-                           for k, (r, s, sp) in chip_smoke.parse_ptxas(log).items()}}
         if args.sass_dir:
             entry["sass"] = sass_report(lib, label, args.sass_dir)
         record["trees"][label] = entry
-        print(f"{label}: built in {secs:.2f} s; {json.dumps(entry)}", flush=True)
 
     paths = chip_smoke.eigh_path_inputs(dev, torch.Generator(device="cpu").manual_seed(SEED))
     inputs = [("occupancy", f"{tag} B={B}", A[:B].contiguous())
@@ -262,9 +231,7 @@ def main():
                            torch.tensor(X + X.transpose(0, 2, 1), dtype=dt, device=dev)))
 
     labels = [label for label, _, _ in builds]
-    order = []
-    for _ in range(args.turns):
-        order += labels + labels[::-1]
+    order = kernel_trees.alternate(labels, 2 * args.turns)
     rows = []
     for group, tag, A in inputs:
         B, n = A.shape[0], A.shape[-1]
@@ -289,7 +256,7 @@ def main():
               + ("" if sweeps is None else f"; {sweeps['mean_sweeps']:.3f} sweeps a matrix, "
                  f"Jacobi {sweeps['jacobi_ms']:.3f} ms"), flush=True)
     record["rows"] = rows
-    record["card_after"] = smi("name,power.limit,clocks.sm,temperature.gpu")
+    record["card_after"] = kernel_trees.smi("name,power.limit,clocks.sm,temperature.gpu")
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "eigh_bench.json"), "w") as f:
         json.dump(record, f)

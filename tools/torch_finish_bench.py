@@ -8,8 +8,12 @@ source trees on the same inputs, in turns, on one GPU.
 A tree is a directory that holds a `graphik_tpu_torch` package and the
 robot specs it reads (for example the parent commit's, unpacked with
 `git archive HEAD graphik_tpu_torch graphik_tpu/robots/specs | tar -x -C
-build/dev/parent`). Each tree runs in its own process, in the order
-A B B A A B ..., and each run makes the same inputs from a seed: B = 8192
+build/dev/parent`); `--lm-parent LABEL=PATH` adds a tree whose LM polish
+runs with utils/lie.py's helpers in their earlier forms (small products by
+`@`, torch's norms, libm's float32 sqrt, sin, cos and atan2:
+tools/card_cpu_stages.py `lm_forms`), the finish before the polish as it
+is. Each tree runs in its own process, in turns A B C C B A ... (`--turns`
+passes), and each run makes the same inputs from a seed: B = 8192
 goals for the UR10 path (10-step polish), the table path (UR10 + 100
 spheres, the augmented-Lagrangian polish) and planar40
 (load_planar_chain(40, limits=pi/2), 10-step polish), and solved-looking
@@ -22,26 +26,33 @@ rate and a hash of q (equal hashes mean bitwise-equal results), and from
 one more call under torch.profiler the host launches (CUDA API calls that
 start device work, a graph launch counting one), the device kernels, and
 among them the LM's solves: K6 (spd_solve_kernel) and the library's
-Cholesky factor and triangular solves (potrf, trsm); at the end, for each
+Cholesky factor and triangular solves (potrf, trsm), the device kernels of
+the same finish without the polish (so the LM's share is the difference),
+and the MiB its solver's graph pools hold (the caching allocator's segments of those
+pools, after the warm call captured the finish); at the end, for each
 tree and path, the quartiles of its runs' medians. The last line is one
 JSON object. Without a CUDA device it exits 2.
 
     python tools/torch_finish_bench.py --ops --tree parent=build/dev/parent --tree change=.
 
 counts instead, on the CPU with B = 64, the top-level aten operators one
-finish call of each path dispatches (torch.profiler): on the card each is
+finish call of each path dispatches, with the polish and without
+(torch.profiler): on the card each is
 at least one kernel launch, the cost the finish stage is bound by.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
 import subprocess
 import sys
 import time
+
+import kernel_trees  # beside this script
 
 B = 8192
 B_OPS = 64
@@ -88,7 +99,16 @@ def launch_counts(fn):
             "trsm_kernels": sum(bool(re.search("trsm", n, re.I)) for n in kernels)}
 
 
-def run_one(reps, ops=False):
+def pool_mib(solver):
+    """MiB held by the memory pools of the solver's CUDA graphs."""
+    import torch
+
+    pools = {tuple(p) for p in solver.graphs.pools.values()}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) in pools) / 2 ** 20
+
+
+def run_one(reps, ops=False, lm_parent=False):
     import numpy as np
     import torch
 
@@ -105,81 +125,102 @@ def run_one(reps, ops=False):
     dev, B_ = ("cpu", B_OPS) if ops else ("cuda", B)
     out = {}
     ps_40 = load_planar_chain(40, limits=np.pi / 2)[1]
+    if lm_parent:
+        import card_cpu_stages
+
+        def forms():
+            return card_cpu_stages.lm_forms(card_cpu_stages.LM_VARIANTS["parent"])
+    else:
+        forms = contextlib.nullcontext
     for name, structure in zip(PATHS, (ps, ps_t, ps_40)):
-        solver = api.make_solver(structure, polish_params=LocalParams(maxiter=10, tol_grad=1e-8),
-                                 smooth_iters=2)
-        T_goal, q = api.random_goals(structure, (B_,), gen, dtype=torch.float32, device=dev)
-        noise = torch.randn((B_, structure.N, structure.dim), generator=gen).to(dev)
-        zero = torch.zeros(B_, device=dev)
-        sol = {"Y": structure.realization(q) + 1e-3 * noise, "cost": zero, "gradnorm": zero,
-               "iterations": zero.int(), "num_inner": zero.int()}
-        res = solver.finish(sol, T_goal)  # warm call
-        if ops:
-            out[name] = {"aten_ops": count_ops(lambda: solver.finish(sol, T_goal))}
-            continue
-        walls = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = solver.finish(sol, T_goal)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        out[name] = {"finish_ms_median": float(np.median(walls)), "finish_ms": walls,
-                     "success": api.summarize(res)["success_rate"],
-                     "q_sha256": hashlib.sha256(res["q"].cpu().numpy().tobytes()).hexdigest()[:16],
-                     **launch_counts(lambda: solver.finish(sol, T_goal))}
+        with forms():  # every finish call of the path, the captured one included
+            kw = dict(polish_params=LocalParams(maxiter=10, tol_grad=1e-8), smooth_iters=2)
+            solver = api.make_solver(structure, **kw)
+            no_polish = api.make_solver(structure, polish=False, **kw)
+            T_goal, q = api.random_goals(structure, (B_,), gen, dtype=torch.float32, device=dev)
+            noise = torch.randn((B_, structure.N, structure.dim), generator=gen).to(dev)
+            zero = torch.zeros(B_, device=dev)
+            sol = {"Y": structure.realization(q) + 1e-3 * noise, "cost": zero, "gradnorm": zero,
+                   "iterations": zero.int(), "num_inner": zero.int()}
+            res = solver.finish(sol, T_goal)  # warm call: runs the finish, then captures it
+            if ops:
+                out[name] = {"aten_ops": count_ops(lambda: solver.finish(sol, T_goal)),
+                             "aten_ops_pre_polish": count_ops(
+                                 lambda: no_polish.finish(sol, T_goal))}
+                continue
+            walls = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solver.finish(sol, T_goal)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            out[name] = {"finish_ms_median": float(np.median(walls)), "finish_ms": walls,
+                         "success": api.summarize(res)["success_rate"],
+                         "q_sha256": hashlib.sha256(
+                             res["q"].cpu().numpy().tobytes()).hexdigest()[:16],
+                         "graph_pool_mib": pool_mib(solver),
+                         **launch_counts(lambda: solver.finish(sol, T_goal))}
+            no_polish.finish(sol, T_goal)
+            out[name]["pre_polish_kernels"] = launch_counts(
+                lambda: no_polish.finish(sol, T_goal))["device_kernels"]
     return out
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--tree", action="append", default=[], help="label=path (default: this tree)")
+    p.add_argument("--lm-parent", action="append", default=[], metavar="LABEL=PATH",
+                   help="a tree whose LM runs on the earlier forms of lie's helpers")
     p.add_argument("--reps", type=int, default=5)
-    p.add_argument("--turns", type=int, default=4, help="runs in all, trees in turn A B B A ...")
+    p.add_argument("--turns", type=int, default=2,
+                   help="passes over the trees, in turns A B C C B A ...")
     p.add_argument("--ops", action="store_true",
                    help="count each path's aten operators per finish call on the CPU")
     p.add_argument("--child", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--child-lm-parent", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.child:
-        print(json.dumps(run_one(args.reps, args.ops)))
+        print(json.dumps(run_one(args.reps, args.ops, args.child_lm_parent)))
         return 0
     import numpy as np
     import torch
 
-    trees = [t.split("=", 1) for t in args.tree] or [["this", "."]]
+    trees = [(label, path, False) for label, path in kernel_trees.trees(args.tree)]
+    trees += [(*t.split("=", 1), True) for t in args.lm_parent]
     if args.ops:
         counts = {label: json.loads(subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", label, "--ops"],
+            [sys.executable, os.path.abspath(__file__), "--child", label, "--ops"]
+            + ["--child-lm-parent"] * lm,
             env=dict(os.environ, PYTHONPATH=os.path.abspath(path)), cwd=os.path.abspath(path),
             capture_output=True, text=True, check=True).stdout.strip().splitlines()[-1])
-            for label, path in trees}
+            for label, path, lm in trees}
         print(json.dumps({"B": B_OPS, "device": "cpu", "aten_ops": counts}))
         return 0
     if not torch.cuda.is_available():
         print("torch_finish_bench: no CUDA device", file=sys.stderr)
         return 2
-    order = []
-    for i in range(args.turns):
-        pair = trees if (i // 2) % 2 == 0 else trees[::-1]
-        order.append(pair[i % len(pair)] if len(trees) > 1 else trees[0])
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    order = kernel_trees.alternate(trees, args.turns)
+    card = kernel_trees.smi("name,power.limit")
     runs = []
-    for label, path in order:
+    for label, path, lm in order:
         env = dict(os.environ, PYTHONPATH=os.path.abspath(path))
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", label,
-                              "--reps", str(args.reps)], env=env, cwd=os.path.abspath(path),
-                             capture_output=True, text=True, check=True)
+                              "--reps", str(args.reps)] + ["--child-lm-parent"] * lm, env=env,
+                             cwd=os.path.abspath(path), capture_output=True, text=True,
+                             check=True)
         r = json.loads(res.stdout.strip().splitlines()[-1])
         runs.append({"tree": label, **r})
         print(f"{label}: " + ", ".join(f"{k} {v['finish_ms_median']:.1f} ms (success "
                                        f"{v['success']:.4f}, q {v['q_sha256']}; host launches "
-                                       f"{v['host_launches']}, kernels {v['device_kernels']}: "
+                                       f"{v['host_launches']}, kernels {v['device_kernels']} "
+                                       f"({v['pre_polish_kernels']} before the polish): "
                                        f"K6 {v['k6_kernels']}, potrf {v['potrf_kernels']}, "
-                                       f"trsm {v['trsm_kernels']})"
+                                       f"trsm {v['trsm_kernels']}; graph pools "
+                                       f"{v['graph_pool_mib']:.1f} MiB)"
                                        for k, v in r.items()), flush=True)
     summary = {}  # tree -> path -> quartiles of the runs' medians
-    for label, _ in trees:
+    for label, _, _ in trees:
         for path in PATHS:
             meds = [r[path]["finish_ms_median"] for r in runs if r["tree"] == label]
             q = np.percentile(meds, [25, 50, 75]).tolist()
