@@ -180,29 +180,37 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      the paths): on the card, against its plain version bitwise, every
      matrix, with every converged flag set, the residual and orthogonality
      under EIGH_RES and the eigenvalues within EIGH_EIG of torch.linalg.eigh
+     (both past n = 64 in proportion to n)
      on the card: UR10's prepare Gram and edge scatter at B = 8192 (float32
      and float64), planar6, planar10, KUKA iiwa, the tree and the table's
      Nr = 16 at B = 1000, dense CIDGIK's lifted Z (s = 13) and the sparse
      path's padded clique blocks at B = 1024 (float32 and float64), and
      seeded random matrices at n = 2, 3, 31, 32, 42, 43, 64 (past 32 the
-     wide instances, csrc/eigh_wide.cuh) and with equal diagonals at n =
-     13, and each path's matrices at the batch it launches
-     (`eigh_path_inputs`: UR10, planar6, planar10, KUKA iiwa, planar40 (n
-     = 43), dh19 (n = 42) at B = 8192, the tree's 3 x 1000, CIDGIK's
-     Fantope inputs at B = 1024; float32 and float64); UR10's first 501
+     wide instances, csrc/eigh_wide.cuh), 84, 103, 128 (past 64 the block
+     kernel, csrc/eigh_block.cu; B = 300) and with equal diagonals at n =
+     13, and
+     each path's matrices at the batch it launches (`eigh_path_inputs`:
+     UR10, planar6, planar10, KUKA iiwa, planar40 (n = 43), dh19 (n = 42),
+     planar100 (n = 103), dh40 (n = 84) at B = 8192, the tree's 3 x 1000,
+     CIDGIK's Fantope inputs at B = 1024; float32 and float64; past n = 64
+     torch.linalg.eigh's eigenvalues and time on the first EIGH_LIB_B
+     matrices, the time scaled to the batch); UR10's first 501
      Grams bitwise the same alone; K5's, torch.linalg.eigh's and the plain
      version's times at UR10's shape beside the bound, K5's on the first
      1024-8192 of UR10's and planar40's Grams (occupancy), and K5's and
      torch.linalg.eigh's on each path's matrices beside their bounds, past
-     n = 32 with the mean sweeps a matrix (`eigh_sweeps`) and, in the log
+     n = 32 with the mean sweeps a matrix (the plain version's) and, in the log
      only, the Jacobi's own operation count (`jacobi_ms`).
  20. robots past 32 nodes and anchor rows past 1024 (run after phase 17,
      before phase 18; `large_structures`): planar40 (N = 43, d = 2, E = 89:
      the TR kernel at two nodes a lane, 3 edges a lane), dh19 (a 19-DoF DH
      chain, N = 42, E = 126: two nodes a lane, 4 edges a lane), both with
      full bound smoothing, and ur10_table192 (UR10 + a 192-sphere table:
-     A = 1152 anchor rows), each with the UR10 path's other parameters: the kernel instance's registers and
-     spills; the TR kernel against its plain version on the path's
+     A = 1152 anchor rows), and past 64 nodes planar100 (N = 103, d = 2, E
+     = 209: four nodes a lane, 7 edges a lane) and dh40 (a 40-DoF DH chain,
+     N = 84, d = 3, E = 272: four nodes a lane, 9 edges a lane) with full
+     bound smoothing, each with the UR10 path's other parameters: the
+     kernel instance's registers and spills; the TR kernel against its plain version on the path's
      prepared inputs at B = 1000 (one step, then the production params'
      100 steps, every lane bitwise equal) and one step at
      B = 8192; make_solver at B = 8192 (one warm call, 2 timed calls with
@@ -220,7 +228,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      iiwa, LWA4D, planar6, planar10, the tree's 3 x 1000, planar40, dh19
      at float32, UR10 at float64, dense CIDGIK's finish at B = 1024) and on
      random SPD, ill-conditioned (J^T J + 1e-12 I, J 3 x m), indefinite and
-     NaN systems at m = 3, 33, 64 (`spd_random`, float32 and float64);
+     NaN systems at m = 3, 33, 64, 128 (`spd_random`, float32 and float64),
+     with planar100's (m = 100) and dh40's (m = 40) LM systems among the
+     paths';
      K6's time beside its bound (`spd_bound`) and beside cholesky_ex and
      two solve_triangular on the same inputs (what the port ran before);
      the plain version's time and batch invariance at UR10's shape. Every
@@ -299,6 +309,11 @@ FLOORS = {
     # 1.96 sqrt(0.0194 (1 - 0.0194) / 8192) = 0.0030
     "dh19": 0.016,
     "ur10_table192": 0.757,         # 803 / 1000 [0.7772, 0.8265]
+    # past 64 nodes, full bound smoothing (large_structures)
+    "planar100": 0.043,             # 79 / 1000 [0.0638, 0.0974] ("edge" backend)
+    # dh40: 13 / 1000 [0.0076, 0.0221] ("edge"); as dh19, the lower end less
+    # 1.96 sqrt(0.0076 (1 - 0.0076) / 8192) = 0.0019
+    "dh40": 0.005,
 }
 B_TREE = 1000
 # the edge kernels' second batch: the UR10 inputs repeated 16 times, so that
@@ -387,9 +402,29 @@ EIGH_EIG = {"f32": 2e-5, "f64": 1e-12}
 # paths by their tags in `eigh_path_inputs`, each float32 and float64
 EIGH_OCCUPANCY_B = (1024, 2048, 4096, 8192)
 EIGH_OCCUPANCY_PATHS = ("ur10 G", "planar40 G")
+# past n = 64, torch.linalg.eigh's eigenvalues and time on the first this
+# many matrices of a stack (it takes ~1.2-1.8 ms a matrix at n = 66-128)
+EIGH_LIB_B = 1024
 # the CUDA API calls (runtime cuda*, low-level cu*) by which the host starts device work
 HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                      "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync"}
+
+
+def eigh_res_tol(key, n):
+    """EIGH_RES past n = 64 in proportion to n, as the residual grows: the
+    plain version's float32 residual and orthogonality reach 2.4e-5 and
+    2.7e-5 at n = 128 on the CPU (8 random matrices, n = 84 / 103: up to
+    1.6e-5 / 2.1e-5); the bound stays EIGH_RES[key] at n <= 64."""
+    return EIGH_RES[key] * max(1.0, n / 64)
+
+
+def eigh_eig_tol(key, n):
+    """EIGH_EIG past n = 64 in proportion to n, on the same basis as
+    `eigh_res_tol` (two float32 eigensolvers each a few ulps times n of
+    ||A||_F apart from the exact values; on the card planar40's Gram, n =
+    43, is 1.28e-5 from torch.linalg.eigh's and planar100's, n = 103,
+    2.70e-5); the bound stays EIGH_EIG[key] at n <= 64."""
+    return EIGH_EIG[key] * max(1.0, n / 64)
 
 
 def bound(flops, nbytes):
@@ -427,17 +462,17 @@ def tr_bytes(N, d, E, B):
     return B * (2 * N * d * 4 + E * 4 + 16)
 
 
-def dh19_template():
-    """dh19, the 19-DoF DH chain of tools/torch_parity.py: a ~ U(0.1, 0.5),
-    d ~ U(0, 0.3), alpha from {-pi/2, 0, pi/2}, drawn in that order from
-    RandomState(19); theta = 0, joint limits +-pi/2."""
+def dh_template(n):
+    """dh<n> (dh19, dh40), the n-DoF DH chain of tools/torch_parity.py: a ~
+    U(0.1, 0.5), d ~ U(0, 0.3), alpha from {-pi/2, 0, pi/2}, drawn in that
+    order from RandomState(n); theta = 0, joint limits +-pi/2."""
     from graphik_tpu_torch.robots.templates import revolute_from_dh
 
-    rs = np.random.RandomState(19)
-    a = rs.uniform(0.1, 0.5, 19)
-    d = rs.uniform(0.0, 0.3, 19)
-    alpha = rs.choice([-np.pi / 2, 0.0, np.pi / 2], 19)
-    return revolute_from_dh(a, alpha, d, np.zeros(19), lb=-np.pi / 2, ub=np.pi / 2)
+    rs = np.random.RandomState(n)
+    a = rs.uniform(0.1, 0.5, n)
+    d = rs.uniform(0.0, 0.3, n)
+    alpha = rs.choice([-np.pi / 2, 0.0, np.pi / 2], n)
+    return revolute_from_dh(a, alpha, d, np.zeros(n), lb=-np.pi / 2, ub=np.pi / 2)
 
 
 def large_structures():
@@ -447,15 +482,26 @@ def large_structures():
     two squarings, which bound paths of up to 4 edges, a long chain's far
     pairs keep the unbounded placeholder and the MDS init is far off
     scale), ur10_table192 (UR10 + the table at n_width = n_height = 12:
-    192 spheres, 6 x 192 = 1152 anchor rows) with two, as UR10's path."""
+    192 spheres, 6 x 192 = 1152 anchor rows) with two, as UR10's path;
+    past 64 nodes, with full bound smoothing, planar100
+    (load_planar_chain(100, limits=pi/2): N = 103, E = 209, 100 joints)
+    and dh40 (N = 84, E = 272, 40 joints)."""
     from graphik_tpu_torch.graphs.problem import ProblemStructure
     from graphik_tpu_torch.robots.library import load_planar_chain, load_ur10
     from graphik_tpu_torch.utils.environments import table_environment
 
     return [("planar40", load_planar_chain(40, limits=np.pi / 2)[1], None),
-            ("dh19", ProblemStructure.from_template(dh19_template()), None),
+            ("dh19", ProblemStructure.from_template(dh_template(19)), None),
             ("ur10_table192", ProblemStructure.from_template(
-                load_ur10()[0], obstacles=table_environment(n_width=12, n_height=12)), 2)]
+                load_ur10()[0], obstacles=table_environment(n_width=12, n_height=12)), 2),
+            ("planar100", load_planar_chain(100, limits=np.pi / 2)[1], None),
+            ("dh40", ProblemStructure.from_template(dh_template(40)), None)]
+
+
+def past32_structures():
+    """large_structures' anchor-free paths: planar40, dh19, planar100,
+    dh40."""
+    return [s for s in large_structures() if s[1].n_obstacles == 0]
 
 
 def sparse_eig_bound(eig_sum):
@@ -1109,15 +1155,6 @@ def eigh_bound(n, B, dtype):
     return (t_op, "operations") if t_op >= t_b else (t_b, "bytes")
 
 
-def eigh_sweeps(A):
-    """K5's sweeps on the stack A, counted by its plain version on A's
-    device: {"mean_sweeps", "max_sweeps"}."""
-    from graphik_tpu_torch.ops.eigh import sym_eigh_reference
-
-    ran = sym_eigh_reference(A, sweeps=True)[3].reshape(-1)
-    return {"mean_sweeps": float(ran.double().mean()), "max_sweeps": int(ran.max())}
-
-
 def jacobi_ms(n, B, dtype, mean_sweeps):
     """The Jacobi's own operation count for B matrices at `mean_sweeps`
     sweeps a matrix over the card's non-tensor rate of the type: 9 m^2 (m -
@@ -1148,7 +1185,8 @@ def eigh_path_inputs(dev, gen):
     """(tag, stack) of each matrix shape K5 meets on a path, at the batch
     the path launches it, float32 and float64: prepare's Gram (B = 8192:
     UR10 n = 16, planar6 n = 9, planar10 n = 13, KUKA iiwa n = 18, planar40
-    n = 43, dh19 n = 42; the tree's 3 restarts of 1000 goals, n = 14) and
+    n = 43, dh19 n = 42, planar100 n = 103 and dh40 n = 84 (these two
+    float32 only); the tree's 3 restarts of 1000 goals, n = 14) and
     CIDGIK's Fantope inputs at B_CIDGIK (dense Z, n = 13; the sparse path's
     3 clique blocks a goal, n = 9)."""
     import torch
@@ -1166,7 +1204,9 @@ def eigh_path_inputs(dev, gen):
                                  ("planar10", load_planar_chain(10, limits=np.pi / 2)[1], B_MAIN, 2),
                                  ("tree_restarts3", load_tree5()[1], 3 * B_TREE, 2),
                                  ("kuka_iiwa", load_kuka()[1], B_MAIN, 2),
-                                 *((tag, ps_l, B_MAIN, sm) for tag, ps_l, sm in large_structures()[:2])):
+                                 *((tag, ps_l, B_MAIN, sm) for tag, ps_l, sm in past32_structures())):
+            if dt == torch.float64 and ps_e.N > 64:
+                continue  # float32 paths; the random stacks hold K5's float64 past 64
             T_e = api.random_goals(ps_e, (B,), gen, dtype=dt, device=dev)[0]
             out.append((f"{tag} G {key}", prepare_matrices(api.Solver(ps_e, smooth_iters=sm),
                                                            T_e)[0]))
@@ -1210,8 +1250,10 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
     `cases` and `path_inputs`: K5 against its plain version (ops/eigh.py
     sym_eigh_reference) bitwise, every matrix (eigenvalues, eigenvectors,
     flags), every flag set; ||A - V diag(w) V^T||_F / ||A||_F and max
-    |V^T V - I| under EIGH_RES; the eigenvalues within EIGH_EIG ||A||_F of
-    torch.linalg.eigh on the card. On UR10's Gram at B = 8192 (ur10_G,
+    |V^T V - I| under EIGH_RES (past n = 64 in proportion to n,
+    `eigh_res_tol`); the eigenvalues within EIGH_EIG ||A||_F of
+    torch.linalg.eigh on the card (past n = 64 in proportion to n,
+    `eigh_eig_tol`). On UR10's Gram at B = 8192 (ur10_G,
     float32 and float64): its first 501 matrices bitwise the same alone,
     the times of K5 (CUDA events), torch.linalg.eigh and the plain version
     beside the bound. On each of `path_inputs` (each path's matrices at the
@@ -1230,11 +1272,16 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
     t_phase = time.perf_counter()
     shapes = []
     err = 0.0
+    sweeps = {}  # the plain version's sweeps a matrix past n = 32, by stack
     for tag, A in cases + path_inputs:
         key = "f64" if A.dtype == torch.float64 else "f32"
         w, V, conv = sym_eigh_cuda(A)
-        w_p, V_p, conv_p = sym_eigh_reference(A)
+        w_p, V_p, conv_p, ran = sym_eigh_reference(A, sweeps=True)
         sync(dev)
+        if A.shape[-1] > 32:
+            ran = ran.reshape(-1)
+            sweeps[id(A)] = {"mean_sweeps": float(ran.double().mean()),
+                             "max_sweeps": int(ran.max())}
         same = bool(torch.equal(w, w_p) and torch.equal(V, V_p) and torch.equal(conv, conv_p))
         err = max(err, float((w - w_p).abs().max()), float((V - V_p).abs().max()))
         n = A.shape[-1]
@@ -1244,16 +1291,22 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
                      / scale).max())
         orth = float((Vd.transpose(-1, -2) @ Vd - torch.eye(n, dtype=torch.float64, device=dev))
                      .abs().max())
-        d_lib = float(((wd - torch.linalg.eigvalsh(A).double()).abs() / scale[..., None]).max())
+        # past n = 64 torch.linalg.eigh takes ~1.5 ms a matrix: the first
+        # EIGH_LIB_B matrices
+        nl = EIGH_LIB_B if n > 64 else A.shape[0]
+        d_lib = float(((wd[:nl] - torch.linalg.eigvalsh(A[:nl]).double()).abs()
+                       / scale[:nl][..., None]).max())
         n_conv = int(conv.sum())
         log(f"[19] {tag}: {tuple(A.shape)} {key}: K5 bitwise its plain version {same}; converged "
             f"{n_conv}/{conv.numel()}; residual {res:.2e}, max |V^T V - I| {orth:.2e} (<= "
-            f"{EIGH_RES[key]:.0e}); eigenvalues against torch.linalg.eigh {d_lib:.2e} of "
-            f"||A||_F (<= {EIGH_EIG[key]:.0e})")
+            f"{eigh_res_tol(key, n):.1e}); eigenvalues against torch.linalg.eigh "
+            f"{d_lib:.2e} of "
+            f"||A||_F (<= {eigh_eig_tol(key, n):.1e}, the first {nl})")
         check(same, f"{tag}: K5 differs from its plain version")
         check(n_conv == conv.numel(), f"{tag}: a matrix did not converge")
-        check(res <= EIGH_RES[key] and orth <= EIGH_RES[key], f"{tag}: residual or orthogonality")
-        check(d_lib <= EIGH_EIG[key], f"{tag}: eigenvalues apart from torch.linalg.eigh's")
+        check(res <= eigh_res_tol(key, n) and orth <= eigh_res_tol(key, n),
+              f"{tag}: residual or orthogonality")
+        check(d_lib <= eigh_eig_tol(key, n), f"{tag}: eigenvalues apart from torch.linalg.eigh's")
         shapes.append({"case": tag, "shape": list(A.shape), "dtype": key, "bitwise": same,
                        "residual": res, "orthogonality": orth, "eig_vs_library": d_lib})
     timing = {}
@@ -1278,17 +1331,25 @@ def eigh_phase(dev, cases, ur10_G, path_inputs):
     paths = []
     for tag, A in path_inputs:
         B, n = A.shape[0], A.shape[-1]
-        ms = event_ms(lambda: sym_eigh_cuda(A), 20)
+        ms = event_ms(lambda: sym_eigh_cuda(A), 20 if n <= 64 else 3)
         # past n = 32 torch.linalg.eigh takes seconds a call at B = 8192: one
         # timed call, warmed by the eigenvalue check's torch.linalg.eigvalsh
-        # on this stack above
-        ms_lib = (event_ms(lambda: torch.linalg.eigh(A), 5) if n <= 32
-                  else event_ms(lambda: torch.linalg.eigh(A), 1, warm=False))
+        # on this stack above; past 64 on the first EIGH_LIB_B matrices
+        # (~1.5 ms a matrix), its time at B scaled by B / EIGH_LIB_B
+        if n <= 32:
+            ms_lib = event_ms(lambda: torch.linalg.eigh(A), 5)
+        elif n <= 64:
+            ms_lib = event_ms(lambda: torch.linalg.eigh(A), 1, warm=False)
+        else:
+            A_l = A[:EIGH_LIB_B].contiguous()
+            ms_lib = event_ms(lambda: torch.linalg.eigh(A_l), 1, warm=False) * B / EIGH_LIB_B
         b = eigh_bound(n, B, A.dtype)
         rec = {"case": tag, "B": B, "n": n, "ms": ms, "library_ms": ms_lib, "bound_ms": b[0],
                "bound_by": b[1]}
+        if n > 64:
+            rec["library_B"] = EIGH_LIB_B
         if n > 32:
-            rec.update(eigh_sweeps(A))
+            rec.update(sweeps[id(A)])
         if tag.rsplit(" ", 1)[0] in EIGH_OCCUPANCY_PATHS:
             rec["occupancy_ms"] = {
                 B_o: event_ms(lambda X=A[:B_o].contiguous(): sym_eigh_cuda(X), 20)
@@ -1373,9 +1434,10 @@ def spd_random(m, B, dtype, gen, dev):
 def spd_cases(dev, gen):
     """(tag, A, b) of phase 21: each path's LM systems at the batch its
     polish hands K6 (`lm_systems`: UR10, KUKA iiwa, LWA4D, planar6,
-    planar10, the tree's 3 x 1000 restarts, planar40, dh19 at float32, UR10
-    at float64, dense CIDGIK's finish at B_CIDGIK), then random systems at
-    m = 3, 33, 64 (`spd_random`, B_MAIN, float32 and float64)."""
+    planar10, the tree's 3 x 1000 restarts, planar40, dh19, planar100,
+    dh40 at float32, UR10 at float64, dense CIDGIK's finish at B_CIDGIK),
+    then random systems at m = 3, 33, 64, 128 (`spd_random`, B_MAIN,
+    float32 and float64)."""
     import torch
 
     from graphik_tpu_torch.robots.library import (
@@ -1392,10 +1454,10 @@ def spd_cases(dev, gen):
              ("tree_restarts3", *lm_systems(load_tree5()[1], 3 * B_TREE, torch.float32, gen,
                                             dev)),
              *((tag, *lm_systems(ps_l, B_MAIN, torch.float32, gen, dev))
-               for tag, ps_l, _ in large_structures()[:2]),
+               for tag, ps_l, _ in past32_structures()),
              ("ur10_f64", *lm_systems(ps_u, B_F64, torch.float64, gen, dev)),
              ("ur10_cidgik", *lm_systems(ps_u, B_CIDGIK, torch.float32, gen, dev))]
-    for m in (3, 33, 64):
+    for m in (3, 33, 64, 128):
         for dt in (torch.float32, torch.float64):
             cases.append((f"random m={m}", *spd_random(m, B_MAIN, dt, gen, dev)))
     return cases
@@ -1405,10 +1467,11 @@ def spd_phase(dev, gen):
     """Phase 21: K6 (csrc/spd_solve.cu), the LM's clamped-pivot solve, on
     the card. For each path's LM systems at the batch its polish hands
     K6 (`lm_systems`: UR10, KUKA iiwa, LWA4D, planar6, planar10, the tree's
-    3 x 1000 restarts, planar40, dh19 at float32, UR10 at float64, dense
-    CIDGIK's finish at B_CIDGIK) and for random systems at m = 3, 33, 64
-    (`spd_random`, B_MAIN, float32 and float64): K6 against its plain
-    version (ops/linalg.py spd_solve_reference) bitwise, NaN where the
+    3 x 1000 restarts, planar40, dh19, planar100, dh40 at float32, UR10 at
+    float64, dense CIDGIK's finish at B_CIDGIK) and for random systems at
+    m = 3, 33, 64, 128 (`spd_random`, B_MAIN, float32 and float64): K6
+    against its plain version (ops/linalg.py spd_solve_reference) bitwise,
+    NaN where the
     plain version has NaN; K6's time (CUDA events) beside its bound and
     beside the library's cholesky_ex and two solve_triangular on the same
     inputs (what the port ran before: not the same function, its pivots
@@ -2491,8 +2554,9 @@ def main() -> int:
             q = api.random_goals(ps, (B_CIDGIK,), gen, dtype=dt, device=dev)[1]
             cases += [("ur10_cidgik Z", lifted_noisy(ps, q, False, gen)),
                       ("ur10_cidgik_sparse blocks", lifted_noisy(ps, q, True, gen))]
-            for n in (2, 3, 31, 32, 42, 43, 64):
-                X = rs.normal(size=(B_CHECK, n, n))
+            for n in (2, 3, 31, 32, 42, 43, 64, 84, 103, 128):
+                # past 64, 300 matrices: the plain version takes seconds there
+                X = rs.normal(size=(B_CHECK if n <= 64 else 300, n, n))
                 cases.append((f"random n={n}", torch.tensor(X + X.transpose(0, 2, 1), dtype=dt,
                                                             device=dev)))
             # equal diagonals: a rotation's theta is +-0 (t takes its sign bit)
@@ -2890,8 +2954,13 @@ def main() -> int:
         solver_l = api.make_solver(ps_l, params=prod, polish_params=polish, smooth_iters=smooth)
         shape_l = tr_solve.kernel_shape(ep_l, B_MAIN, ps_l.dim)
         W_l = 16 if shape_l["two_per_warp"] else 32
-        inst = (f"tr_kernel<{ps_l.dim},{-(-ep_l.E // W_l)},{W_l},{-(-ep_l.N // 32)},"
-                f"{int(anchored)}>")
+        # node slots a lane: 1 up to 32 nodes, 2 up to 64 (at most 256
+        # edges), else 4 (csrc/tr_solve.cu dispatch)
+        npl = 1 if ep_l.N <= 32 and ep_l.E <= 256 else (
+            2 if ep_l.N <= 64 and ep_l.E <= 256 else 4)
+        epl = -(-ep_l.E // W_l)
+        inst = (f"tr_wide_kernel<{ps_l.dim},{epl},{int(anchored)}>" if npl == 4 else
+                f"tr_kernel<{ps_l.dim},{epl},{W_l},{npl},{int(anchored)}>")
         regs, smem, spill = ptxas[inst]
         log(f"[20] {tag}: N = {ps_l.N}, solve nodes {ep_l.N}, d = {ps_l.dim}, E = {ep_l.E}, "
             f"A = {ep_l.A} ({ep_l.a_nsel} groups of {ep_l.a_R}); {inst}: {regs} registers, "

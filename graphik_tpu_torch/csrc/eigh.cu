@@ -1,4 +1,4 @@
-// K5: batched symmetric eigendecomposition of small matrices (n <= 64), in
+// K5: batched symmetric eigendecomposition of small matrices (n <= 128), in
 // float32 or float64, for NVIDIA Hopper (sm_90a).
 //
 // Replaces no Pallas kernel: the JAX package's jitted prepare stage calls
@@ -83,15 +83,23 @@
 // eigh_wide_f64.cu, each source its own nvcc process): the same design with
 // h = 17 ... 32 pairs a warp, (c, sigma) broadcast through shared memory,
 // V^T in shared memory, and a matrix's columns split over two warps where
-// its rows would not fit in registers (that file's head comment).
+// its rows would not fit in registers (that file's head comment). Past n =
+// 64 (m = 66 ... 128: robots past 64 nodes) the instances of
+// csrc/eigh_block.cu: two pairs a lane, a block a matrix, its columns split
+// over its warps, one kernel a type for every m.
 
 #include "eigh_common.cuh"
 
-// the instances past m = 32 (csrc/eigh_wide.cuh): the launch's cudaError_t
+// the instances past m = 32 (csrc/eigh_wide.cuh) and the kernels past m =
+// 64 (csrc/eigh_block.cu): the launch's cudaError_t
 extern "C" int graphik_sym_eigh_wide_f32(const void* A, void* W, void* V, void* conv, int B,
                                          int n, cudaStream_t stream);
 extern "C" int graphik_sym_eigh_wide_f64(const void* A, void* W, void* V, void* conv, int B,
                                          int n, cudaStream_t stream);
+extern "C" int graphik_sym_eigh_block_f32(const void* A, void* W, void* V, void* conv, int B,
+                                          int n, cudaStream_t stream);
+extern "C" int graphik_sym_eigh_block_f64(const void* A, void* W, void* V, void* conv, int B,
+                                          int n, cudaStream_t stream);
 
 namespace {
 
@@ -378,8 +386,14 @@ cudaError_t launch_n(const void* A, void* W, void* V, void* conv, int B, int n,
     default: break;
   }
   // 34 <= m <= 64: the instances of csrc/eigh_wide.cuh, one source a type
-  const int err = sizeof(T) == 8 ? graphik_sym_eigh_wide_f64(A, W, V, conv, B, n, st)
-                                 : graphik_sym_eigh_wide_f32(A, W, V, conv, B, n, st);
+  int err;
+  if (n <= 64)
+    err = sizeof(T) == 8 ? graphik_sym_eigh_wide_f64(A, W, V, conv, B, n, st)
+                         : graphik_sym_eigh_wide_f32(A, W, V, conv, B, n, st);
+  // 66 <= m <= 128: csrc/eigh_block.cu, one kernel a type
+  else
+    err = sizeof(T) == 8 ? graphik_sym_eigh_block_f64(A, W, V, conv, B, n, st)
+                         : graphik_sym_eigh_block_f32(A, W, V, conv, B, n, st);
   return static_cast<cudaError_t>(err);
 }
 
@@ -387,12 +401,12 @@ cudaError_t launch_n(const void* A, void* W, void* V, void* conv, int B, int n,
 
 // A (B, n, n) -> eigenvalues W (B, n), eigenvectors V (B, n, n) as columns,
 // converged flags conv (B,) int32; float64 when is_double, else float32;
-// 1 <= n <= 64. Launches on `stream` of the current device; returns the
+// 1 <= n <= 128. Launches on `stream` of the current device; returns the
 // launch's cudaError_t.
 extern "C" int graphik_sym_eigh(const void* A, void* W, void* V, void* conv, int B, int n,
                                 int is_double, void* stream) {
   if (B <= 0) return 0;
-  if (n < 1 || n > 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > 128) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_double ? launch_n<double>(A, W, V, conv, B, n, st)
                                     : launch_n<float>(A, W, V, conv, B, n, st);

@@ -1,5 +1,5 @@
 // K6: the LM polish's damped solve x = A^-1 b for a batch of small SPD
-// systems (m <= 64), float32 or float64, for NVIDIA Hopper (sm_90a).
+// systems (m <= 128), float32 or float64, for NVIDIA Hopper (sm_90a).
 //
 // Replaces no Pallas kernel: the JAX package's LM step is
 // graphik_tpu/solvers/local.py `step = -spd_solve_unrolled(H, g)`
@@ -39,7 +39,7 @@
 //   branches) and factors left-looking, each s_ij a chain of j products;
 //   b and x a thread reads and writes itself. A block is one warp, so 8192
 //   systems are 256 blocks over the 132 SMs.
-// * m > 10 (dh19's 19, planar40's 40, up to 64): a warp a system, its
+// * m > 10 (dh19's 19, planar40's 40, planar100's 100, up to 128): a warp a system, its
 //   packed triangle in shared memory, staged by one coalesced pass, and
 //   factored left-looking by panels of kPanel columns: first every sum of
 //   the panel's columns over the columns before the panel (rows j..m-1 of
@@ -49,10 +49,13 @@
 //   shuffle, a row a lane. (Taking every sum of a column in its row's lane
 //   would make the column wait for its last row's chain of j products,
 //   with the lanes of the rows above it idle.) The substitutions keep a
-//   lane's rows (lane l: l and, past m = 32, l + 32) in registers and
-//   broadcast each solved entry by a shuffle. Shared memory is t(m) +
-//   kPanel m values a warp (t(a) = a (a + 1) / 2): up to 4 warps a block
-//   within 48 KB.
+//   lane's rows (lane l: l, l + 32, ...: ROWS = 1 up to m = 32, 2 up to
+//   64, 4 up to 128) in registers and broadcast each solved entry by a
+//   shuffle. Shared memory is t(m) + kPanel m values a warp (t(a) = a (a +
+//   1) / 2): up to 4 warps a block within 48 KB (34 KB a warp at m = 128
+//   in float32); a warp's share past 48 KB (float64 past m = 106: 68 KB at
+//   m = 128) takes a block of its own, with the dynamic shared-memory
+//   opt-in.
 
 #include <cuda_runtime.h>
 
@@ -67,7 +70,7 @@
 namespace {
 
 constexpr int kMaxWarps = 4;            // warps a block of the warp kernel
-constexpr int kSmemBudget = 48 * 1024;  // static-launch shared memory a block
+constexpr int kSmemBudget = 48 * 1024;  // shared memory a block without the opt-in
 // columns a panel of the warp kernel (2 and 8 were slower at m = 19-64,
 // PERF.md section 6)
 constexpr int kPanel = 4;
@@ -394,6 +397,13 @@ cudaError_t launch_warp(const void* A, const void* b, void* x, int B, int m,
   const int per_warp = (tri(m) + kPanel * m) * static_cast<int>(sizeof(T));
   int warps = kSmemBudget / per_warp;
   warps = warps < kMaxWarps ? warps : kMaxWarps;
+  if (warps < 1) {
+    // one warp a block past 48 KB
+    warps = 1;
+    const cudaError_t err = cudaFuncSetAttribute(
+        warp_spd_solve_kernel<T, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize, per_warp);
+    if (err != cudaSuccess) return err;
+  }
   const int blocks = (B + warps - 1) / warps;
   warp_spd_solve_kernel<T, ROWS><<<blocks, warps * 32, warps * per_warp, stream>>>(
       static_cast<const T*>(A), static_cast<const T*>(b), static_cast<T*>(x), B, m, warps);
@@ -401,24 +411,25 @@ cudaError_t launch_warp(const void* A, const void* b, void* x, int B, int m,
 }
 
 // the instance of each m: a thread a system up to 8 and up to 10, a warp
-// up to 32 and up to 64
+// up to 32, up to 64 and up to 128
 template <typename T>
 cudaError_t launch_m(const void* A, const void* b, void* x, int B, int m, cudaStream_t st) {
   if (m <= 8) return launch_thread<T, 8>(A, b, x, B, m, st);
   if (m <= 10) return launch_thread<T, 10>(A, b, x, B, m, st);
-  return m <= 32 ? launch_warp<T, 1>(A, b, x, B, m, st) : launch_warp<T, 2>(A, b, x, B, m, st);
+  if (m <= 32) return launch_warp<T, 1>(A, b, x, B, m, st);
+  return m <= 64 ? launch_warp<T, 2>(A, b, x, B, m, st) : launch_warp<T, 4>(A, b, x, B, m, st);
 }
 
 }  // namespace
 
 // A (B, m, m) (its lower triangle read), b (B, m) -> x (B, m) with A x = b by
 // the clamped-pivot Cholesky; float64 when is_double, else float32;
-// 1 <= m <= 64. Launches on `stream` of the current device; returns the
+// 1 <= m <= 128. Launches on `stream` of the current device; returns the
 // launch's cudaError_t.
 extern "C" int graphik_spd_solve(const void* A, const void* b, void* x, int B, int m,
                                  int is_double, void* stream) {
   if (B <= 0) return 0;
-  if (m < 1 || m > 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || m > 128) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_double ? launch_m<double>(A, b, x, B, m, st)
                                     : launch_m<float>(A, b, x, B, m, st);

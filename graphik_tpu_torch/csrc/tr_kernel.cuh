@@ -16,8 +16,10 @@
 // against, in the kernel's summation order.
 //
 // Instances: tr_kernel<D, EPL, W, NPL, HAS_A>, D = 2 or 3, EPL = ceil(E / W)
-// edges a lane (up to 8: E <= 256), W = 16 or 32 lanes an instance, NPL =
-// ceil(N / 32) node slots a lane (up to 2: N <= 64).
+// edges a lane (up to 8 at N <= 64: E <= 256; up to 16 past 64 nodes: E <=
+// 512), W = 16 or 32 lanes an instance, NPL node slots a lane: 1 up to 32
+// nodes, 2 up to 64; at 4 (up to 128 nodes) tr_wide_kernel<D, EPL, HAS_A>,
+// the same body (tr_instance) with its own launch bounds.
 //
 // What bounds it on the card. One UR10 instance is N = 16 nodes x d = 3
 // coordinates and E = 64 edges: every tCG step is a Hessian-vector product
@@ -64,6 +66,16 @@
 //   (ops/edge.py lane_sum). The edge tables and scatter buffers are sized
 //   by the instance (EdgeTablesT<32 NPL, max(128, EPL W)>), so the
 //   instances up to 32 nodes and 128 edges keep their footprint.
+// * Past 64 nodes (NPL = 4: planar100's N = 103, E = 209; dh40's N = 84, E
+//   = 272) a lane holds nodes l, l + 32, l + 64, l + 96, and a node sum
+//   adds the slots below ceil(N / 32) in that order (+0 for an absent
+//   node), the plain version's. Eight state vectors of 4 D values a lane
+//   and up to 16 edges a lane would not fit a thread's 255 registers with
+//   the per-edge state beside them, so these instances keep only the node
+//   slots in registers: the per-edge state (goal distances, the Hessian's
+//   Y-terms) sits in the warp's slice of dynamic shared memory, endpoints
+//   come from the block's tables, and an edge loop first stages the vector
+//   it reads in shared memory (csrc/edge_warp.cuh, Warp::kShared).
 // * Anchors (HAS_A). The anchor rows come grouped by node (group g: a_R
 //   rows of node u_g); the tables (centers, 4 parameters, group nodes) sit
 //   in dynamic shared memory. Each group's rows are spread over the 32
@@ -99,14 +111,16 @@
 
 namespace graphik {
 
-// Sizes the build takes: nodes (NPL <= 2), edges (EPL <= 8), anchor rows
+// Sizes the build takes: nodes (NPL <= 4), edges (EPL <= 16), anchor rows
 // (their tables, (D + 4) A + a_nsel + 384 a_nsel words, fit the H100's 227
 // KB of a block's shared memory beside the largest instance's 21.3 KB of
-// edge tables and scatter buffers at any a_nsel <= 64), and the rows of one
-// anchor group (a lane's 32-bit row masks hold its T = ceil(a_R / 32) rows
-// of a group).
-constexpr int kMaxNodes = 64;
-constexpr int kMaxEdges = 256;
+// edge tables and scatter buffers at any a_nsel <= 64 up to 64 nodes; past
+// 64 nodes the launch raises where they and the instance's edge state do
+// not fit: planar100 with six rings, a_nsel = 100 and A = 800, takes 211
+// KB), and the rows of one anchor group (a lane's 32-bit row masks hold
+// its T = ceil(a_R / 32) rows of a group).
+constexpr int kMaxNodes = 128;
+constexpr int kMaxEdges = 512;
 constexpr int kMaxA = 3072;
 constexpr int kMaxGroupRows = 1024;
 
@@ -148,6 +162,12 @@ __host__ __device__ constexpr int sym_idx(int D, int i, int j) {
 }
 
 __device__ __forceinline__ unsigned low_bits(int n) { return n >= 32 ? kFull : (1u << n) - 1u; }
+
+// The words of a block's anchor tables in dynamic shared memory (0 without
+// anchors): centers, parameters, group nodes and each warp's row masks.
+__host__ __device__ inline size_t anchor_words(int D, int A, int a_nsel) {
+  return A > 0 ? (size_t)(D + 4) * A + a_nsel + (size_t)kWarpsPerBlock * 3 * a_nsel * 32 : 0;
+}
 
 // The block's anchor tables in shared memory, and this warp's row masks.
 template <int D>
@@ -210,6 +230,13 @@ __device__ __forceinline__ float node_value(const Warp<D, EPL, W, NPL>& c, const
                                             int u) {
   if constexpr (NPL == 1) {
     return __shfl_sync(kFull, x[0], c.base + u);
+  } else if constexpr (NPL == 4) {
+    // u is the same on every lane: each takes slot u / 32 by selects
+    float v = x[0];
+#pragma unroll
+    for (int s = 1; s < NPL; ++s)
+      if ((u >> 5) == s) v = x[s];
+    return __shfl_sync(kFull, v, u & 31);
   } else {
     const float lo = __shfl_sync(kFull, x[0], u & 31), hi = __shfl_sync(kFull, x[1], u & 31);
     return u >= 32 ? hi : lo;
@@ -217,11 +244,18 @@ __device__ __forceinline__ float node_value(const Warp<D, EPL, W, NPL>& c, const
 }
 
 // The sum over the segment's nodes of x (one a node slot): a lane adds its
-// slots in order (an absent node in slot 1 adds +0), then the butterfly.
+// slots in order (an absent node adds +0; at NPL = 4 the slots below
+// ceil(N / 32), as ops/edge.py lane_sum), then the butterfly.
 template <int D, int EPL, int W, int NPL>
 __device__ __forceinline__ float nodes_sum(const Warp<D, EPL, W, NPL>& c, const float (&x)[NPL]) {
   float p = x[0];
   if constexpr (NPL == 2) p = p + (c.has_hi ? x[1] : 0.f);
+  if constexpr (NPL == 4) {
+    const int slots = (c.n_nodes + 31) >> 5;
+#pragma unroll
+    for (int s = 1; s < NPL; ++s)
+      if (s < slots) p = p + (c.has(s) ? x[s] : 0.f);
+  }
   return node_sum<W>(p);
 }
 
@@ -344,7 +378,7 @@ __device__ void cost_grad(const Warp<D, EPL, W, NPL>& c, const Anchors<D>& a,
 // reduced Lyapunov system and, with anchors, this lane's K_g and sigma_g.
 template <int D, int EPL, int NPL, bool HAS_A>
 struct Hvp {
-  EdgeHvp<D, EPL> e;
+  EdgeHvp<D, NPL == 4 ? 1 : EPL> e;  // NPL = 4: in shared memory (unused here)
   float l11, l21, l31, l22, l32, l33;  // d == 3; d == 2 keeps only l11
   // the anchored node of each slot: K_g (upper triangle) and sigma_g
   float aK[HAS_A ? NPL : 1][HAS_A ? sym_count(D) : 1], asig[HAS_A ? NPL : 1];
@@ -596,12 +630,13 @@ __device__ void tcg(const Warp<D, EPL, W, NPL>& c, const AnchorLane<D, NPL>& al,
 }
 
 template <int D, int EPL, int W, int NPL, bool HAS_A>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32) tr_kernel(Problem pr, Params P) {
+__device__ __forceinline__ void tr_instance(Problem pr, Params P) {
   using Seg = Warp<D, EPL, W, NPL>;
   __shared__ typename Seg::Tables s_t;
   __shared__ float s_w[kWarpsPerBlock][D * Seg::kME];
   // anchor tables: centers [D][A], parameters [4][A], group nodes [a_nsel],
-  // then each warp's row masks [3][a_nsel][32]
+  // then each warp's row masks [3][a_nsel][32]; then, at NPL = 4, each
+  // warp's Seg::kWide floats of edge state
   extern __shared__ float s_anchor[];
 
   load_edge_tables(s_t, pr.ei, pr.ej, pr.epar, pr.rowptr, pr.inc, pr.N, pr.E);
@@ -626,7 +661,10 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) tr_kernel(Problem pr, Par
   __syncthreads();
 
   Seg c;
-  c.init_tables(s_t, s_w[warp], pr.N, pr.E);
+  float* wide = nullptr;
+  if constexpr (Seg::kShared)
+    wide = s_anchor + anchor_words(D, pr.A, pr.a_nsel) + warp * Seg::kWide;
+  c.init_tables(s_t, s_w[warp], pr.N, pr.E, wide);
   const int N = pr.N;
   AnchorLane<D, NPL> al{};
   if constexpr (HAS_A) {
@@ -648,7 +686,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) tr_kernel(Problem pr, Par
   float Y[NPL][D];
 #pragma unroll
   for (int s = 0; s < NPL; ++s) {
-    const bool has = s == 0 ? c.has_node : c.has_hi;
+    const bool has = c.has(s);
 #pragma unroll
     for (int k = 0; k < D; ++k)
       Y[s][k] = live && has ? pr.Y0[((size_t)b * N + c.lane + 32 * s) * D + k] : 0.f;
@@ -668,10 +706,11 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) tr_kernel(Problem pr, Par
     float cnt[2] = {0.f, 0.f}, acc[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < EPL; ++j) {
-      if (c.edge[j] >= 0) {
+      const int e = c.edge_at(j);
+      if (e >= 0) {
         const bool hi = Seg::hi(j);
-        cnt[hi] = cnt[hi] + c.p(0, c.edge[j]);
-        acc[hi] = acc[hi] + c.p(0, c.edge[j]) * c.dg[j];
+        cnt[hi] = cnt[hi] + c.p(0, e);
+        acc[hi] = acc[hi] + c.p(0, e) * c.goal(j);
       }
     }
     r_floor = seg_sum<W>(acc[0], acc[1]) / jmax(seg_sum<W>(cnt[0], cnt[1]), 1.f);
@@ -747,7 +786,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) tr_kernel(Problem pr, Par
   if (live) {
 #pragma unroll
     for (int s = 0; s < NPL; ++s) {
-      if (s == 0 ? c.has_node : c.has_hi) {
+      if (c.has(s)) {
 #pragma unroll
         for (int q = 0; q < D; ++q) pr.Yout[((size_t)b * N + c.lane + 32 * s) * D + q] = Y[s][q];
       }
@@ -761,23 +800,38 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) tr_kernel(Problem pr, Par
   }
 }
 
+template <int D, int EPL, int W, int NPL, bool HAS_A>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32) tr_kernel(Problem pr, Params P) {
+  tr_instance<D, EPL, W, NPL, HAS_A>(pr, P);
+}
+
+// Four node slots a lane, with a floor of one block an SM: without it ptxas
+// held some of these instances to 128 or 168 registers and spilled.
+template <int D, int EPL, bool HAS_A>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
+    tr_wide_kernel(Problem pr, Params P) {
+  tr_instance<D, EPL, 32, 4, HAS_A>(pr, P);
+}
+
 // Whether two instances share a warp: N <= 16, E <= 64 and the 16-lane
 // segment's row slots of a group fit in a 32-bit mask.
 inline bool paired(int N, int E, int A, int a_R) {
   return N <= 16 && E <= 64 && (A == 0 || (a_R + 31) / 32 <= 16);
 }
 
-inline size_t anchor_smem(int D, int A, int a_nsel) {
-  return A > 0 ? ((size_t)(D + 4) * A + a_nsel + (size_t)kWarpsPerBlock * 3 * a_nsel * 32) * 4
-               : 0;
-}
+inline size_t anchor_smem(int D, int A, int a_nsel) { return anchor_words(D, A, a_nsel) * 4; }
 
 // Launch (when go is true) one segment per instance; info[0..2] = blocks
 // launched, blocks resident on the card at once, instances per block.
 template <int D, int EPL, int W, int NPL, bool HAS_A>
 int launch(const Problem& pr, const Params& P, cudaStream_t stream, bool go, int* info) {
-  auto kern = tr_kernel<D, EPL, W, NPL, HAS_A>;
-  const size_t smem = anchor_smem(D, pr.A, pr.a_nsel);
+  void (*kern)(Problem, Params);
+  if constexpr (NPL == 4)
+    kern = tr_wide_kernel<D, EPL, HAS_A>;
+  else
+    kern = tr_kernel<D, EPL, W, NPL, HAS_A>;
+  const size_t smem = anchor_smem(D, pr.A, pr.a_nsel) +
+                      (size_t)kWarpsPerBlock * Warp<D, EPL, W, NPL>::kWide * 4;
   cudaError_t err = cudaSuccess;
   if (smem > 0)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -825,5 +879,7 @@ int launch_e256(const Problem& pr, int D, int epl, const Params& P, cudaStream_t
                 int* info);
 int launch_n64(const Problem& pr, int D, int epl, const Params& P, cudaStream_t s, bool go,
                int* info);
+int launch_n128(const Problem& pr, int D, int epl, const Params& P, cudaStream_t s, bool go,
+                int* info);
 
 }  // namespace graphik

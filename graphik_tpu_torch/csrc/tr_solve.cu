@@ -2,8 +2,10 @@
 // edges (one node a lane, up to 4 edges a lane: EPL <= 4, W = 16 or 32);
 // the kernel itself, what it replaces and why it is built as it is are in
 // csrc/tr_kernel.cuh. Larger problems dispatch to csrc/tr_solve_e256.cu
-// (N <= 32, 128 < E <= 256) and csrc/tr_solve_n64.cu /
-// csrc/tr_solve_n64_e256.cu (32 < N <= 64, two nodes a lane).
+// (N <= 32, 128 < E <= 256), csrc/tr_solve_n64.cu /
+// csrc/tr_solve_n64_e256.cu (32 < N <= 64, two nodes a lane) and
+// csrc/tr_solve_n128*.cu (four nodes a lane: 64 < N <= 128, or any N with
+// 256 < E <= 512).
 //
 // The entry point allocates nothing, launches on the caller's stream and
 // returns cudaGetLastError().
@@ -24,6 +26,7 @@ int dispatch(const Problem& pr, int D, const Params& P, cudaStream_t s, bool go,
     return static_cast<int>(cudaErrorInvalidValue);
   const bool two = paired(pr.N, pr.E, pr.A, pr.a_R);
   const int epl = two ? (pr.E + 15) / 16 : (pr.E + 31) / 32;
+  if (pr.N > 2 * kMaxN || epl > 8) return launch_n128(pr, D, epl, P, s, go, info);
   if (pr.N > kMaxN) return launch_n64(pr, D, epl, P, s, go, info);
   if (epl > 4) return launch_e256(pr, D, epl, P, s, go, info);
   return two ? launch_range<16, 1, 1, 4>(pr, D, epl, P, s, go, info)

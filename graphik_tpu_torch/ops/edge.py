@@ -37,7 +37,7 @@ _SUBLANE = 8  # edge and anchor-block counts pad to a multiple of this
 
 # Shapes the build of K1 / K2 covers (csrc/edge_kernel.cuh kEdgeMaxN /
 # kEdgeMaxE: two node slots a lane past 32 nodes, up to 8 edges a lane at
-# W = 32), the TR kernel's too (ops/tr_solve.py MAX_N / MAX_E). Goal
+# W = 32; the TR kernel takes more, ops/tr_solve.py MAX_N / MAX_E). Goal
 # distances are read at a stride of at most MAX_E.
 MAX_N = 64
 MAX_E = 256

@@ -1,4 +1,5 @@
-"""K5: the batched symmetric eigendecomposition of small matrices (n <= 64).
+"""K5: the batched symmetric eigendecomposition of small matrices (n <= 128
+on a card, any n on the CPU).
 
 The JAX package calls jnp.linalg.eigh inside its jitted prepare stage
 (graphik_tpu/utils/dgp.py, the MDS init) and inside CIDGIK's Fantope step
@@ -10,19 +11,21 @@ port's eigendecompositions go through this module instead:
   (cyclic Jacobi, a lane a rotation pair: m/2 lanes a matrix, m = n rounded
   up to even, one kernel instance per m and type; A's rows in registers,
   past n = 32 (csrc/eigh_wide.cuh) with V^T in shared memory and, where
-  the rows would not fit, a matrix's columns split over two warps):
-  float32 or float64 CUDA tensors, n <= 64; counts its launches in
-  `sym_eigh_cuda.launches`.
+  the rows would not fit, a matrix's columns split over two warps; past
+  n = 64 (csrc/eigh_block.cu) a block a matrix, two pairs a lane, the
+  columns split over its warps, one kernel a type for every m): float32 or float64 CUDA tensors,
+  n <= 128; counts its launches in `sym_eigh_cuda.launches`.
   Returns (eigenvalues, eigenvectors, converged), the flags on the device.
 * `sym_eigh_reference(A)` - the plain torch version: the kernel's Jacobi
   step for step (the same pairs, rotations, stop test, sort and sign), on
-  any device. On a card its results are the kernel's bit for bit (torch's
+  any device and at any n. On a card its results are the kernel's bit for bit (torch's
   CUDA sqrt and division are correctly rounded, as the kernel's are; its
   CPU sqrt is not always, so CPU results may differ from the card's in the
   last bit).
 * `sym_eigh(A)` - (eigenvalues, eigenvectors): the kernel for CUDA tensors,
-  the plain version for CPU tensors. It raises for n > 64, for another
-  dtype, or when the build or the launch fails; it never falls back.
+  the plain version for CPU tensors. On a card it raises for n > 128, and
+  anywhere for another dtype, or when the build or the launch fails; it
+  never falls back.
 
 The contract is torch.linalg.eigh's on a stack (..., n, n): eigenvalues
 ascending (ties in index order, NaN last), the orthonormal eigenvectors as
@@ -48,19 +51,20 @@ from typing import List
 
 import torch
 
-# the largest n the kernel takes (32 lanes a matrix, a lane a rotation pair)
-MAX_N = 64
+# the largest n the kernel takes (a lane a rotation pair up to 64, two
+# pairs a lane of a block's warps up to 128)
+MAX_N = 128
 # sweeps before a matrix stops unconverged (csrc/eigh.cu kMaxSweeps)
 MAX_SWEEPS = 30
 
 
-def _check(A):
+def _check(A, max_n=None):
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"sym_eigh takes float32 or float64, not {A.dtype}")
     if A.ndim < 2 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"sym_eigh takes a stack of square matrices, not {tuple(A.shape)}")
-    if A.shape[-1] > MAX_N:
-        raise ValueError(f"sym_eigh takes n <= {MAX_N}, not n = {A.shape[-1]}")
+    if max_n is not None and A.shape[-1] > max_n:
+        raise ValueError(f"sym_eigh's kernel takes n <= {max_n}, not n = {A.shape[-1]}")
 
 
 def _empty(A, batch, n):
@@ -70,10 +74,10 @@ def _empty(A, batch, n):
 
 def sym_eigh_cuda(A):
     """csrc/eigh.cu on a float32 / float64 CUDA stack A (..., n, n), n <=
-    64: (eigenvalues (..., n), eigenvectors (..., n, n), converged (...)
+    128: (eigenvalues (..., n), eigenvectors (..., n, n), converged (...)
     bool), all on A's device; one launch, added to
     `sym_eigh_cuda.launches`."""
-    _check(A)
+    _check(A, MAX_N)
     if A.device.type != "cuda":
         raise ValueError(f"sym_eigh_cuda takes a CUDA tensor, not one on {A.device}")
     batch, n = A.shape[:-2], A.shape[-1]
@@ -209,7 +213,7 @@ def _scripted_sweep():
 
 def sym_eigh_reference(A, sweeps=False):
     """The plain torch version of csrc/eigh.cu on A (..., n, n), float32
-    or float64, n <= 64, any device: (eigenvalues (..., n), eigenvectors
+    or float64, any n, any device: (eigenvalues (..., n), eigenvectors
     (..., n, n), converged (...) bool), the kernel's results step for
     step; with `sweeps`, also the sweeps each matrix ran (...) int64."""
     _check(A)
@@ -267,9 +271,9 @@ def sym_eigh_reference(A, sweeps=False):
 
 def sym_eigh(A):
     """(eigenvalues ascending, eigenvectors as columns) of the symmetric
-    stack A (..., n, n), float32 or float64, n <= 64, from its lower
-    triangle: csrc/eigh.cu for a CUDA tensor, the plain version for a CPU
-    one. The converged flags stay on the device (sym_eigh_cuda /
+    stack A (..., n, n), float32 or float64, from its lower triangle:
+    csrc/eigh.cu for a CUDA tensor (n <= 128), the plain version for a CPU
+    one (any n). The converged flags stay on the device (sym_eigh_cuda /
     sym_eigh_reference return them)."""
     if A.device.type == "cuda":
         w, V, _ = sym_eigh_cuda(A)

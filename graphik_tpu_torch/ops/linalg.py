@@ -20,13 +20,13 @@ reference's, so the port keeps them:
 * `spd_solve_cuda(A, b)` - wrapper of the hand-written CUDA kernel
   csrc/spd_solve.cu (K6: a thread a system up to m = 10, a warp a system
   past it, the factor and both substitutions in one launch): float32 or
-  float64 CUDA tensors, m <= 64; counts its launches in
+  float64 CUDA tensors, m <= 128; counts its launches in
   `spd_solve_cuda.launches`.
 * `spd_solve_reference(A, b)` - the plain torch version, the kernel's
-  arithmetic in the kernel's order, on any device.
+  arithmetic in the kernel's order, on any device and at any m.
 * `spd_solve(A, b)` - the kernel for CUDA tensors, the plain version for
-  CPU tensors; it raises past m = 64, for another dtype, or when the build
-  or the launch fails, and never falls back.
+  CPU tensors; on a card it raises past m = 128, and anywhere for another
+  dtype, or when the build or the launch fails; it never falls back.
 """
 
 from __future__ import annotations
@@ -61,30 +61,33 @@ def rowwise_sum(x, dims: int = 1):
     return x
 
 
-# the largest system K6 takes (two rows a lane of one warp)
-MAX_SPD = 64
+# the largest system K6 takes (four rows a lane of one warp)
+MAX_SPD = 128
 # the floor of a pivot's square (graphik_tpu/ops/linalg.py chol_unrolled)
 PIVOT_FLOOR = 1e-30
 
 
-def check_spd_limits(A, b):
+def check_spd_limits(A, b, max_m=None):
     """Raise unless A (..., m, m) and b (..., m) are one float32 or float64
-    stack of systems with 1 <= m <= MAX_SPD."""
+    stack of systems with 1 <= m (and m <= max_m when it is given: K6's
+    MAX_SPD)."""
     if A.dtype not in (torch.float32, torch.float64) or b.dtype != A.dtype:
         raise TypeError(f"spd_solve takes float32 or float64 A and b of one dtype, not "
                         f"{A.dtype} and {b.dtype}")
     if A.ndim < 2 or A.shape[-1] != A.shape[-2] or A.shape[:-1] != b.shape:
         raise ValueError(f"spd_solve takes A (..., m, m) and b (..., m), not {tuple(A.shape)} "
                          f"and {tuple(b.shape)}")
-    if not 1 <= A.shape[-1] <= MAX_SPD:
-        raise ValueError(f"spd_solve takes 1 <= m <= {MAX_SPD}, not m = {A.shape[-1]}")
+    if A.shape[-1] < 1:
+        raise ValueError(f"spd_solve takes 1 <= m, not m = {A.shape[-1]}")
+    if max_m is not None and A.shape[-1] > max_m:
+        raise ValueError(f"spd_solve's kernel takes m <= {max_m}, not m = {A.shape[-1]}")
 
 
 def spd_solve_cuda(A, b):
     """csrc/spd_solve.cu (K6) on float32 / float64 CUDA stacks A (..., m,
-    m), b (..., m), m <= 64: x = A^-1 b by the clamped-pivot Cholesky, from
-    A's lower triangle; one launch, added to `spd_solve_cuda.launches`."""
-    check_spd_limits(A, b)
+    m), b (..., m), m <= 128: x = A^-1 b by the clamped-pivot Cholesky,
+    from A's lower triangle; one launch, added to `spd_solve_cuda.launches`."""
+    check_spd_limits(A, b, MAX_SPD)
     if A.device.type != "cuda" or b.device != A.device:
         raise ValueError(f"spd_solve_cuda takes CUDA tensors on one device, not {A.device} "
                          f"and {b.device}")
@@ -112,7 +115,7 @@ spd_solve_cuda.launches = 0
 
 def spd_solve_reference(A, b):
     """The plain torch version of csrc/spd_solve.cu: x = A^-1 b for A (...,
-    m, m), b (..., m), float32 or float64, 1 <= m <= 64, any device, from
+    m, m), b (..., m), float32 or float64, any m >= 1, any device, from
     A's lower triangle, as graphik_tpu/ops/linalg.py spd_solve_unrolled
     computes it: the left-looking Cholesky with each pivot
     sqrt(max(a_jj - sum_k L_jk^2, 1e-30)) (NaN stays NaN), then the forward
@@ -153,9 +156,9 @@ def spd_solve_reference(A, b):
 
 def spd_solve(A, b):
     """x = A^-1 b for the stack A (..., m, m), b (..., m), float32 or
-    float64, m <= 64, by the clamped-pivot Cholesky from A's lower
-    triangle: csrc/spd_solve.cu (K6) for CUDA tensors, the plain version
-    for CPU tensors."""
+    float64, by the clamped-pivot Cholesky from A's lower triangle:
+    csrc/spd_solve.cu (K6) for CUDA tensors (m <= 128), the plain version
+    for CPU tensors (any m)."""
     if A.device.type == "cuda":
         return spd_solve_cuda(A, b)
     return spd_solve_reference(A, b)

@@ -21,7 +21,8 @@ Steihaug-Toint truncated CG. HVP: the edge-form Hessian, the anchored
 terms as 2 (K_u Z_u - sigma_u Z_u) per anchored node u (see csrc/
 tr_kernel.cuh), plus the horizontal projection as a reduced 3x3 Lyapunov
 Cholesky (scalar for d = 2). Sums over nodes follow the kernel's node
-slots past 32 nodes (ops/edge.py lane_sum).
+slots past 32 nodes (ops/edge.py lane_sum: lane l adds nodes l, l + 32,
+l + 64, ... in order).
 """
 
 from __future__ import annotations
@@ -43,12 +44,13 @@ _REACHED_TARGET = 2
 _MAX_INNER_ITER = 4
 
 # Sizes the kernel build covers (csrc/tr_kernel.cuh kMaxNodes, kMaxEdges,
-# kMaxA, kMaxGroupRows): nodes (two a lane past 32), edges (8 a lane),
-# anchor rows (their tables must fit a block's shared memory next to the
-# largest instance's edge tables) and the rows of one anchor group (a
-# lane's row masks are 32 bits: 32 rows a lane).
-MAX_N = 64
-MAX_E = 256
+# kMaxA, kMaxGroupRows): nodes (two a lane past 32, four past 64), edges
+# (16 a lane), anchor rows (their tables must fit a block's shared memory
+# next to the largest instance's edge tables) and the rows of one anchor
+# group (a lane's row masks are 32 bits: 32 rows a lane). The plain
+# version takes any size.
+MAX_N = 128
+MAX_E = 512
 _MAX_A = 3072
 _MAX_A_R = 1024
 

@@ -37,7 +37,7 @@ def gram_from_distance_matrix(D):
     merged (N, N) extent rounds, on a card, by each matrix's address (torch
     vectorises the loads of a contiguous extent past 128 elements and
     starts each at its own misalignment), so a goal's start would depend on
-    its batch position; a row holds N <= 64 values and is summed in one
+    its batch position; a row holds N <= 128 values and is summed in one
     order wherever it sits."""
     row = D.mean(dim=-1, keepdim=True)
     col = D.mean(dim=-2, keepdim=True)

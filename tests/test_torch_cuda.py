@@ -802,11 +802,15 @@ def test_anchored_past_1024_rows_bitwise(cuda):
 
 
 def test_tr_kernel_refuses_past_the_build(cuda):
-    """N = 65 and a group of 1032 anchor rows raise, naming the limit, on
-    CUDA tensors too."""
-    ep, Y0, dg = _synthetic(65, 3, 100, seed=1, device=cuda, B=4)
-    with pytest.raises(ValueError, match="N <= 64"):
+    """N = 129, E = 520 and a group of 1032 anchor rows raise, naming the
+    limit, on CUDA tensors too; no wrapper falls back to the plain
+    version."""
+    ep, Y0, dg = _synthetic(129, 3, 200, seed=1, device=cuda, B=4)
+    with pytest.raises(ValueError, match="N <= 128"):
         tr_solve.solve_tr_cuda(ep, Y0, dg, maxiter=1)
+    ep, Y0, dg = _synthetic(40, 3, 520, seed=1, device=cuda, B=4)
+    with pytest.raises(ValueError, match="E <= 512"):
+        tr_solve.solve_tr(ep, Y0, dg, maxiter=1)
     ep, Y0, dg = _synthetic(8, 3, 10, seed=1, device=cuda, B=4)
     big = _with_anchors(ep, Y0, rows=1032)
     with pytest.raises(ValueError, match="a_R <= 1024"):
@@ -819,11 +823,12 @@ def _symmetric(rs, B, n, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("n", list(range(1, 65)))
+@pytest.mark.parametrize("n", list(range(1, 129)))
 def test_sym_eigh_kernel_matches_plain(cuda, dtype, n):
     """K5 (csrc/eigh.cu) against its plain version on the card at every n
     it takes (one kernel instance per even m = n rounded up and type, past
-    n = 32 those of csrc/eigh_wide.cuh; odd n skips pair 0),
+    n = 32 those of csrc/eigh_wide.cuh, past 64 those of
+    csrc/eigh_block.cu, one kernel a type; odd n skips pair 0),
     301 random symmetric matrices (a ragged last block):
     eigenvalues, eigenvectors and flags bitwise equal, every matrix
     converged, one launch counted; eigenvalues within 1e-5 (f32) or 1e-12
@@ -914,9 +919,9 @@ def test_sym_eigh_kernel_leaves_padded_rows_alone(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("n", [34, 43, 64])
+@pytest.mark.parametrize("n", [34, 43, 64, 66, 103, 128])
 def test_sym_eigh_wide_matrices_stop_at_their_own_sweep(cuda, dtype, n):
-    """Past n = 32: diagonal matrices (no sweep) alternate with random ones
+    """Past n = 32 (and past 64, a block a matrix): diagonal matrices (no sweep) alternate with random ones
     (the most sweeps) and nearly diagonal ones, so that each block of the
     one-warp instances (two matrices a block) holds matrices that stop at
     different sweeps: K5 bitwise its plain version, every flag set, the
@@ -962,14 +967,15 @@ def test_sym_eigh_wide_leaves_padded_rows_alone(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("n", [33, 34, 63, 64])
+@pytest.mark.parametrize("n", [33, 34, 63, 64, 65, 66, 127, 128])
 @pytest.mark.parametrize("B", [1, 2, 3, 129])
 def test_sym_eigh_wide_ends_at_every_batch(cuda, dtype, n, B):
-    """The smallest and the largest m past 32 (34, 64; odd n skips pair 0)
-    in both types, whichever instances serve them (one warp a matrix, two a
-    block, or a matrix split over a block's two warps behind its named
-    barrier), at batches that leave a block half full: bitwise the plain
-    version, every flag set."""
+    """The smallest and the largest m past 32 and past 64 (34, 64, 66, 128;
+    odd n skips pair 0) in both types, whichever instances serve them (one
+    warp a matrix, two a block, a matrix split over a block's two warps
+    behind its named barrier, or past 64 a block of 5-8 warps a matrix), at
+    batches that leave a block half full: bitwise the plain version, every
+    flag set."""
     from graphik_tpu_torch.ops import eigh
 
     A = _symmetric(np.random.RandomState(1000 * n + B), B, n, dtype, cuda)
@@ -1451,9 +1457,10 @@ def test_loop_paths_one_goal_at_every_batch_position(cuda, name):
 # ---------------------------------------------------------------------------
 
 # every path's n (UR10 and planar6 6, KUKA iiwa and LWA4D 7, the tree 5,
-# planar10 10, dh19 19, planar40 40) and the instances' ends (a thread a
-# system up to 8 and 10, a warp up to 32 and 64)
-SPD_SIZES = [1, 3, 5, 6, 7, 8, 10, 11, 16, 19, 32, 33, 40, 64]
+# planar10 10, dh19 19, planar40 40, dh40 40, planar100 100) and the
+# instances' ends (a thread a system up to 8 and 10, a warp up to 32, 64
+# and 128; float64 past 106 a warp a block, with the shared-memory opt-in)
+SPD_SIZES = [1, 3, 5, 6, 7, 8, 10, 11, 16, 19, 32, 33, 40, 64, 65, 100, 106, 107, 128]
 
 
 def _spd_systems(m, dtype, device, B=1001, seed=0):
@@ -1511,13 +1518,15 @@ def test_spd_solve_kernel_matches_plain(cuda, dtype, m):
 
 
 def test_spd_solve_kernel_refuses(cuda):
-    """Past m = 64, a CPU tensor, an integer or a mixed dtype raise, naming
-    the limit or the dtype; an empty batch launches nothing."""
+    """Past m = 128 (through the dispatcher too: no fallback), a CPU
+    tensor, an integer or a mixed dtype raise, naming the limit or the
+    dtype; an empty batch launches nothing."""
     from graphik_tpu_torch.ops import linalg
 
-    A = torch.eye(65, device=cuda).expand(2, 65, 65)
-    with pytest.raises(ValueError, match="m <= 64"):
-        linalg.spd_solve_cuda(A, torch.ones(2, 65, device=cuda))
+    A = torch.eye(129, device=cuda).expand(2, 129, 129)
+    for fn in (linalg.spd_solve_cuda, linalg.spd_solve):
+        with pytest.raises(ValueError, match="m <= 128"):
+            fn(A, torch.ones(2, 129, device=cuda))
     with pytest.raises(ValueError, match="CUDA"):
         linalg.spd_solve_cuda(torch.eye(3).expand(2, 3, 3), torch.ones(2, 3))
     with pytest.raises(TypeError, match="float32 or float64"):
@@ -1533,9 +1542,9 @@ def test_spd_solve_kernel_refuses(cuda):
 
 
 def test_spd_solve_instances_do_not_spill(cuda):
-    """K6's eight instances (float32 / float64; a thread a system up to m = 8
-    and 10, a warp a system with one or two rows a lane) in the build's
-    ptxas log, none spilling."""
+    """K6's ten instances (float32 / float64; a thread a system up to m = 8
+    and 10, a warp a system with one, two or four rows a lane) in the
+    build's ptxas log, none spilling."""
 
     from graphik_tpu_torch.ops._build import library_path, load_library
 
@@ -1547,7 +1556,7 @@ def test_spd_solve_instances_do_not_spill(cuda):
         name = re.search(r"(\w*)spd_solve_kernelI([fd])Li(\d+)E", entry.split("'", 1)[0])
         if name:
             spills[name.groups()] = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
-    assert len(spills) == 8 and not any(spills.values()), spills
+    assert len(spills) == 10 and not any(spills.values()), spills
 
 
 @pytest.mark.parametrize("name", ["ur10", "table"])
@@ -1651,3 +1660,142 @@ def test_check_distance_limits_rounds_as_on_the_cpu(cuda, name):
         v, ok = ps.check_distance_limits(P)
         v_c, ok_c = ps.check_distance_limits(P.to(cuda))
         assert torch.equal(v_c.cpu(), v) and torch.equal(ok_c.cpu(), ok)
+
+
+# ---------------------------------------------------------------------------
+# Robots past 64 nodes: K3 / K4 at four node slots a lane, K5's block
+# kernels (csrc/eigh_block.cu) and K6 at four rows a lane
+# ---------------------------------------------------------------------------
+
+# (N, d, E) at four node slots a lane: every EPL from 1 to 16 (N = 68 ...
+# 128), and past 256 edges at N <= 64, which takes the same instances
+PAST64_SHAPES = ([(64 + 4 * e, d, 32 * e - 5) for e in range(1, 17) for d in (3, 2)]
+                 + [(60, 3, 300), (128, 3, 512), (128, 2, 512)])
+
+
+def _past64_structure(robot):
+    """planar100 (N = 103, d = 2, E = 209), dh40 (84 / 3 / 272), or
+    planar100 with ring_environment's six circles (Nr = 103, A = 800)."""
+    from graphik_tpu_torch.robots.library import load_planar_chain
+    from graphik_tpu_torch.utils.environments import ring_environment
+
+    if robot == "planar100":
+        return load_planar_chain(100, limits=np.pi / 2)[1]
+    if robot == "planar100_ring6":
+        tpl = load_planar_chain(100, limits=np.pi / 2)[0]
+        return ProblemStructure.from_template(tpl, obstacles=ring_environment())
+    return ProblemStructure.from_template(_dh_chain(int(robot[2:])))
+
+
+@pytest.mark.parametrize("anchored", [False, True], ids=["free", "anchored"])
+@pytest.mark.parametrize("N,d,n_edges", PAST64_SHAPES)
+def test_past_64_nodes_shapes_bitwise(cuda, N, d, n_edges, anchored):
+    """Every instance at four node slots a lane (EPL 1-16, anchor-free and
+    anchored, an anchored node in a lane's last slot), 1001 instances: one
+    step and 20 steps with the production stops bitwise equal to the plain
+    version; one launch each."""
+    ep, Y0, dg = _synthetic(N, d, n_edges, seed=N + n_edges, device=cuda, B=1001)
+    if anchored:
+        ep = _with_anchors(ep, Y0)
+        assert ep.A == 3 * 40 and (ep.N - 1) in tr_solve._anchor_nodes(ep)
+    assert (ep.N, ep.E) == (N, n_edges)
+    assert tr_solve.kernel_shape(ep, 1001, d)["instances_per_block"] == 4
+    before = tr_solve.solve_tr_cuda.launches
+    _bitwise(ep, Y0, dg, maxiter=1, maxinner=24)
+    _bitwise(ep, Y0, dg, maxiter=20, **PROD)
+    assert tr_solve.solve_tr_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("B", [1, 33])
+@pytest.mark.parametrize("N,d,n_edges", [(103, 2, 209), (84, 3, 272), (128, 3, 512),
+                                         (128, 2, 512)])
+def test_past_64_nodes_small_batches_bitwise(cuda, N, d, n_edges, B):
+    """planar100's and dh40's (N, d, E) and the largest shapes at B = 1 and
+    33, with res_tol > 0 too: bitwise equal to the plain version."""
+    ep, Y0, dg = _synthetic(N, d, n_edges, seed=N + B, device=cuda, B=B)
+    _bitwise(ep, Y0, dg, maxiter=1, maxinner=24)
+    _bitwise(ep, Y0, dg, maxiter=20, res_tol=0.05, **PROD)
+
+
+@pytest.mark.parametrize("robot,shape", [("planar100", (103, 2, 209, 0)),
+                                         ("dh40", (84, 3, 272, 0)),
+                                         ("planar100_ring6", (103, 2, 209, 800))])
+def test_past_64_nodes_robots_bitwise(cuda, robot, shape):
+    """planar100, dh40 (full bound smoothing, as chip_smoke.py phase 20 runs
+    them) and planar100 with the six circles (the anchored instance, two
+    squarings as planar10_ring6) on 1000 goals prepared on the card: one
+    step and 100 steps with the production stops bitwise equal to the plain
+    version, K3 (or K4) launched once each."""
+    ps = _past64_structure(robot)
+    omega, psi_L, psi_U = ps.masks()
+    if ps.n_obstacles:
+        spec = ps.reduced_spec()
+        Nr = spec["Nr"]
+        ep = edge_ops.build_edge_problem(omega[:Nr, :Nr], psi_L[:Nr, :Nr], psi_U[:Nr, :Nr],
+                                         dim=ps.dim, anchors=spec)
+        smooth, counter = 2, "anchored_launches"
+    else:
+        ep = edge_ops.build_edge_problem(omega, psi_L, psi_U, dim=ps.dim)
+        smooth, counter = None, "launches"
+    assert (ep.N, ps.dim, ep.E, ep.A) == shape
+    T_goal, _ = api.random_goals(ps, (1000,), torch.Generator().manual_seed(ep.E),
+                                 dtype=torch.float32, device=cuda)
+    D_goal, Y0 = api.make_solver(ps, smooth_iters=smooth).prepare(T_goal)
+    Y0, dg = Y0.contiguous(), ep.edge_values(D_goal).contiguous()
+    before = getattr(tr_solve.solve_tr_cuda, counter)
+    _bitwise(ep, Y0, dg, maxiter=1, maxinner=24)
+    _bitwise(ep, Y0, dg, maxiter=100, **PROD)
+    assert getattr(tr_solve.solve_tr_cuda, counter) == before + 2
+
+
+@pytest.mark.parametrize("robot", ["planar100", "dh40"])
+def test_past_64_nodes_main_path_launches(cuda, robot):
+    """make_solver at the path's parameters (production(100, 24), the
+    10-step polish, full bound smoothing) on 64 goals: a call launches K3
+    once, K5 twice and K6 ten times, on the capture's call and on a
+    replay; finite outputs of the path's shapes."""
+    from graphik_tpu_torch.ops import eigh, linalg
+
+    ps = _past64_structure(robot)
+    solver = api.make_solver(ps, TRParams.production(maxiter=100, maxinner=24),
+                             polish_params=LocalParams(maxiter=10, tol_grad=1e-8),
+                             smooth_iters=None)
+    T_goal = api.random_goals(ps, (64,), torch.Generator().manual_seed(19),
+                              dtype=torch.float32, device=cuda)[0]
+    for _ in range(2):
+        counts = (tr_solve.solve_tr_cuda.launches, eigh.sym_eigh_cuda.launches,
+                  linalg.spd_solve_cuda.launches)
+        out = solver(T_goal)
+        assert (tr_solve.solve_tr_cuda.launches - counts[0], eigh.sym_eigh_cuda.launches
+                - counts[1], linalg.spd_solve_cuda.launches - counts[2]) == (1, 2, 10)
+    assert out["Y"].shape == (64, ps.N, ps.dim)
+    assert out["q"].shape == (64, ps.template.n) and bool(torch.isfinite(out["q"]).all())
+
+
+def _ptxas_spills(pattern):
+    """{template arguments: spill store bytes} of each kernel instance of
+    the built library whose mangled name matches `pattern`."""
+    from graphik_tpu_torch.ops._build import library_path, load_library
+
+    load_library()
+    with open(library_path() + ".log") as f:
+        entries = f.read().split("Compiling entry function '")[1:]
+    out = {}
+    for entry in entries:
+        name = re.search(pattern, entry.split("'", 1)[0])
+        if name:
+            out[name.groups()] = int(re.search(r"(\d+) bytes spill stores", entry).group(1))
+    return out
+
+
+def test_past_64_nodes_instances_do_not_spill(cuda):
+    """The TR kernel's 64 instances at four node slots a lane (d = 2, 3;
+    EPL 1-16; anchor-free and anchored), K5's two block kernels (every m
+    from 66 to 128, float32 and float64) and K6's two instances at four
+    rows a lane: none spills."""
+    tr = _ptxas_spills(r"tr_wide_kernelILi(\d)ELi(\d+)ELb([01])E")
+    block = _ptxas_spills(r"sym_eigh_block_kernelI([fd])E")
+    spd = _ptxas_spills(r"warp_spd_solve_kernelI([fd])Li4E")
+    assert len(tr) == 64 and not any(tr.values()), tr
+    assert len(block) == 2 and not any(block.values()), block
+    assert len(spd) == 2 and not any(spd.values()), spd

@@ -218,16 +218,19 @@ def test_padded_rows_are_left_alone():
 
 def test_sym_eigh_on_the_cpu_is_the_plain_version():
     """On the CPU sym_eigh returns the plain version's (w, V) bit for bit
-    and launches no kernel; it refuses n > 64, integer and non-square
-    stacks, and sym_eigh_cuda refuses a CPU tensor (no fallback)."""
+    and launches no kernel, at any n (past the kernel's 128 too); it
+    refuses integer and non-square stacks, and sym_eigh_cuda refuses a CPU
+    tensor (no fallback) and n > 128, naming the limit."""
     A = torch.from_numpy(symmetric(np.random.RandomState(5), 6, 13))
     before = teigh.sym_eigh_cuda.launches
     w, V = teigh.sym_eigh(A)
     w_ref, V_ref, _ = teigh.sym_eigh_reference(A)
     assert torch.equal(w, w_ref) and torch.equal(V, V_ref)
     assert teigh.sym_eigh_cuda.launches == before
-    with pytest.raises(ValueError, match="n <= 64"):
-        teigh.sym_eigh(torch.zeros(2, 65, 65))
+    w, V = teigh.sym_eigh(torch.eye(129).expand(2, 129, 129))
+    assert torch.equal(w, torch.ones(2, 129)) and torch.equal(V, torch.eye(129).expand(2, 129, 129))
+    with pytest.raises(ValueError, match="n <= 128"):
+        teigh.sym_eigh_cuda(torch.zeros(2, 129, 129))
     with pytest.raises(TypeError):
         teigh.sym_eigh(torch.zeros(2, 4, 4, dtype=torch.int64))
     with pytest.raises(ValueError, match="square"):

@@ -4,7 +4,7 @@ larger than 32.
 
 * `ops/edge.py::lane_sum`, the kernels' node order: lane l of the 32-lane
   layout adds values l, l + 32, ... in that order, then the butterfly; held
-  to a numpy model at every width from 1 to 64, and unchanged at <= 32.
+  to a numpy model at every width from 1 to 128, and unchanged at <= 32.
 * The plain TR version (the port's float32 path on the CPU) against the JAX
   package's Pallas kernel in interpret mode on 15- and 19-DoF DH chains
   (N = 34 and 42), and against its "edge" backend on planar40 (N = 43: the
@@ -100,7 +100,7 @@ def _lane_sum_model(x):
     return _butterfly(lanes)
 
 
-@pytest.mark.parametrize("width", range(1, 65))
+@pytest.mark.parametrize("width", range(1, 129))
 def test_lane_sum_order(width):
     x = np.random.RandomState(width).normal(size=(5, width)).astype(np.float32)
     out = tedge.lane_sum(torch.from_numpy(x)).numpy()
@@ -305,10 +305,16 @@ def test_two_squarings_start_is_shared(robot):
 # ---------------------------------------------------------------------------
 
 def test_eigh_refuses_past_64():
-    A = torch.eye(65)
-    for fn in (teigh.sym_eigh_reference, teigh.sym_eigh_cuda, teigh.sym_eigh):
-        with pytest.raises(ValueError, match="n <= 64"):
-            fn(A)
+    """The kernel's wrapper refuses n = 129, naming its limit (128), before
+    it looks at the device; the plain version, and sym_eigh on a CPU
+    tensor, compute there."""
+    A = torch.eye(129)
+    with pytest.raises(ValueError, match="n <= 128"):
+        teigh.sym_eigh_cuda(A)
+    w, V, conv = teigh.sym_eigh_reference(A)
+    assert torch.equal(w, torch.ones(129)) and torch.equal(V, A) and bool(conv)
+    w, V = teigh.sym_eigh(A)
+    assert torch.equal(w, torch.ones(129)) and torch.equal(V, A)
 
 
 def _anchored(N, per_node, nodes):
@@ -324,21 +330,21 @@ def _anchored(N, per_node, nodes):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("a_R", "a_R <= 1024"), ("A", "A <= 3072"), ("N", "N <= 64"), ("E", "E <= 256")])
+    ("a_R", "a_R <= 1024"), ("A", "A <= 3072"), ("N", "N <= 128"), ("E", "E <= 512")])
 def test_tr_kernel_refuses_past_its_limits(case, match):
     """The TR kernel's wrapper refuses, before it looks at the device: a
     group of more than 1024 anchor rows (its rows would not fit the lane's
     32-bit row masks), more than 3072 anchor rows (the tables would not fit
-    the block's shared memory), N > 64 and E > 256."""
+    the block's shared memory), N > 128 and E > 512."""
     if case == "a_R":
         ep = _anchored(8, 1032, [3])
     elif case == "A":
         ep = _anchored(8, 800, [1, 2, 3, 4])
     elif case == "N":
-        ep = _anchored(65, 0, [])
+        ep = _anchored(129, 0, [])
     else:
-        N = 24
-        full = np.ones((N, N)) - np.eye(N)  # 276 edges
+        N = 33
+        full = np.ones((N, N)) - np.eye(N)  # 528 edges
         ep = tedge.build_edge_problem(full, full, full, dim=3)
     Y = torch.zeros(2, ep.N, 3)
     with pytest.raises(ValueError, match=match):

@@ -110,10 +110,13 @@ def test_spd_solve_reference_matches_jax(m, dt):
 
 
 def test_spd_solve_refuses_past_the_limit():
-    """m = 65, integers, mixed dtypes and mismatched shapes raise, naming the
-    limit; the dispatcher runs the plain version on CPU tensors."""
-    with pytest.raises(ValueError, match="m <= 64"):
-        tlinalg.spd_solve(torch.eye(65).expand(2, 65, 65), torch.ones(2, 65))
+    """The kernel's wrapper refuses m = 129, naming the limit; the plain
+    version takes it (the dispatcher runs it on CPU tensors); integers,
+    mixed dtypes and mismatched shapes raise anywhere."""
+    with pytest.raises(ValueError, match="m <= 128"):
+        tlinalg.spd_solve_cuda(torch.eye(129).expand(2, 129, 129), torch.ones(2, 129))
+    assert torch.equal(tlinalg.spd_solve(torch.eye(129).expand(2, 129, 129) * 2.0,
+                                         torch.ones(2, 129)), torch.full((2, 129), 0.5))
     with pytest.raises(TypeError, match="float32 or float64"):
         tlinalg.spd_solve(torch.ones(2, 3, 3, dtype=torch.int64),
                           torch.ones(2, 3, dtype=torch.int64))

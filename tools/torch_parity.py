@@ -12,9 +12,13 @@ one configuration at its bench parameters, float32:
     robots past 32 nodes, production(100, 24), 10-step polish: planar40
         (load_planar_chain(40, limits=pi/2): N = 43, E = 89) and dh19 (a
         19-DoF DH chain drawn from RandomState(19), limits +-pi/2: N = 42,
-        E = 126; `dh19_template`) with full bound smoothing, and
+        E = 126; `dh_template`) with full bound smoothing, and
         ur10_table192 (UR10 + table_environment(n_width=12, n_height=12):
         192 spheres, A = 1152 anchor rows) with 2-squaring smoothing;
+    robots past 64 nodes, as planar40 and dh19 (full bound smoothing):
+        planar100 (load_planar_chain(100, limits=pi/2): N = 103, E = 209)
+        and dh40 (dh19's recipe at 40 joints, drawn from RandomState(40):
+        N = 84, E = 272);
     planar40_smooth2, dh19_smooth2: planar40 and dh19 with 2-squaring
         smoothing, the UR10 path's. Two squarings bound paths of at most 4
         edges, so a long chain's far pairs keep the unbounded placeholder
@@ -32,11 +36,11 @@ one configuration at its bench parameters, float32:
         have zero spread over the goals (the tool reads it from the data)
         and K >= PERTURBED_MIN, the verdict is on the perturbed starts
         (see below);
-    planar40_perturbed: planar40 (full smoothing) with its Y0 saved and,
-        with `--init-noise K`, K perturbed starts in each half as above;
-        every goal has its own Y0 there, so the verdict is planar40's
-        single-init test and the perturbed counts only show how far one
-        start's count moves;
+    planar40_perturbed, dh40_perturbed: planar40 and dh40 (full
+        smoothing) with their Y0 saved and, with `--init-noise K`, K
+        perturbed starts in each half as above; every goal has its own Y0
+        there, so the verdict is the single-init test and the perturbed
+        counts only show how far one start's count moves;
   restarts (parallel.make_restart_solver, restart key / generator seed 7):
     ur10_restarts4, planar6_restarts2, planar10_restarts2: production(100, 24),
         10-step polish, 2-squaring smoothing;
@@ -162,6 +166,11 @@ CONFIGS = {
     "planar40_perturbed": dict(BENCH, robot="planar40", restarts=0, seed=55, backend="edge",
                                smooth=None, shared_start=True),
     "ur10_table192": dict(BENCH, robot="ur10_table192", restarts=0, seed=57),
+    "planar100": dict(BENCH, robot="planar100", restarts=0, seed=58, backend="edge", smooth=None),
+    "dh40": dict(BENCH, robot="dh40", restarts=0, seed=59, backend="edge", smooth=None),
+    # dh40 with its Y0 saved and perturbed, as planar40_perturbed
+    "dh40_perturbed": dict(BENCH, robot="dh40", restarts=0, seed=59, backend="edge",
+                           smooth=None, shared_start=True),
     "ur10_restarts4": dict(BENCH, robot="ur10", restarts=4, seed=45),
     "ur10_table_restarts2": dict(TABLE, robot="ur10_table", restarts=2, seed=46),
     "planar6_restarts2": dict(BENCH, robot="planar6", restarts=2, seed=47, backend="edge"),
@@ -185,15 +194,16 @@ CONFIGS = {
 }
 
 
-def dh19_template(templates):
-    """The 19-DoF DH chain dh19 from either package's templates module:
-    a ~ U(0.1, 0.5), d ~ U(0, 0.3), alpha from {-pi/2, 0, pi/2}, drawn in
-    that order from RandomState(19); theta = 0, joint limits +-pi/2."""
-    rs = np.random.RandomState(19)
-    a = rs.uniform(0.1, 0.5, 19)
-    d = rs.uniform(0.0, 0.3, 19)
-    alpha = rs.choice([-np.pi / 2, 0.0, np.pi / 2], 19)
-    return templates.revolute_from_dh(a, alpha, d, np.zeros(19), lb=-np.pi / 2, ub=np.pi / 2)
+def dh_template(templates, n=19):
+    """The n-DoF DH chain dh<n> (dh19, dh40) from either package's templates
+    module: a ~ U(0.1, 0.5), d ~ U(0, 0.3), alpha from {-pi/2, 0, pi/2},
+    drawn in that order from RandomState(n); theta = 0, joint limits
+    +-pi/2."""
+    rs = np.random.RandomState(n)
+    a = rs.uniform(0.1, 0.5, n)
+    d = rs.uniform(0.0, 0.3, n)
+    alpha = rs.choice([-np.pi / 2, 0.0, np.pi / 2], n)
+    return templates.revolute_from_dh(a, alpha, d, np.zeros(n), lb=-np.pi / 2, ub=np.pi / 2)
 
 
 def structure(robot, library, ProblemStructure, table_environment, tree):
@@ -205,14 +215,14 @@ def structure(robot, library, ProblemStructure, table_environment, tree):
         obstacles = {"ur10": None, "ur10_table": table_environment(),
                      "ur10_table192": table_environment(n_width=12, n_height=12)}[robot]
         return ProblemStructure.from_template(tpl, obstacles=obstacles)
-    if robot == "dh19":
+    if robot in ("dh19", "dh40"):
         templates = importlib.import_module(f"{library.__package__}.templates")
-        return ProblemStructure.from_template(dh19_template(templates))
+        return ProblemStructure.from_template(dh_template(templates, int(robot[2:])))
     if robot == "kuka_iiwa":
         return library.load_kuka()[1]
     if robot == "lwa4d":
         return library.load_schunk_lwa4d()[1]
-    if robot in ("planar6", "planar10", "planar40"):
+    if robot in ("planar6", "planar10", "planar40", "planar100"):
         return library.load_planar_chain(int(robot[6:]), limits=np.pi / 2)[1]
     if robot == "planar10_ring6":
         from graphik_tpu_torch.utils.environments import ring_environment
